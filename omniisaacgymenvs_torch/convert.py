@@ -1,0 +1,65 @@
+"""Carry a model or a state across from the JAX package as numpy arrays.
+
+`model_from_arrays` takes the fields of a JAX `Model` (numeric fields as
+numpy arrays, structural fields as they are) and builds the port's Model;
+`state_from_arrays` / `env_state_from_arrays` do the same for `State` and
+`EnvState`. The model's constants play the role of weights, so both
+packages compute on identical inputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from omniisaacgymenvs_torch.physics.model import Model
+from omniisaacgymenvs_torch.physics.state import State
+from omniisaacgymenvs_torch.tasks.base import EnvState
+
+# Model fields kept as numpy integer index tables
+_INDEX_FIELDS = ("jq_idx", "jv_idx", "cp_body", "pair_point", "tendon_dof")
+
+
+def _tensor(x, device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype == np.bool_:
+        return torch.as_tensor(a.copy(), device=device)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.as_tensor(a.astype(np.int32), device=device)
+    return torch.as_tensor(a.astype(np.float32), device=device)
+
+
+def model_from_arrays(fields: dict, device="cpu") -> Model:
+    out = {}
+    for f in dataclasses.fields(Model):
+        v = fields[f.name]
+        if f.name in _INDEX_FIELDS:
+            out[f.name] = np.asarray(v, np.int32)
+        elif isinstance(v, np.ndarray):
+            out[f.name] = _tensor(v, device)
+        else:
+            out[f.name] = v
+    return Model(**out)
+
+
+def state_from_arrays(fields: dict, device="cpu") -> State:
+    return State(**{f.name: _tensor(fields[f.name], device)
+                    for f in dataclasses.fields(State)})
+
+
+def env_state_from_arrays(fields: dict, device="cpu") -> EnvState:
+    """fields: the EnvState's fields as numpy arrays, with `phys` a dict of
+    State fields and `carry` / `metrics` dicts of arrays."""
+    return EnvState(
+        phys=state_from_arrays(fields["phys"], device),
+        carry={k: _tensor(v, device) for k, v in fields["carry"].items()},
+        obs=_tensor(fields["obs"], device),
+        states=_tensor(fields["states"], device),
+        reward=_tensor(fields["reward"], device),
+        done=_tensor(fields["done"], device),
+        timeout=_tensor(fields["timeout"], device),
+        progress=_tensor(fields["progress"], device),
+        metrics={k: _tensor(v, device) for k, v in fields["metrics"].items()},
+    )

@@ -1,0 +1,56 @@
+"""Vectorized environment: batched reset/step/rollout over all envs
+(PyTorch port of the JAX package's `envs/vec_env.py`).
+
+Every env lives on the task's device; one `torch.Generator` on that device
+per VecEnv draws the reset noise and, in `rollout`, is handed to the
+policy.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from omniisaacgymenvs_torch.tasks.base import EnvState, RLTask
+
+
+class VecEnv:
+    def __init__(self, task: RLTask, num_envs: int, seed: int = 0):
+        self.task = task
+        self.num_envs = num_envs
+        self.device = task.device
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+
+    @property
+    def num_obs(self) -> int:
+        return self.task.num_obs
+
+    @property
+    def num_states(self) -> int:
+        return self.task.num_states
+
+    @property
+    def num_actions(self) -> int:
+        return self.task.num_actions
+
+    # ------------------------------------------------------------------
+    def reset(self, seed: int = 0) -> EnvState:
+        self.generator.manual_seed(seed)
+        return self.task.reset(self.num_envs, self.generator)
+
+    def step(self, es: EnvState, actions: torch.Tensor) -> EnvState:
+        """actions: (num_envs, num_actions) -> next EnvState."""
+        return self.task.step(es, actions, self.generator)
+
+    # ------------------------------------------------------------------
+    def rollout(self, es: EnvState, policy_fn, horizon: int):
+        """`horizon` steps; policy_fn(obs, generator) -> actions. Returns the
+        final state and the stacked (obs, reward, done) of every step."""
+        obs, rew, done = [], [], []
+        for _ in range(horizon):
+            actions = policy_fn(es.obs, self.generator)
+            es = self.step(es, actions)
+            obs.append(es.obs)
+            rew.append(es.reward)
+            done.append(es.done)
+        return es, (torch.stack(obs), torch.stack(rew), torch.stack(done))

@@ -1,0 +1,67 @@
+"""Where a random-policy control step spends its time on the card.
+
+    python -m omniisaacgymenvs_torch.scripts.profile_rollout \
+        task=Humanoid num_envs=32768 max_iterations=8
+
+Builds the same VecEnv as `random_policy`, resets and warms up for two
+steps, then traces `max_iterations` steps with `torch.profiler`. Prints
+the wall time per control step, the device-busy share of the window
+(kernel time summed over one stream, over wall time), and the kernels by
+device time. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from omniisaacgymenvs_torch.scripts.random_policy import build_env, uniform_policy
+
+
+def _device_us(evt) -> float:
+    # renamed from self_cuda_time_total in newer PyTorch releases
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def main(argv=None) -> int:
+    cfg, _, env = build_env(argv)
+    if env.device.type != "cuda":
+        raise SystemExit("profile_rollout measures the card: needs device=cuda")
+    steps = int(cfg.get("max_iterations") or 8)
+    policy = uniform_policy(env.num_actions)
+    es = env.reset(seed=int(cfg["seed"]))
+    for _ in range(2):
+        es = env.step(es, policy(es.obs, env.generator))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            es = env.step(es, policy(es.obs, env.generator))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(_device_us(e) for e in kernels)
+    print(f"{cfg['task_name']} {env.num_envs} envs, {steps} traced steps: "
+          f"{wall_us / steps / 1e3:.4f} ms per control step (wall, traced), "
+          f"device busy {busy_us / steps / 1e3:.4f} ms per step, "
+          f"idle share {1.0 - busy_us / wall_us:.4f}, "
+          f"{sum(e.count for e in kernels) / steps:.1f} kernel launches "
+          f"per step")
+    kernels.sort(key=_device_us, reverse=True)
+    print("device time per step by kernel (ms, share of busy, calls per step):")
+    for e in kernels[:15]:
+        us = _device_us(e)
+        print(f"  {us / steps / 1e3:10.4f}  {us / max(busy_us, 1e-9):7.4f}  "
+              f"{e.count / steps:6.1f}  {e.key[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

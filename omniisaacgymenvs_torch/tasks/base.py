@@ -1,0 +1,169 @@
+"""Task base: the RLTask contract over batched tensors (PyTorch port of the
+JAX package's `tasks/base.py`, without randomization).
+
+A task is a set of batched hooks (sample_reset, control, observe,
+reward_done) over an `EnvState` whose fields carry a leading env axis.
+`step` auto-resets on entry: it computes a fresh reset for every env and
+merges it with `torch.where` on the previous step's done flag, so no env
+index ever reaches the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict
+
+import torch
+
+from omniisaacgymenvs_torch.physics.engine import PhysicsEngine
+from omniisaacgymenvs_torch.physics.state import Control, State
+
+
+@dataclasses.dataclass
+class EnvState:
+    """Task state of a batch of envs (obs/reward/done/progress buffers,
+    the physics state and the task's carry)."""
+
+    phys: State
+    carry: Any
+    obs: torch.Tensor          # (N, num_obs)
+    states: torch.Tensor       # (N, num_states)
+    reward: torch.Tensor       # (N,) f32
+    done: torch.Tensor         # (N,) bool
+    timeout: torch.Tensor      # (N,) bool: episode ended by time limit
+    progress: torch.Tensor     # (N,) int32
+    metrics: Dict[str, torch.Tensor]
+
+
+def tree_where(cond: torch.Tensor, new, old):
+    """Per-env select between two equally shaped states: `new` where
+    cond (N,) is true. Walks dataclasses, dicts, tuples and tensors."""
+    if isinstance(new, torch.Tensor):
+        c = cond.reshape(cond.shape + (1,) * (new.ndim - 1))
+        return torch.where(c, new, old)
+    if dataclasses.is_dataclass(new):
+        return dataclasses.replace(new, **{
+            f.name: tree_where(cond, getattr(new, f.name), getattr(old, f.name))
+            for f in dataclasses.fields(new)
+        })
+    if isinstance(new, dict):
+        return {k: tree_where(cond, new[k], old[k]) for k in new}
+    if isinstance(new, (tuple, list)):
+        return type(new)(tree_where(cond, a, b) for a, b in zip(new, old))
+    raise TypeError(f"cannot merge {type(new)}")
+
+
+class RLTask:
+    """Base of all tasks. Subclasses define the model and engine and the
+    batched hooks:
+      initial_carry(n) -> carry
+      sample_reset(n, generator) -> (q, qd, carry)
+      control(action, es) -> Control
+      observe(phys, carry, action) -> (obs, states, carry)
+      reward_done(obs, action, phys, carry, progress)
+          -> (reward, done, carry, metrics)
+    """
+
+    name: str = "RLTask"
+    num_obs: int = 0
+    num_states: int = 0
+    num_actions: int = 0
+    max_episode_length: int = 500
+    clip_obs: float = math.inf
+    clip_actions: float = math.inf
+    decimation: int = 1
+
+    engine: PhysicsEngine
+
+    @property
+    def device(self) -> torch.device:
+        return self.engine.device
+
+    @property
+    def timeout_progress(self) -> int:
+        """Progress at which an episode ends by time limit."""
+        return self.max_episode_length - 1
+
+    def initial_metrics(self, n: int) -> Dict[str, torch.Tensor]:
+        return {}
+
+    def sample_reset(self, n: int, generator: torch.Generator):
+        raise NotImplementedError
+
+    def control(self, action: torch.Tensor, es: EnvState) -> Control:
+        raise NotImplementedError
+
+    def observe(self, phys: State, carry, action: torch.Tensor):
+        raise NotImplementedError
+
+    def reward_done(self, obs, action, phys, carry, progress):
+        raise NotImplementedError
+
+    # ------------------------------------------------------------------
+    def reset(self, n: int, generator: torch.Generator) -> EnvState:
+        """Fresh state of n envs."""
+        q, qd, carry = self.sample_reset(n, generator)
+        phys = self.engine.init_state(q, qd)
+        zero_action = torch.zeros((n, self.num_actions), device=self.device)
+        obs, states, carry = self.observe(phys, carry, zero_action)
+        z = torch.zeros(n, dtype=torch.bool, device=self.device)
+        return EnvState(
+            phys=phys,
+            carry=carry,
+            obs=obs,
+            states=states,
+            reward=torch.zeros(n, device=self.device),
+            done=z,
+            timeout=z.clone(),
+            progress=torch.zeros(n, dtype=torch.int32, device=self.device),
+            metrics=self.initial_metrics(n),
+        )
+
+    def physics_steps(self, phys: State, ctrl: Control) -> State:
+        """decimation x engine.step: one K1 launch on CUDA."""
+        return self.engine.step_n(phys, ctrl, self.decimation)
+
+    def step(self, es: EnvState, action: torch.Tensor,
+             generator: torch.Generator) -> EnvState:
+        """One control step. Envs flagged done on the previous step are
+        re-sampled before the actions apply: a fresh reset of every env is
+        merged with `where` on the done flag."""
+        n = es.done.shape[0]
+        fresh = self.reset(n, generator)
+        es = tree_where(es.done, fresh, es)
+
+        action = torch.clamp(action, -self.clip_actions, self.clip_actions)
+        ctrl = self.control(action, es)
+        phys = self.physics_steps(es.phys, ctrl)
+        progress = es.progress + 1
+        obs, states, carry = self.observe(phys, es.carry, action)
+        reward, done, carry, metrics = self.reward_done(
+            obs, action, phys, carry, progress
+        )
+        # physics-explosion guard: a non-finite state ends the episode with
+        # zero reward instead of poisoning the batch
+        finite = torch.isfinite(
+            phys.q.sum(-1) + phys.qd.sum(-1) + reward
+        )
+        done = done | ~finite
+        reward = torch.where(finite, reward, torch.zeros_like(reward))
+        obs = torch.nan_to_num(
+            torch.clamp(obs, -self.clip_obs, self.clip_obs),
+            posinf=1e6, neginf=-1e6,
+        )
+        states = torch.nan_to_num(
+            torch.clamp(states, -self.clip_obs, self.clip_obs),
+            posinf=1e6, neginf=-1e6,
+        )
+        return EnvState(
+            phys=phys,
+            carry=carry,
+            obs=obs,
+            states=states,
+            reward=reward,
+            done=done,
+            timeout=progress >= self.timeout_progress,
+            progress=progress,
+            metrics=metrics,
+        )
