@@ -5,18 +5,22 @@
 Phases (any failure exits non-zero):
   1. the card's name and power limit, and the nvcc build of the kernels
      (registers and spills as ptxas reports them);
-  2. K1 (whole control step) against its plain version on the card:
-     Humanoid, 32768 + 37 envs (the last block partly masked), 4 substeps,
-     states near default_q with some contact points in the ground;
-  3. K2 (report FK) against its plain version on the same states;
-  4. the main path: the random-policy entry point's Humanoid VecEnv at
+  2. K1 (whole control step), K2 (report FK) and K3 (single substep)
+     against their plain versions on the card: Humanoid at 32768 + 37 envs
+     (the last block partly masked), ShadowHand at 8192 + 37, BallBalance,
+     Cartpole and the synthetic pair scene of ops/parity.py (sphere,
+     capsule and box surfaces, a prismatic joint, a tendon), on check
+     states that put contact points in the ground and pairs in contact;
+  3. the Humanoid main path: the random-policy entry point's VecEnv at
      32768 envs, reset and a 64-step rollout, with the launch counts read
      around it (K1 exactly once per control step, K2 at least as often);
      the rollout's rate over repeated runs; a short rollout on the card
      against the plain path on the CPU;
-  5. K1 / K2 against their plain versions again at 32768 envs, and their
-     times there (CUDA events) beside the plain versions' and the roofline
-     bound.
+  4. the ShadowHand main path, the same at 8192 envs, with the cube still
+     in the hand in most envs;
+  5. K1 / K2 / K3 against their plain versions again at the main paths'
+     env counts, and their times there (CUDA events) beside the plain
+     versions' and the roofline bound.
 Tolerances and check states come from omniisaacgymenvs_torch/ops/parity.py.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -24,6 +28,7 @@ The line before the last is the `kernels` JSON; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -36,13 +41,18 @@ import torch
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 
-N_MAIN = 32768
-N_CHECK = N_MAIN + 37  # not a multiple of the kernels' 128-thread block
 STEPS = 64
-RATE_RUNS = 5  # untraced rollouts timed for the rate's spread
-N_SUB = 4  # Humanoid: decimation 2 x substeps 2
+RATE_RUNS = 3  # untraced rollouts timed for the rate's spread
+# the main paths: task, env count (the task yaml's numEnvs for ShadowHand)
+MAIN = {"Humanoid": 32768, "ShadowHand": 8192}
+# smaller scenes that hold a FIXED root, a prismatic joint, a forest and
+# every surface type on the card
+SIDE = {"BallBalance": 4096, "Cartpole": 512, "PairScene": 4096}
+N_PAD = 37  # the checks' env counts are not a multiple of the 128-thread block
 # end to end, kernel path on the card vs plain path on the CPU, 3 steps
 E2E_TOL = (5e-3, 5e-3)
+SOURCE = "omniisaacgymenvs_torch/ops/csrc/fused_step.cu"
+TPU_FILE = "omniisaacgymenvs_tpu/ops/fused_substep.py"
 
 
 def log(*a):
@@ -71,15 +81,26 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def to_cpu(x):
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: to_cpu(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    return {k: to_cpu(v) for k, v in x.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from omniisaacgymenvs_torch.envs import VecEnv
     from omniisaacgymenvs_torch.ops import fused_step as fs
     from omniisaacgymenvs_torch.ops import parity
-    from omniisaacgymenvs_torch.physics import rotations as rot
-    from omniisaacgymenvs_torch.physics.engine import PhysicsEngine
+    from omniisaacgymenvs_torch.physics.engine import PhysicsEngine, SimParams
     from omniisaacgymenvs_torch.scripts import random_policy
+    from omniisaacgymenvs_torch.tasks import get_task
+    from omniisaacgymenvs_torch.utils.config import load_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -97,150 +118,180 @@ def main() -> int:
                                    "Compiling entry")):
             log(f"  ptxas: {line.strip()}")
 
-    # ---- 2./3. kernels against their plain versions ----
-    from omniisaacgymenvs_torch.tasks import get_task
+    # the engines the kernels are held on: each task as its yaml configures
+    # it (the main path's substep and decimation), the pair scene alone
+    engines, n_sub = {}, {}
+    for name in list(MAIN) + list(SIDE):
+        if name == "PairScene":
+            engines[name] = PhysicsEngine(parity.build_pair_scene(dev),
+                                          SimParams(dt=1.0 / 120.0, substeps=2))
+            n_sub[name] = 4
+        else:
+            task = get_task(name, load_config({"task": name})["task"], device=dev)
+            engines[name] = task.engine
+            n_sub[name] = task.decimation * task.engine.params.substeps
 
-    task = get_task("Humanoid", device=dev)
-    eng: PhysicsEngine = task.engine
-    m = eng.model
-    q, qd, eff = parity.check_inputs(m, N_CHECK, seed=0, device=dev)
-    z = torch.zeros((N_CHECK, m.njd), device=dev)
-    fa = torch.zeros((N_CHECK, m.nb, 6), device=dev)
-    pos0, quat0, _, _ = fs.fk_plain(m, q, qd)
-    cb = torch.as_tensor(m.cp_body, dtype=torch.long, device=dev)
-    pt = pos0[:, cb] + (rot.quat_to_rotmat(quat0[:, cb])
-                        @ m.cp_pos[..., None])[..., 0]
-    n_pen = int((pt[..., 2] < m.cp_radius).sum())
-    log(f"K1 check: {N_CHECK} envs, {N_SUB} substeps, {n_pen} contact "
-        f"points in the ground")
-    assert n_pen > 0, "the check states must put contact points in the ground"
-    k1 = fs.step(eng, q, qd, eff, z, z, fa, N_SUB)
-    p1 = fs.step_plain(eng, q, qd, eff, z, z, fa, N_SUB)
-    torch.cuda.synchronize()
-    err1 = parity.assert_within(
-        "K1", parity.compare(k1, p1, parity.STEP_NAMES, parity.STEP_TOL),
-        parity.STEP_TOL, log)
-    k2 = fs.fk(eng, q, qd)
-    p2 = fs.fk_plain(m, q, qd)
-    torch.cuda.synchronize()
-    err2 = parity.assert_within(
-        "K2", parity.compare(k2, p2, parity.FK_NAMES, parity.FK_TOL),
-        parity.FK_TOL, log)
-    del q, qd, eff, z, fa, k1, p1, k2, p2, pos0, quat0, pt
+    def check(name: str, n: int, seed: int) -> dict:
+        """K1, K2 and K3 of `name`'s engine against their plain versions on
+        n check states; the largest abs error per kernel."""
+        eng = engines[name]
+        m = eng.model
+        q, qd, eff = parity.check_inputs(m, n, seed=seed, device=dev)
+        ptg = parity.check_targets(m, q, seed)
+        z = torch.zeros((n, m.njd), device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        fa = 0.05 * torch.randn((n, m.nb, 6), device=dev, generator=gen)
+        active = parity.active_contacts(eng, q, qd)
+        log(f"{name} check: {n} envs, {n_sub[name]} substeps, active contacts "
+            f"{active}")
+        if name == "Humanoid":
+            assert active["ground"] > 0, "no contact point in the ground"
+        if len(m.pair_surf):
+            assert active["pairs"] > 0, "no pair in contact"
+        if name == "PairScene":
+            assert min(active[k] for k in ("sphere", "capsule", "box")) > 0, active
+        errs = {}
+        for key, label, names, tol, run_k, run_p in (
+            ("step", "K1", parity.STEP_NAMES, parity.step_tol(m),
+             lambda: fs.step(eng, q, qd, eff, ptg, z, fa, n_sub[name]),
+             lambda: fs.step_plain(eng, q, qd, eff, ptg, z, fa, n_sub[name])),
+            ("fk", "K2", parity.FK_NAMES, parity.FK_TOL,
+             lambda: fs.fk(eng, q, qd), lambda: fs.fk_plain(m, q, qd)),
+            ("substep", "K3", parity.SUBSTEP_NAMES, parity.SUBSTEP_TOL,
+             lambda: fs.substep(eng, q, qd, eff, ptg, z, fa),
+             lambda: fs.substep_plain(eng, q, qd, eff, ptg, z, fa)),
+        ):
+            out, ref = run_k(), run_p()
+            torch.cuda.synchronize()
+            errs[key] = parity.assert_within(
+                f"{name} {label}", parity.compare(out, ref, names, tol), tol, log)
+        return errs
 
-    # ---- 4. the main path ----
-    argv = ["task=Humanoid", f"num_envs={N_MAIN}", f"max_iterations={STEPS}",
-            "seed=0", "device=cuda"]
-    cfg, mtask, env = random_policy.build_env(argv)
-    kern = mtask.engine.kernels
-    kern.reset_counts()
-    stats = random_policy.drive(cfg, env)
-    launches = dict(kern.launches)
-    log(f"main path: {card} | Humanoid {N_MAIN} envs x {STEPS} steps: "
-        f"{stats['env_steps_per_s']:.1f} env-steps/s, "
-        f"{stats['seconds'] * 1e3 / STEPS:.3f} ms per control step, "
-        f"mean reward {stats['mean_reward']:.4f}, done rate "
-        f"{stats['done_rate']:.4f}, launches {launches}")
-    assert launches["step"] == STEPS, launches
-    assert launches["fk"] >= STEPS, launches
-    es = stats["state"]
-    obs, rew, done = stats["trajectory"]
-    assert obs.shape == (STEPS, N_MAIN, 87) and rew.shape == (STEPS, N_MAIN)
-    for name, x in (("obs", obs), ("reward", rew), ("q", es.phys.q),
-                    ("qd", es.phys.qd), ("body_pos", es.phys.body_pos)):
-        assert torch.isfinite(x).all(), f"non-finite {name}"
-    assert float(done.float().mean()) < 0.5, "most envs must stay up"
-    del es, obs, rew, done, stats
-    rates = []
-    for _ in range(RATE_RUNS):
-        r = random_policy.drive(cfg, env)
-        rates.append(r["env_steps_per_s"])
-        del r
-    rs = sorted(rates)
-    log(f"main path rate: {card} | {RATE_RUNS} more rollouts of {STEPS} "
-        f"steps: env-steps/s min {rs[0]:.1f}, median {rs[len(rs) // 2]:.1f}, "
-        f"max {rs[-1]:.1f} ({', '.join(f'{x:.1f}' for x in rates)})")
-    del env
+    # ---- 2. kernels against their plain versions ----
+    errs = {}
+    for name, n in {**MAIN, **SIDE}.items():
+        errs[name] = check(name, n + N_PAD, seed=0)
 
-    # a short rollout on the card vs the plain path on the CPU, same start
-    # and actions; envs that reset in either are left out (their noise is
-    # drawn from different generators)
-    import dataclasses
+    # ---- 3./4. the main paths ----
+    launches = {}
 
-    from omniisaacgymenvs_torch.envs import VecEnv
-    from omniisaacgymenvs_torch.tasks.base import EnvState
+    def main_path(name: str, n: int, e2e_envs: int):
+        argv = [f"task={name}", f"num_envs={n}", f"max_iterations={STEPS}",
+                "seed=0", "device=cuda"]
+        cfg, mtask, env = random_policy.build_env(argv)
+        kern = mtask.engine.kernels
+        kern.reset_counts()
+        stats = random_policy.drive(cfg, env)
+        launches[name] = dict(kern.launches)
+        log(f"main path: {card} | {name} {n} envs x {STEPS} steps: "
+            f"{stats['env_steps_per_s']:.1f} env-steps/s, "
+            f"{stats['seconds'] * 1e3 / STEPS:.3f} ms per control step, "
+            f"mean reward {stats['mean_reward']:.4f}, done rate "
+            f"{stats['done_rate']:.4f}, launches {launches[name]}")
+        assert launches[name]["step"] == STEPS, launches
+        assert launches[name]["fk"] >= STEPS, launches
+        es = stats["state"]
+        obs, rew, done = stats["trajectory"]
+        assert obs.shape == (STEPS, n, mtask.num_obs), obs.shape
+        assert rew.shape == (STEPS, n)
+        for label, x in (("obs", obs), ("reward", rew), ("q", es.phys.q),
+                         ("qd", es.phys.qd), ("body_pos", es.phys.body_pos)):
+            assert torch.isfinite(x).all(), f"non-finite {label}"
+        # Humanoid: most envs stay up; ShadowHand: the cube stays in the
+        # hand in most envs (the plain path on the CPU shows a done rate of
+        # the same size under the same policy, PERF.md)
+        assert float(done.float().mean()) < 0.5, "most envs must not end"
+        del es, obs, rew, done, stats
+        rates = []
+        for _ in range(RATE_RUNS):
+            r = random_policy.drive(cfg, env)
+            rates.append(r["env_steps_per_s"])
+            del r
+        rs = sorted(rates)
+        log(f"main path rate: {card} | {name} {RATE_RUNS} more rollouts of "
+            f"{STEPS} steps: env-steps/s min {rs[0]:.1f}, median "
+            f"{rs[len(rs) // 2]:.1f}, max {rs[-1]:.1f} "
+            f"({', '.join(f'{x:.1f}' for x in rates)})")
+        del env
 
-    def to_cpu(x):
-        if isinstance(x, torch.Tensor):
-            return x.cpu()
-        if dataclasses.is_dataclass(x):
-            return dataclasses.replace(x, **{f.name: to_cpu(getattr(x, f.name))
-                                             for f in dataclasses.fields(x)})
-        return {k: to_cpu(v) for k, v in x.items()}
+        # a short rollout on the card vs the plain path on the CPU, same
+        # start and actions; envs that reset in either are left out (their
+        # noise is drawn from different generators)
+        task_cfg = cfg["task"]
+        genv = VecEnv(get_task(name, task_cfg, device=dev), e2e_envs, seed=5)
+        cenv = VecEnv(get_task(name, task_cfg, device="cpu"), e2e_envs, seed=5)
+        ges = genv.reset(seed=5)
+        ces = to_cpu(ges)
+        g = torch.Generator().manual_seed(7)
+        ever_done = torch.zeros(e2e_envs, dtype=torch.bool)
+        for _ in range(3):
+            a = 2 * torch.rand((e2e_envs, genv.num_actions), generator=g) - 1
+            ges = genv.step(ges, a.to(dev))
+            ces = cenv.step(ces, a)
+            ever_done |= ges.done.cpu() | ces.done
+        keep = ~ever_done
+        err = (ges.obs.cpu()[keep] - ces.obs[keep]).abs()
+        rtol, atol = E2E_TOL
+        assert keep.sum() > e2e_envs // 2
+        assert bool((err <= atol + rtol * ces.obs[keep].abs()).all()), float(err.max())
+        log(f"end to end vs CPU plain path: {name} {int(keep.sum())} envs x 3 "
+            f"steps, obs max abs err {float(err.max()):.3e} (rtol {rtol}, "
+            f"atol {atol})")
 
-    n_e2e = 256
-    genv = VecEnv(get_task("Humanoid", device=dev), n_e2e, seed=5)
-    cenv = VecEnv(get_task("Humanoid", device="cpu"), n_e2e, seed=5)
-    ges = genv.reset(seed=5)
-    ces: EnvState = to_cpu(ges)
-    g = torch.Generator().manual_seed(7)
-    ever_done = torch.zeros(n_e2e, dtype=torch.bool)
-    for _ in range(3):
-        a = 2 * torch.rand((n_e2e, genv.num_actions), generator=g) - 1
-        ges = genv.step(ges, a.to(dev))
-        ces = cenv.step(ces, a)
-        ever_done |= ges.done.cpu() | ces.done
-    keep = ~ever_done
-    err = (ges.obs.cpu()[keep] - ces.obs[keep]).abs()
-    rtol, atol = E2E_TOL
-    assert keep.sum() > n_e2e // 2
-    assert bool((err <= atol + rtol * ces.obs[keep].abs()).all()), float(err.max())
-    log(f"end to end vs CPU plain path: {int(keep.sum())} envs x 3 steps, "
-        f"obs max abs err {float(err.max()):.3e} (rtol {rtol}, atol {atol})")
+    main_path("Humanoid", MAIN["Humanoid"], 256)
+    main_path("ShadowHand", MAIN["ShadowHand"], 128)
 
-    # ---- 5. kernels against plain again, and times, at the main path's
+    # ---- 5. kernels against plain again, and times, at the main paths'
     # shapes ----
-    q, qd, eff = parity.check_inputs(m, N_MAIN, seed=1, device=dev)
-    z = torch.zeros((N_MAIN, m.njd), device=dev)
-    fa = torch.zeros((N_MAIN, m.nb, 6), device=dev)
-    err1 = max(err1, parity.assert_within(
-        "K1", parity.compare(fs.step(eng, q, qd, eff, z, z, fa, N_SUB),
-                             fs.step_plain(eng, q, qd, eff, z, z, fa, N_SUB),
-                             parity.STEP_NAMES, parity.STEP_TOL),
-        parity.STEP_TOL, log))
-    err2 = max(err2, parity.assert_within(
-        "K2", parity.compare(fs.fk(eng, q, qd), fs.fk_plain(m, q, qd),
-                             parity.FK_NAMES, parity.FK_TOL),
-        parity.FK_TOL, log))
-    ops, nbytes = fs.op_count(m, N_SUB), fs.io_bytes(m)
     rows = []
-    for key, name, line, src_err, run_k, run_p in (
-        ("step", "fused_step_k1", 1016, err1,
-         lambda: fs.step(eng, q, qd, eff, z, z, fa, N_SUB),
-         lambda: fs.step_plain(eng, q, qd, eff, z, z, fa, N_SUB)),
-        ("fk", "report_fk_k2", 943, err2,
-         lambda: fs.fk(eng, q, qd),
-         lambda: fs.fk_plain(m, q, qd)),
-    ):
-        ms = time_ms(run_k, 20)
-        plain_ms = time_ms(run_p, 3)
-        t_bytes = N_MAIN * nbytes[key] / PEAK_BYTES_S * 1e3
-        t_ops = N_MAIN * ops[key] / PEAK_FP32_S * 1e3
-        bound_ms = max(t_bytes, t_ops)
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        log(f"{name}: {card} | {N_MAIN} envs: {ms:.4f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-            f"({ops[key]} FP32 ops and {nbytes[key]} bytes per env), "
-            f"{bound_ms / ms * 100:.2f}% of roofline")
-        rows.append(dict(
-            name=name, route="cuda",
-            source="omniisaacgymenvs_torch/ops/csrc/fused_step.cu",
-            replaces=f"omniisaacgymenvs_tpu/ops/fused_substep.py:{line}",
-            launches=launches[key], max_abs_err=src_err, ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None,
-        ))
+    for name, n in MAIN.items():
+        again = check(name, n, seed=1)
+        eng = engines[name]
+        m = eng.model
+        q, qd, eff = parity.check_inputs(m, n, seed=1, device=dev)
+        ptg = parity.check_targets(m, q, 1)
+        z = torch.zeros((n, m.njd), device=dev)
+        fa = torch.zeros((n, m.nb, 6), device=dev)
+        ops, nbytes = fs.op_count(m, n_sub[name]), fs.io_bytes(m)
+        suffix = "" if name == "Humanoid" else "_" + name.lower()
+        for key, kname, line, run_k, run_p in (
+            ("step", "fused_step_k1", 1016,
+             lambda: fs.step(eng, q, qd, eff, ptg, z, fa, n_sub[name]),
+             lambda: fs.step_plain(eng, q, qd, eff, ptg, z, fa, n_sub[name])),
+            ("fk", "report_fk_k2", 943,
+             lambda: fs.fk(eng, q, qd), lambda: fs.fk_plain(m, q, qd)),
+            ("substep", "substep_k3", 898,
+             lambda: fs.substep(eng, q, qd, eff, ptg, z, fa),
+             lambda: fs.substep_plain(eng, q, qd, eff, ptg, z, fa)),
+        ):
+            ms = time_ms(run_k, 20)
+            plain_ms = time_ms(run_p, 2)
+            t_bytes = n * nbytes[key] / PEAK_BYTES_S * 1e3
+            t_ops = n * ops[key] / PEAK_FP32_S * 1e3
+            bound_ms = max(t_bytes, t_ops)
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            log(f"{kname} {name}: {card} | {n} envs: {ms:.4f} ms, plain "
+                f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+                f"({ops[key]} FP32 ops and {nbytes[key]} bytes per env), "
+                f"{bound_ms / ms * 100:.2f}% of roofline, "
+                f"{launches[name][key]} launches on the main path")
+            rows.append(dict(
+                name=kname + suffix, model=name, route="cuda", source=SOURCE,
+                replaces=f"{TPU_FILE}:{line}", launches=launches[name][key],
+                max_abs_err=max(errs[name][key], again[key]), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None,
+            ))
+        if n_sub[name] != 4:
+            # beside the main path's depth, K1 at four substeps
+            ms4 = time_ms(lambda: fs.step(eng, q, qd, eff, ptg, z, fa, 4), 20)
+            log(f"fused_step_k1 {name}: {card} | {n} envs, 4 substeps "
+                f"instead of the main path's {n_sub[name]}: {ms4:.4f} ms")
     torch.cuda.synchronize()
+    # K1 and K2 carry each main path; K3 is a launch mode no product path
+    # takes, held against its plain version above
+    for r in rows:
+        assert r["launches"] > 0 or r["name"].startswith("substep_k3"), r
 
     log(card)
     print(json.dumps({"kernels": rows}))

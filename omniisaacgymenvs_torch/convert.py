@@ -51,10 +51,12 @@ def state_from_arrays(fields: dict, device="cpu") -> State:
 
 def env_state_from_arrays(fields: dict, device="cpu") -> EnvState:
     """fields: the EnvState's fields as numpy arrays, with `phys` a dict of
-    State fields and `carry` / `metrics` dicts of arrays."""
+    State fields and `carry` / `metrics` dicts of arrays (an empty carry of
+    another type becomes an empty dict)."""
     return EnvState(
         phys=state_from_arrays(fields["phys"], device),
-        carry={k: _tensor(v, device) for k, v in fields["carry"].items()},
+        carry={k: _tensor(v, device)
+               for k, v in dict(fields["carry"] or {}).items()},
         obs=_tensor(fields["obs"], device),
         states=_tensor(fields["states"], device),
         reward=_tensor(fields["reward"], device),

@@ -13,15 +13,20 @@
  *   oige_fk   -> the same file, batched_fk / fk_kernel (K2): report FK only,
  *                (q, qd) -> world pos, quat, angular and linear velocity of
  *                every body.
- *   Scope of this slice: one FREE root at body 0, revolute joints, the flat
- *   ground plane z = 0 with per-point gains, force sensors. The wrapper
- *   refuses models with anything else (pair contacts, tendons, gravity
- *   compensation, FIXED roots, prismatic joints, terrain planes,
- *   randomization overlays).
+ *   oige_substep -> the same file, batched / kernel (K3): one substep,
+ *                (q, qd, controls) -> (q', qd', sensor wrenches), no report
+ *                FK. It launches step_kernel with n_steps = 1 and the report
+ *                switched off, so there is one substep body for K1 and K3.
+ *   Scope: forests of FREE and FIXED roots, revolute and prismatic joints,
+ *   the flat ground plane z = 0 with per-point gains, point-vs-surface pair
+ *   contacts (sphere, capsule, box), gravity compensation, fixed tendons,
+ *   force sensors. The wrapper refuses models with terrain planes or
+ *   randomization overlays.
  *
  * What bounds it on this card
  *   Per env, K1 moves about 2.4 KB (250 input and 353 output floats for the
- *   Humanoid) and does of order 10^5 FP32 operations over 4 substeps, so by
+ *   Humanoid, 289 and 429 for the ShadowHand scene) and does of order 10^5
+ *   FP32 operations over 4 substeps, so by
  *   the roofline it is bound by FP32 issue, not by device-memory bytes
  *   (ops/fused_step.py op_count counts what the function needs: it skips
  *   X's zero block and uses the symmetry of X^T Ia X, which this kernel
@@ -38,15 +43,18 @@
  *   substeps, and every input is read once and every output written once
  *   per launch. Model constants sit in one packed device table built once
  *   per engine and read with __ldg: all threads of a warp read the same
- *   address, so each read is a broadcast. Bodies are walked in index order
- *   (parent < child): forward for kinematics and the outward pass, backward
- *   for the inward pass. Local-memory scratch is accepted in this first
- *   version.
+ *   address, so each read is a broadcast, and every branch on a joint, root
+ *   or surface type is taken by the whole warp alike. Bodies are walked in
+ *   index order (parent < child): forward for kinematics and the outward
+ *   pass, backward for the inward pass. Local-memory scratch is accepted in
+ *   this first version.
  *
  * Precision: built without fast math. sqrtf, divisions, sincosf and tanhf
  * are the precise functions, and the floors are those of the JAX kernel:
  * 1e-12 in the Cholesky, in Shepperd's quaternion and in the friction
- * norm, 1e-6 in the friction divisor, 1e-24 in the quaternion exponential.
+ * norm, 1e-6 in the friction divisor, 1e-24 in the quaternion exponential,
+ * 1e-18 under the pair distances' square root and 1e-9 in their divisor. A
+ * box takes a point for outside on the squared distance (d2 > 1e-14).
  * min, max and clamp propagate NaN like jnp.minimum/maximum, so a state
  * that blows up stays non-finite and the task's finite guard sees it.
  */
@@ -55,36 +63,63 @@
 #include <math.h>
 
 #define OIGE_NB_MAX 32                  // bodies per model
-#define OIGE_NCP_MAX 64                 // ground contact points
+#define OIGE_NCP_MAX 128                // ground contact points
 #define OIGE_NS_MAX 8                   // force sensors
-#define OIGE_NQ_MAX (6 + OIGE_NB_MAX)   // FREE root (7) + one q per joint
-#define OIGE_NV_MAX (5 + OIGE_NB_MAX)   // FREE root (6) + one qd per joint
+#define OIGE_NPAIR_MAX 1024             // point-vs-surface candidate pairs
+#define OIGE_NSURF_MAX 32               // receiver surfaces
+#define OIGE_NT_MAX 8                   // fixed tendons
+#define OIGE_NFREE_MAX 4                // FREE roots
+#define OIGE_NQ_MAX (7 * OIGE_NFREE_MAX + OIGE_NB_MAX)
+#define OIGE_NV_MAX (6 * OIGE_NFREE_MAX + OIGE_NB_MAX)
 
 // ---- packed model table (must match ops/fused_step.py pack_tables) ----
 // float table: [0..2] gravity, [3] substep h, [4] Hunt-Crossley chi,
-// [5..7] unused, then one 64-float record per body, then one 8-float
-// record per contact point. int table: parent of each body, then the body
-// of each contact point, then the body of each sensor.
+// [5..7] unused, then one 64-float record per body, one 8-float record per
+// contact point, one 4-float gravity-compensation record per body, one
+// 4-float gain record per pair, one 16-float record per surface and one
+// 8-float record per tendon. int table: 5 ints per body (parent, joint
+// type, q address, qd address, joint-dof index), the body of each contact
+// point, the body of each sensor, (point, surface) of each pair, (type,
+// body) of each surface, the two joint bodies of each tendon.
 #define F_BODY 8
 #define BODY_STRIDE 64
 #define CP_STRIDE 8
+#define GC_STRIDE 4
+#define PAIR_STRIDE 4
+#define SURF_STRIDE 16
+#define TEND_STRIDE 8
+#define IB_STRIDE 5
 enum {
   B_AXIS = 0, B_ET = 3, B_JPOS = 12, B_I6 = 15, B_ARM = 51, B_DAMP = 52,
   B_FRIC = 53, B_KP = 54, B_KD = 55, B_EMAX = 56, B_VMAX = 57, B_LO = 58,
   B_HI = 59, B_DIMPL = 60
 };
 enum { C_POS = 0, C_RAD = 3, C_MU = 4, C_KN = 5, C_KT = 6, C_FNM = 7 };
+enum { G_MASS = 0, G_COM = 1 };              // gravity_comp * mass, CoM
+enum { P_KN = 0, P_KT = 1, P_FNM = 2 };
+// surface params: sphere centre(3) radius; capsule p0(3) p1(3) radius;
+// box centre(3) half extents(3) rotation box -> body, row-major (9)
+enum { T_C0 = 0, T_C1 = 1, T_REST = 2, T_K = 3, T_C = 4, T_LO = 5, T_HI = 6, T_KLIM = 7 };
+enum { IB_PARENT = 0, IB_JTYPE = 1, IB_QADR = 2, IB_VADR = 3, IB_JDOF = 4 };
+enum { JT_FREE = 0, JT_REVOLUTE = 1, JT_PRISMATIC = 2, JT_FIXED = 3 };
+enum { ST_SPHERE = 0, ST_CAPSULE = 1, ST_BOX = 2 };
 
 namespace {
 
 struct Tables {
   const float* __restrict__ f;
   const int* __restrict__ it;
-  int nb, ncp, ns;
+  int nb, ncp, ns, npair, nsurf, nt, nq, nv, njd;
+  // section offsets into the float and the int table
+  int f_cp, f_gc, f_pair, f_surf, f_tend;
+  int i_cp, i_sens, i_pair, i_surf, i_tend;
 };
 
 __device__ __forceinline__ float tf(const Tables& t, int i) { return __ldg(t.f + i); }
 __device__ __forceinline__ int ti(const Tables& t, int i) { return __ldg(t.it + i); }
+__device__ __forceinline__ int tb(const Tables& t, int body, int field) {
+  return __ldg(t.it + IB_STRIDE * body + field);
+}
 
 // NaN-propagating min / max / clamp (jnp.minimum, jnp.maximum, jnp.clip)
 __device__ __forceinline__ float jmin(float a, float b) {
@@ -188,44 +223,85 @@ struct Frames {
   float lv[OIGE_NB_MAX][3];  // world linear velocity of the origin
 };
 
-// forward kinematics: q index of joint body i is 6 + i, qd index 5 + i
+// origin of joint body i in its parent's frame: the joint frame's origin,
+// moved along the axis by th for a prismatic joint (r = jpos + Et^T a th)
+__device__ __forceinline__ void joint_r(const Tables& t, int B, bool prismatic, float th,
+                                        float* r) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) r[c] = tf(t, B + B_JPOS + c);
+  if (prismatic) {
+    const float s0 = tf(t, B + B_AXIS) * th, s1 = tf(t, B + B_AXIS + 1) * th,
+                s2 = tf(t, B + B_AXIS + 2) * th;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      r[c] += tf(t, B + B_ET + c) * s0 + tf(t, B + B_ET + 3 + c) * s1 +
+              tf(t, B + B_ET + 6 + c) * s2;
+  }
+}
+
+// forward kinematics of a forest: FREE roots read their pose and velocity
+// from q / qd, FIXED roots sit at the table's constant pose, joint bodies
+// follow their parent through a revolute or prismatic joint
 __device__ __forceinline__ void fk_full(const Tables& t, const float* q,
                                         const float* qd, Frames& k) {
-  quat_mat(q[3], q[4], q[5], q[6], k.Rw[0]);
-  for (int c = 0; c < 3; ++c) {
-    k.pw[0][c] = q[c];
-    k.w[0][c] = qd[c];
-    k.l[0][c] = qd[3 + c];
-    k.cw[0][c] = 0.f;
-    k.cl[0][c] = 0.f;
-  }
-  for (int i = 1; i < t.nb; ++i) {
-    const int p = ti(t, i);
+  for (int i = 0; i < t.nb; ++i) {
+    const int p = tb(t, i, IB_PARENT);
+    const int jt = tb(t, i, IB_JTYPE);
+    const int qa = tb(t, i, IB_QADR), va = tb(t, i, IB_VADR);
     const int B = F_BODY + BODY_STRIDE * i;
+    if (p < 0) {
+      if (jt == JT_FREE) {
+        quat_mat(q[qa + 3], q[qa + 4], q[qa + 5], q[qa + 6], k.Rw[i]);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          k.pw[i][c] = q[qa + c];
+          k.w[i][c] = qd[va + c];
+          k.l[i][c] = qd[va + 3 + c];
+        }
+      } else {  // FIXED: Rw = Et^T, at the joint frame's origin, at rest
+#pragma unroll
+        for (int rr = 0; rr < 3; ++rr)
+#pragma unroll
+          for (int cc = 0; cc < 3; ++cc) k.Rw[i][3 * rr + cc] = tf(t, B + B_ET + 3 * cc + rr);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          k.pw[i][c] = tf(t, B + B_JPOS + c);
+          k.w[i][c] = 0.f;
+          k.l[i][c] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) k.cw[i][c] = k.cl[i][c] = 0.f;
+      continue;
+    }
+    const bool prismatic = jt == JT_PRISMATIC;
     float a[3], r[3], Et[9];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      a[c] = tf(t, B + B_AXIS + c);
-      r[c] = tf(t, B + B_JPOS + c);
-    }
+    for (int c = 0; c < 3; ++c) a[c] = tf(t, B + B_AXIS + c);
 #pragma unroll
     for (int c = 0; c < 9; ++c) Et[c] = tf(t, B + B_ET + c);
-    const float th = q[6 + i], thd = qd[5 + i];
-    float s, co;
-    sincosf(th, &s, &co);
-    const float oc = 1.f - co;
-    // Rodrigues rotation about the joint axis; E = R^T Et
-    const float R[9] = {
-        co + a[0] * a[0] * oc, a[0] * a[1] * oc - a[2] * s, a[0] * a[2] * oc + a[1] * s,
-        a[1] * a[0] * oc + a[2] * s, co + a[1] * a[1] * oc, a[1] * a[2] * oc - a[0] * s,
-        a[2] * a[0] * oc - a[1] * s, a[2] * a[1] * oc + a[0] * s, co + a[2] * a[2] * oc};
+    const float th = q[qa], thd = qd[va];
+    joint_r(t, B, prismatic, th, r);
     float* E = k.E[i];
+    if (prismatic) {
 #pragma unroll
-    for (int rr = 0; rr < 3; ++rr)
+      for (int c = 0; c < 9; ++c) E[c] = Et[c];
+    } else {
+      float s, co;
+      sincosf(th, &s, &co);
+      const float oc = 1.f - co;
+      // Rodrigues rotation about the joint axis; E = R^T Et
+      const float R[9] = {
+          co + a[0] * a[0] * oc, a[0] * a[1] * oc - a[2] * s, a[0] * a[2] * oc + a[1] * s,
+          a[1] * a[0] * oc + a[2] * s, co + a[1] * a[1] * oc, a[1] * a[2] * oc - a[0] * s,
+          a[2] * a[0] * oc - a[1] * s, a[2] * a[1] * oc + a[0] * s, co + a[2] * a[2] * oc};
 #pragma unroll
-      for (int cc = 0; cc < 3; ++cc)
-        E[3 * rr + cc] = R[rr] * Et[cc] + R[3 + rr] * Et[3 + cc] + R[6 + rr] * Et[6 + cc];
-    // v_i = X_i v_p + S thd, with S = [axis; 0]
+      for (int rr = 0; rr < 3; ++rr)
+#pragma unroll
+        for (int cc = 0; cc < 3; ++cc)
+          E[3 * rr + cc] = R[rr] * Et[cc] + R[3 + rr] * Et[3 + cc] + R[6 + rr] * Et[6 + cc];
+    }
+    // v_i = X_i v_p + S thd, with S = [axis; 0] (revolute) or [0; axis]
     float crs[3], tmp[3];
     cross3(r, k.w[p], crs);
 #pragma unroll
@@ -234,12 +310,20 @@ __device__ __forceinline__ void fk_full(const Tables& t, const float* q,
     mv3(E, tmp, k.l[i]);
     float vJ[3];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      vJ[c] = a[c] * thd;
-      k.w[i][c] += vJ[c];
+    for (int c = 0; c < 3; ++c) vJ[c] = a[c] * thd;
+    if (prismatic) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        k.l[i][c] += vJ[c];
+        k.cw[i][c] = 0.f;
+      }
+      cross3(k.w[i], vJ, k.cl[i]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) k.w[i][c] += vJ[c];
+      cross3(k.w[i], vJ, k.cw[i]);
+      cross3(k.l[i], vJ, k.cl[i]);
     }
-    cross3(k.w[i], vJ, k.cw[i]);
-    cross3(k.l[i], vJ, k.cl[i]);
     // Rw_i = Rw_p E^T, pw_i = pw_p + Rw_p r
 #pragma unroll
     for (int rr = 0; rr < 3; ++rr)
@@ -275,6 +359,34 @@ struct Work {
   float qdn[OIGE_NV_MAX];
 };
 
+// compliant contact along a general unit normal n: Hunt-Crossley normal
+// force capped at fnm, plus stiction-capped viscous friction; the force on
+// the point's body
+__device__ __forceinline__ void contact_force(float pen, const float* n, const float* vrel,
+                                              float mu, float kn, float kt, float fnm,
+                                              float chi, float* f) {
+  const float vn = vrel[0] * n[0] + vrel[1] * n[1] + vrel[2] * n[2];
+  const float vt[3] = {vrel[0] - vn * n[0], vrel[1] - vn * n[1], vrel[2] - vn * n[2]};
+  const float fn = jmin(kn * jmax(pen, 0.f) * jclip(1.f - chi * vn, 0.f, 5.f), fnm);
+  const float vt_norm = sqrtf(vt[0] * vt[0] + vt[1] * vt[1] + vt[2] * vt[2] + 1e-12f);
+  const float sc = jmin(mu * fn, kt * vt_norm) / (vt_norm + 1e-6f);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) f[c] = fn * n[c] - sc * vt[c];
+}
+
+// unit vector and length of d, floored as the pair contacts define them
+__device__ __forceinline__ float unit3(const float* d, float* n) {
+  const float dist = sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + 1e-18f);
+  const float inv = 1.f / (dist + 1e-9f);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) n[c] = d[c] * inv;
+  return dist;
+}
+
+__device__ __forceinline__ float sign0(float x) {
+  return x != x ? x : (float)((x > 0.f) - (x < 0.f));
+}
+
 // one substep of one env: (q, qd) -> (q, qd) in place; leaves this
 // substep's contact wrenches in w.fx / w.tx
 __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
@@ -290,10 +402,9 @@ __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
   // ---- ground contacts against z = 0 ----
   for (int i = 0; i < nb; ++i)
     for (int c = 0; c < 3; ++c) w.fx[i][c] = w.tx[i][c] = 0.f;
-  const int CP0 = F_BODY + BODY_STRIDE * nb;
   for (int c_ = 0; c_ < t.ncp; ++c_) {
-    const int b = ti(t, nb + c_);
-    const int C = CP0 + CP_STRIDE * c_;
+    const int b = ti(t, t.i_cp + c_);
+    const int C = t.f_cp + CP_STRIDE * c_;
     float lp[3], rel[3], crs[3], vpt[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) lp[c] = tf(t, C + C_POS + c);
@@ -320,17 +431,146 @@ __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
     }
   }
 
+  // ---- pair contacts: a contact point against a surface of another body;
+  // equal and opposite forces, torques about each body's origin ----
+  for (int pk = 0; pk < t.npair; ++pk) {
+    const int pi = ti(t, t.i_pair + 2 * pk), si = ti(t, t.i_pair + 2 * pk + 1);
+    const int pb = ti(t, t.i_cp + pi);
+    const int st = ti(t, t.i_surf + 2 * si), sb = ti(t, t.i_surf + 2 * si + 1);
+    const int C = t.f_cp + CP_STRIDE * pi;
+    const int S = t.f_surf + SURF_STRIDE * si;
+    const int G = t.f_pair + PAIR_STRIDE * pk;
+    const float* Rs = k.Rw[sb];
+    float lp[3], relp[3], rels[3], n[3], tmp[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) lp[c] = tf(t, C + C_POS + c);
+    mv3(k.Rw[pb], lp, relp);
+    // the point relative to the surface body's origin
+#pragma unroll
+    for (int c = 0; c < 3; ++c) rels[c] = (k.pw[pb][c] + relp[c]) - k.pw[sb][c];
+    const float rad = tf(t, C + C_RAD);
+    float pen;
+    float at[3] = {rels[0], rels[1], rels[2]};  // where the surface's velocity is taken
+    if (st == ST_BOX) {
+      float cl[3], hf[3], Rq[9], dl[3], pl[3], d_out[3], nl[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        cl[c] = tf(t, S + c);
+        hf[c] = tf(t, S + 3 + c);
+      }
+#pragma unroll
+      for (int c = 0; c < 9; ++c) Rq[c] = tf(t, S + 6 + c);
+      mv3(Rs, cl, tmp);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) dl[c] = rels[c] - tmp[c];
+      mtv3(Rs, dl, tmp);
+      mtv3(Rq, tmp, pl);  // the point in the box's frame
+      float d2 = 0.f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        d_out[c] = pl[c] - jclip(pl[c], -hf[c], hf[c]);
+        d2 += d_out[c] * d_out[c];
+      }
+      const float dist_out = sqrtf(d2 + 1e-18f);
+      const bool outside = d2 > 1e-14f;
+      // inside: out through the nearest face
+      const float f0 = hf[0] - fabsf(pl[0]), f1 = hf[1] - fabsf(pl[1]),
+                  f2 = hf[2] - fabsf(pl[2]);
+      const bool is0 = f0 <= jmin(f1, f2);
+      const bool is1 = !is0 && f1 <= f2;
+      const float min_d = jmin(f0, jmin(f1, f2));
+      if (outside) {
+        const float inv = 1.f / (dist_out + 1e-9f);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) nl[c] = d_out[c] * inv;
+        pen = rad - dist_out;
+      } else {
+        nl[0] = is0 ? sign0(pl[0]) : 0.f;
+        nl[1] = is1 ? sign0(pl[1]) : 0.f;
+        nl[2] = (is0 || is1) ? 0.f : sign0(pl[2]);
+        pen = rad + min_d;
+      }
+      mv3(Rq, nl, tmp);
+      mv3(Rs, tmp, n);
+    } else if (st == ST_CAPSULE) {
+      float e0[3], e1[3], p0[3], seg[3], d[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        e0[c] = tf(t, S + c);
+        e1[c] = tf(t, S + 3 + c);
+      }
+      mv3(Rs, e0, p0);
+      mv3(Rs, e1, tmp);
+      float num = 0.f, den = 1e-9f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        seg[c] = tmp[c] - p0[c];
+        num += (rels[c] - p0[c]) * seg[c];
+        den += seg[c] * seg[c];
+      }
+      const float tt = jclip(num / den, 0.f, 1.f);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        at[c] = p0[c] + tt * seg[c];  // nearest point of the axis
+        d[c] = rels[c] - at[c];
+      }
+      pen = tf(t, S + 6) + rad - unit3(d, n);
+    } else {  // sphere
+      float cs[3], d[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) cs[c] = tf(t, S + c);
+      mv3(Rs, cs, tmp);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) d[c] = rels[c] - tmp[c];
+      pen = tf(t, S + 3) + rad - unit3(d, n);
+    }
+    float c1[3], c2[3], vrel[3], f[3];
+    cross3(k.wv[pb], relp, c1);
+    cross3(k.wv[sb], at, c2);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) vrel[c] = (k.lv[pb][c] + c1[c]) - (k.lv[sb][c] + c2[c]);
+    contact_force(pen, n, vrel, tf(t, C + C_MU), tf(t, G + P_KN), tf(t, G + P_KT),
+                  tf(t, G + P_FNM), chi, f);
+    cross3(relp, f, c1);
+    cross3(rels, f, c2);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      w.fx[pb][c] += f[c];
+      w.tx[pb][c] += c1[c];
+      w.fx[sb][c] -= f[c];
+      w.tx[sb][c] -= c2[c];
+    }
+  }
+
   // ---- drives: clamped Stable-PD + effort + passive damping/friction ----
-  for (int i = 1; i < nb; ++i) {
+  for (int i = 0; i < nb; ++i) {
+    if (tb(t, i, IB_PARENT) < 0) continue;
     const int B = F_BODY + BODY_STRIDE * i;
-    const int d = i - 1;
-    const float qj = q[6 + i], qjd = qd[5 + i];
+    const int d = tb(t, i, IB_JDOF);
+    const float qj = q[tb(t, i, IB_QADR)], qjd = qd[tb(t, i, IB_VADR)];
     const float emax = tf(t, B + B_EMAX);
     const float drive = jclip(tf(t, B + B_KP) * (ptg[d] - qj - h * qjd) +
                                   tf(t, B + B_KD) * (vtg[d] - qjd),
                               -emax, emax);
     const float passive = -tf(t, B + B_DAMP) * qjd - tf(t, B + B_FRIC) * tanhf(qjd * 10.f);
     w.tau[i] = drive + eff[d] + passive;
+  }
+
+  // ---- fixed tendons: Stable-PD coupling force on two joints (their
+  // implicit diagonal is part of the table's B_DIMPL) ----
+  for (int tn = 0; tn < t.nt; ++tn) {
+    const int b0 = ti(t, t.i_tend + 2 * tn), b1 = ti(t, t.i_tend + 2 * tn + 1);
+    const int T = t.f_tend + TEND_STRIDE * tn;
+    const float c0 = tf(t, T + T_C0), c1 = tf(t, T + T_C1);
+    const float q0 = q[tb(t, b0, IB_QADR)], q1 = q[tb(t, b1, IB_QADR)];
+    const float qd0 = qd[tb(t, b0, IB_VADR)], qd1 = qd[tb(t, b1, IB_VADR)];
+    const float L = c0 * (q0 + h * qd0) + c1 * (q1 + h * qd1);
+    const float Ldot = c0 * qd0 + c1 * qd1;
+    const float excess = L - jclip(L, tf(t, T + T_LO), tf(t, T + T_HI));
+    const float F = tf(t, T + T_KLIM) * excess + tf(t, T + T_K) * (L - tf(t, T + T_REST)) +
+                    tf(t, T + T_C) * Ldot;
+    w.tau[b0] -= c0 * F;
+    w.tau[b1] -= c1 * F;
   }
 
   // ---- ABA: bias forces with the external wrench in body coordinates ----
@@ -356,36 +596,58 @@ __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
     cross3(k.w[i], Iv, n1);
     cross3(k.l[i], Iv + 3, n2);
     cross3(k.w[i], Iv + 3, f6);
-    float tw[3], fw[3], tb[3], fb[3];
+    float tw[3], fw[3], tbd[3], fb[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       tw[c] = w.tx[i][c] + fapp[6 * i + c];
       fw[c] = w.fx[i][c] + fapp[6 * i + 3 + c];
     }
-    mtv3(k.Rw[i], tw, tb);
+    // gravity compensation: counter-gravity at the body's CoM; it enters
+    // the dynamics, not the sensors' contact wrench
+    const int G = t.f_gc + GC_STRIDE * i;
+    const float gcm = tf(t, G + G_MASS);
+    if (gcm != 0.f) {
+      const float com[3] = {tf(t, G + G_COM), tf(t, G + G_COM + 1), tf(t, G + G_COM + 2)};
+      const float fg[3] = {-gcm * tf(t, 0), -gcm * tf(t, 1), -gcm * tf(t, 2)};
+      float cr[3], ng[3];
+      mv3(k.Rw[i], com, cr);
+      cross3(cr, fg, ng);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        tw[c] += ng[c];
+        fw[c] += fg[c];
+      }
+    }
+    mtv3(k.Rw[i], tw, tbd);
     mtv3(k.Rw[i], fw, fb);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      w.pA[i][c] = n1[c] + n2[c] - tb[c];
+      w.pA[i][c] = n1[c] + n2[c] - tbd[c];
       w.pA[i][3 + c] = f6[c] - fb[c];
     }
   }
 
   // ---- ABA inward pass, deepest body first ----
-  for (int i = nb - 1; i >= 1; --i) {
-    const int p = ti(t, i);
+  for (int i = nb - 1; i >= 0; --i) {
+    const int p = tb(t, i, IB_PARENT);
+    if (p < 0) continue;
     const int B = F_BODY + BODY_STRIDE * i;
+    const bool prismatic = tb(t, i, IB_JTYPE) == JT_PRISMATIC;
+    const int o = prismatic ? 3 : 0;  // S = [axis; 0] or [0; axis]
     const float a[3] = {tf(t, B + B_AXIS), tf(t, B + B_AXIS + 1), tf(t, B + B_AXIS + 2)};
     const float* IA = w.IA[i];
     float* U = w.U[i];
 #pragma unroll
     for (int r = 0; r < 6; ++r)
-      U[r] = IA[6 * r] * a[0] + IA[6 * r + 1] * a[1] + IA[6 * r + 2] * a[2];
-    const float D = a[0] * U[0] + a[1] * U[1] + a[2] * U[2] + tf(t, B + B_ARM) +
+      U[r] = IA[6 * r + o] * a[0] + IA[6 * r + o + 1] * a[1] + IA[6 * r + o + 2] * a[2];
+    const float D = a[0] * U[o] + a[1] * U[o + 1] + a[2] * U[o + 2] + tf(t, B + B_ARM) +
                     tf(t, B + B_DIMPL);
-    const float uu = w.tau[i] - (a[0] * w.pA[i][0] + a[1] * w.pA[i][1] + a[2] * w.pA[i][2]);
+    const float uu = w.tau[i] - (a[0] * w.pA[i][o] + a[1] * w.pA[i][o + 1] +
+                                 a[2] * w.pA[i][o + 2]);
     w.D[i] = D;
     w.uu[i] = uu;
+    // a FIXED root solves nothing, so its articulated inertia is not needed
+    if (tb(t, p, IB_PARENT) < 0 && tb(t, p, IB_JTYPE) == JT_FIXED) continue;
     const float invD = 1.f / D;
     float Ia[36];
 #pragma unroll
@@ -403,7 +665,9 @@ __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
     }
     // X = [[E, 0], [-E rtil, E]], rtil = skew(r)
     const float* E = k.E[i];
-    const float r0 = tf(t, B + B_JPOS), r1 = tf(t, B + B_JPOS + 1), r2 = tf(t, B + B_JPOS + 2);
+    float rj[3];
+    joint_r(t, B, prismatic, q[tb(t, i, IB_QADR)], rj);
+    const float r0 = rj[0], r1 = rj[1], r2 = rj[2];
     const float rt[9] = {0.f, -r2, r1, r2, 0.f, -r0, -r1, r0, 0.f};
     float X[36];
 #pragma unroll
@@ -446,34 +710,46 @@ __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
     }
   }
 
-  // ---- root: a0 = X_root [0; -g], solve IA_0 qdd_0 = -(pA_0 + IA_0 a0) ----
-  {
+  // ---- roots: a0 = X_root [0; -g]; a FREE root solves
+  // IA qdd = -(pA + IA a0), a FIXED root only hands gravity on ----
+  for (int i = 0; i < nb; ++i) {
+    if (tb(t, i, IB_PARENT) >= 0) continue;
     const float mg[3] = {-tf(t, 0), -tf(t, 1), -tf(t, 2)};
     float al[3];
-    mtv3(k.Rw[0], mg, al);
+    mtv3(k.Rw[i], mg, al);
     const float a0[6] = {0.f, 0.f, 0.f, al[0], al[1], al[2]};
-    float rhs[6], x[6];
+    if (tb(t, i, IB_JTYPE) == JT_FREE) {
+      const int va = tb(t, i, IB_VADR);
+      float rhs[6], x[6];
 #pragma unroll
-    for (int r = 0; r < 6; ++r) {
-      float s = 0.f;
+      for (int r = 0; r < 6; ++r) {
+        float s = 0.f;
 #pragma unroll
-      for (int c = 0; c < 6; ++c) s += w.IA[0][6 * r + c] * a0[c];
-      rhs[r] = -(w.pA[0][r] + s);
-    }
-    chol_solve6(w.IA[0], rhs, x);
+        for (int c = 0; c < 6; ++c) s += w.IA[i][6 * r + c] * a0[c];
+        rhs[r] = -(w.pA[i][r] + s);
+      }
+      chol_solve6(w.IA[i], rhs, x);
 #pragma unroll
-    for (int c = 0; c < 6; ++c) {
-      w.qdd[c] = x[c];
-      w.acc[0][c] = a0[c] + x[c];
+      for (int c = 0; c < 6; ++c) {
+        w.qdd[va + c] = x[c];
+        w.acc[i][c] = a0[c] + x[c];
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < 6; ++c) w.acc[i][c] = a0[c];
     }
   }
 
   // ---- ABA outward pass ----
-  for (int i = 1; i < nb; ++i) {
-    const int p = ti(t, i);
+  for (int i = 0; i < nb; ++i) {
+    const int p = tb(t, i, IB_PARENT);
+    if (p < 0) continue;
     const int B = F_BODY + BODY_STRIDE * i;
+    const bool prismatic = tb(t, i, IB_JTYPE) == JT_PRISMATIC;
+    const int o = prismatic ? 3 : 0;
     const float a[3] = {tf(t, B + B_AXIS), tf(t, B + B_AXIS + 1), tf(t, B + B_AXIS + 2)};
-    const float r[3] = {tf(t, B + B_JPOS), tf(t, B + B_JPOS + 1), tf(t, B + B_JPOS + 2)};
+    float r[3];
+    joint_r(t, B, prismatic, q[tb(t, i, IB_QADR)], r);
     const float* E = k.E[i];
     const float* ap = w.acc[p];
     float crs[3], tmp[3], apw[3], apl[3];
@@ -492,60 +768,62 @@ __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
 #pragma unroll
     for (int c = 0; c < 6; ++c) s += w.U[i][c] * a_p[c];
     const float qdd_i = (w.uu[i] - s) / w.D[i];
-    w.qdd[5 + i] = qdd_i;
+    w.qdd[tb(t, i, IB_VADR)] = qdd_i;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      w.acc[i][c] = a_p[c] + a[c] * qdd_i;
-      w.acc[i][3 + c] = a_p[3 + c];
-    }
+    for (int c = 0; c < 6; ++c) w.acc[i][c] = a_p[c];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) w.acc[i][o + c] += a[c] * qdd_i;
   }
 
   // ---- semi-implicit Euler: caps, joint velocity clamp, limits ----
-  const int nq = 6 + nb, nv = 5 + nb;
+  const int nq = t.nq, nv = t.nv;
   // the velocity and joint-position updates round the product and the sum
   // separately (no fused multiply-add), as the plain version does: a joint
   // that lands on its limit then takes the same branch in both
   for (int c = 0; c < nv; ++c) w.qdn[c] = __fadd_rn(qd[c], __fmul_rn(h, w.qdd[c]));
   for (int c = 0; c < nq; ++c) w.qn[c] = q[c];
+  for (int i = 0; i < nb; ++i) {
+    const int qa = tb(t, i, IB_QADR), va = tb(t, i, IB_VADR);
+    if (tb(t, i, IB_PARENT) >= 0) {
+      const int B = F_BODY + BODY_STRIDE * i;
+      const float vmax = tf(t, B + B_VMAX);
+      const float lo = tf(t, B + B_LO), hi = tf(t, B + B_HI);
+      float qjd = jclip(w.qdn[va], -vmax, vmax);
+      float qj = __fadd_rn(q[qa], __fmul_rn(h, qjd));
+      const bool hit_lb = qj < lo;
+      const bool hit_ub = qj > hi;
+      qj = jclip(qj, lo, hi);
+      if (hit_ub) qjd = jmin(qjd, 0.f);
+      if (hit_lb) qjd = jmax(qjd, 0.f);
+      w.qn[qa] = qj;
+      w.qdn[va] = qjd;
+    } else if (tb(t, i, IB_JTYPE) == JT_FREE) {
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    w.qdn[c] = jclip(w.qdn[c], -64.f, 64.f);
-    w.qdn[3 + c] = jclip(w.qdn[3 + c], -1000.f, 1000.f);
-  }
-  for (int i = 1; i < nb; ++i) {
-    const int B = F_BODY + BODY_STRIDE * i;
-    const float vmax = tf(t, B + B_VMAX);
-    const float lo = tf(t, B + B_LO), hi = tf(t, B + B_HI);
-    float qjd = jclip(w.qdn[5 + i], -vmax, vmax);
-    float qj = __fadd_rn(q[6 + i], __fmul_rn(h, qjd));
-    const bool hit_lb = qj < lo;
-    const bool hit_ub = qj > hi;
-    qj = jclip(qj, lo, hi);
-    if (hit_ub) qjd = jmin(qjd, 0.f);
-    if (hit_lb) qjd = jmax(qjd, 0.f);
-    w.qn[6 + i] = qj;
-    w.qdn[5 + i] = qjd;
-  }
-  {
-    float dp[3];
-    mv3(k.Rw[0], &w.qdn[3], dp);
+      for (int c = 0; c < 3; ++c) {
+        w.qdn[va + c] = jclip(w.qdn[va + c], -64.f, 64.f);
+        w.qdn[va + 3 + c] = jclip(w.qdn[va + 3 + c], -1000.f, 1000.f);
+      }
+      float dp[3];
+      mv3(k.Rw[i], &w.qdn[va + 3], dp);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) w.qn[c] = q[c] + h * dp[c];
-    // q' = q * exp(omega h / 2)
-    const float hx = w.qdn[0] * (h / 2.f), hy = w.qdn[1] * (h / 2.f), hz = w.qdn[2] * (h / 2.f);
-    const float ang = sqrtf(hx * hx + hy * hy + hz * hz + 1e-24f);
-    const float sa = sinf(ang) / ang;
-    const float ew = cosf(ang), ex = sa * hx, ey = sa * hy, ez = sa * hz;
-    const float qw = q[3], qx = q[4], qy = q[5], qz = q[6];
-    const float nw = qw * ew - qx * ex - qy * ey - qz * ez;
-    const float nx = qw * ex + qx * ew + qy * ez - qz * ey;
-    const float ny = qw * ey - qx * ez + qy * ew + qz * ex;
-    const float nz = qw * ez + qx * ey - qy * ex + qz * ew;
-    const float norm = sqrtf(nw * nw + nx * nx + ny * ny + nz * nz + 1e-12f);
-    w.qn[3] = nw / norm;
-    w.qn[4] = nx / norm;
-    w.qn[5] = ny / norm;
-    w.qn[6] = nz / norm;
+      for (int c = 0; c < 3; ++c) w.qn[qa + c] = q[qa + c] + h * dp[c];
+      // q' = q * exp(omega h / 2)
+      const float hx = w.qdn[va] * (h / 2.f), hy = w.qdn[va + 1] * (h / 2.f),
+                  hz = w.qdn[va + 2] * (h / 2.f);
+      const float ang = sqrtf(hx * hx + hy * hy + hz * hz + 1e-24f);
+      const float sa = sinf(ang) / ang;
+      const float ew = cosf(ang), ex = sa * hx, ey = sa * hy, ez = sa * hz;
+      const float qw = q[qa + 3], qx = q[qa + 4], qy = q[qa + 5], qz = q[qa + 6];
+      const float nw = qw * ew - qx * ex - qy * ey - qz * ez;
+      const float nx = qw * ex + qx * ew + qy * ez - qz * ey;
+      const float ny = qw * ey - qx * ez + qy * ew + qz * ex;
+      const float nz = qw * ez + qx * ey - qy * ex + qz * ew;
+      const float norm = sqrtf(nw * nw + nx * nx + ny * ny + nz * nz + 1e-12f);
+      w.qn[qa + 3] = nw / norm;
+      w.qn[qa + 4] = nx / norm;
+      w.qn[qa + 5] = ny / norm;
+      w.qn[qa + 6] = nz / norm;
+    }
   }
   for (int c = 0; c < nq; ++c) q[c] = w.qn[c];
   for (int c = 0; c < nv; ++c) qd[c] = w.qdn[c];
@@ -571,6 +849,8 @@ __device__ __forceinline__ void write_report(const Tables& t, const Frames& k, l
   }
 }
 
+// n_steps substeps of one env, then the report FK unless `pos` is null
+// (the single-substep launch mode writes no report)
 __device__ __forceinline__ void step_env(const Tables t, long e, const float* q_in,
                                          const float* qd_in, const float* eff,
                                          const float* ptg, const float* vtg,
@@ -578,7 +858,7 @@ __device__ __forceinline__ void step_env(const Tables t, long e, const float* q_
                                          float* qd_out, float* sf_out, float* pos,
                                          float* quat, float* avel, float* lvel,
                                          int n_steps) {
-  const int nb = t.nb, nq = 6 + nb, nv = 5 + nb, njd = nb - 1;
+  const int nb = t.nb, nq = t.nq, nv = t.nv, njd = t.njd;
   float q[OIGE_NQ_MAX], qd[OIGE_NV_MAX];
   Work w;
   for (int c = 0; c < nq; ++c) q[c] = q_in[e * nq + c];
@@ -591,9 +871,10 @@ __device__ __forceinline__ void step_env(const Tables t, long e, const float* q_
     substep(t, q, qd, eff_e, ptg_e, vtg_e, fapp_e, w);
   for (int c = 0; c < nq; ++c) q_out[e * nq + c] = q[c];
   for (int c = 0; c < nv; ++c) qd_out[e * nv + c] = qd[c];
-  // sensors read the last substep's contact wrench [force, torque]
+  // sensors read the last substep's contact wrench [force, torque]: ground
+  // and pair contacts, without applied forces and gravity compensation
   for (int s = 0; s < t.ns; ++s) {
-    const int b = ti(t, nb + t.ncp + s);
+    const int b = ti(t, t.i_sens + s);
     const long o = (e * t.ns + s) * 6;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -601,6 +882,7 @@ __device__ __forceinline__ void step_env(const Tables t, long e, const float* q_
       sf_out[o + 3 + c] = w.tx[b][c];
     }
   }
+  if (pos == nullptr) return;
   fk_full(t, q, qd, w.k);
   write_report(t, w.k, e, pos, quat, avel, lvel);
 }
@@ -608,7 +890,7 @@ __device__ __forceinline__ void step_env(const Tables t, long e, const float* q_
 __device__ __forceinline__ void fk_env(const Tables t, long e, const float* q_in,
                                        const float* qd_in, float* pos, float* quat,
                                        float* avel, float* lvel) {
-  const int nb = t.nb, nq = 6 + nb, nv = 5 + nb;
+  const int nq = t.nq, nv = t.nv;
   float q[OIGE_NQ_MAX], qd[OIGE_NV_MAX];
   Frames k;
   for (int c = 0; c < nq; ++c) q[c] = q_in[e * nq + c];
@@ -644,20 +926,51 @@ __global__ void __launch_bounds__(128) fk_kernel(
 // ---- C entry points: launch on the caller's stream, return cudaError_t ----
 #define OIGE_THREADS 128
 
+// dims: nb, ncp, ns, npair, nsurf, nt, nq, nv, njd (host memory)
+static Tables make_tables(const float* ftab, const int* itab, const int* dims) {
+  Tables t;
+  t.f = ftab;
+  t.it = itab;
+  t.nb = dims[0];
+  t.ncp = dims[1];
+  t.ns = dims[2];
+  t.npair = dims[3];
+  t.nsurf = dims[4];
+  t.nt = dims[5];
+  t.nq = dims[6];
+  t.nv = dims[7];
+  t.njd = dims[8];
+  t.f_cp = F_BODY + BODY_STRIDE * t.nb;
+  t.f_gc = t.f_cp + CP_STRIDE * t.ncp;
+  t.f_pair = t.f_gc + GC_STRIDE * t.nb;
+  t.f_surf = t.f_pair + PAIR_STRIDE * t.npair;
+  t.f_tend = t.f_surf + SURF_STRIDE * t.nsurf;
+  t.i_cp = IB_STRIDE * t.nb;
+  t.i_sens = t.i_cp + t.ncp;
+  t.i_pair = t.i_sens + t.ns;
+  t.i_surf = t.i_pair + 2 * t.npair;
+  t.i_tend = t.i_surf + 2 * t.nsurf;
+  return t;
+}
+
 extern "C" int oige_limits(int* out) {
   out[0] = OIGE_NB_MAX;
   out[1] = OIGE_NCP_MAX;
   out[2] = OIGE_NS_MAX;
+  out[3] = OIGE_NPAIR_MAX;
+  out[4] = OIGE_NSURF_MAX;
+  out[5] = OIGE_NT_MAX;
+  out[6] = OIGE_NFREE_MAX;
   return 0;
 }
 
-extern "C" int oige_step(const float* ftab, const int* itab, int nb, int ncp, int ns,
+extern "C" int oige_step(const float* ftab, const int* itab, const int* dims,
                          const float* q, const float* qd, const float* eff,
                          const float* ptg, const float* vtg, const float* fapp,
                          float* q_out, float* qd_out, float* sf_out, float* pos,
                          float* quat, float* avel, float* lvel, int n_env, int n_steps,
                          void* stream) {
-  const Tables t{ftab, itab, nb, ncp, ns};
+  const Tables t = make_tables(ftab, itab, dims);
   const int blocks = (n_env + OIGE_THREADS - 1) / OIGE_THREADS;
   step_kernel<<<blocks, OIGE_THREADS, 0, (cudaStream_t)stream>>>(
       t, q, qd, eff, ptg, vtg, fapp, q_out, qd_out, sf_out, pos, quat, avel, lvel,
@@ -665,10 +978,20 @@ extern "C" int oige_step(const float* ftab, const int* itab, int nb, int ncp, in
   return (int)cudaGetLastError();
 }
 
-extern "C" int oige_fk(const float* ftab, const int* itab, int nb, int ncp, int ns,
+// K3: one substep, no report FK
+extern "C" int oige_substep(const float* ftab, const int* itab, const int* dims,
+                            const float* q, const float* qd, const float* eff,
+                            const float* ptg, const float* vtg, const float* fapp,
+                            float* q_out, float* qd_out, float* sf_out, int n_env,
+                            void* stream) {
+  return oige_step(ftab, itab, dims, q, qd, eff, ptg, vtg, fapp, q_out, qd_out, sf_out,
+                   nullptr, nullptr, nullptr, nullptr, n_env, 1, stream);
+}
+
+extern "C" int oige_fk(const float* ftab, const int* itab, const int* dims,
                        const float* q, const float* qd, float* pos, float* quat,
                        float* avel, float* lvel, int n_env, void* stream) {
-  const Tables t{ftab, itab, nb, ncp, ns};
+  const Tables t = make_tables(ftab, itab, dims);
   const int blocks = (n_env + OIGE_THREADS - 1) / OIGE_THREADS;
   fk_kernel<<<blocks, OIGE_THREADS, 0, (cudaStream_t)stream>>>(t, q, qd, pos, quat, avel,
                                                                lvel, n_env);

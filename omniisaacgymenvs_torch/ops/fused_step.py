@@ -1,18 +1,22 @@
-"""Whole-control-step (K1) and report-FK (K2) kernels: wrappers, plain
-PyTorch versions, launch counters and the loader of `csrc/fused_step.cu`.
+"""Whole-control-step (K1), report-FK (K2) and single-substep (K3) kernels:
+wrappers, plain PyTorch versions, launch counters and the loader of
+`csrc/fused_step.cu`.
 
 K1 `step` replaces the JAX package's `ops/fused_substep.py` batched_step /
 _step_kernel(n_steps): n_steps physics substeps and the report FK in one
 launch. K2 `fk` replaces batched_fk / fk_kernel: (q, qd) -> world pose and
-velocity of every body. The CUDA source is built with nvcc at first use
-into `build/torch_kernels/` (keyed by a hash of the source and flags) and
-bound with ctypes.
+velocity of every body. K3 `substep` replaces batched / kernel: one substep
+without the report (a launch mode of K1's device code). The CUDA source is
+built with nvcc at first use into `build/torch_kernels/` (keyed by a hash
+of the source and flags) and bound with ctypes.
 
 A wrapper given CPU tensors runs the plain version (`step_plain`,
-`fk_plain`); given CUDA tensors it launches the kernel or raises. The
-kernel covers one FREE root, revolute joints and the flat ground plane;
-`scope_errors` lists what a model has beyond that, and the engine's
-`check_scope` refuses such a model on CUDA.
+`fk_plain`, `substep_plain`); given CUDA tensors it launches the kernel or
+raises. The kernels cover forests of FREE and FIXED roots, revolute and
+prismatic joints, the flat ground plane, pair contacts against sphere,
+capsule and box surfaces, gravity compensation and fixed tendons;
+`scope_errors` lists what a model has beyond the kernels' compile-time
+maxima, and the engine's `check_scope` refuses such a model on CUDA.
 """
 
 from __future__ import annotations
@@ -29,8 +33,8 @@ from typing import List
 import numpy as np
 import torch
 
-from omniisaacgymenvs_torch.physics import dynamics, rotations as rot
-from omniisaacgymenvs_torch.physics.model import JointType, Model
+from omniisaacgymenvs_torch.physics import contacts, dynamics, rotations as rot
+from omniisaacgymenvs_torch.physics.model import JointType, Model, SurfaceType
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_step.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -40,36 +44,40 @@ NVCC_FLAGS = (
 )
 # packed table layout, mirrored in csrc/fused_step.cu
 _F_BODY, _BODY_STRIDE, _CP_STRIDE = 8, 64, 8
+_GC_STRIDE, _PAIR_STRIDE, _SURF_STRIDE, _TEND_STRIDE, _IB_STRIDE = 4, 4, 16, 8, 5
 (_B_AXIS, _B_ET, _B_JPOS, _B_I6, _B_ARM, _B_DAMP, _B_FRIC, _B_KP, _B_KD,
  _B_EMAX, _B_VMAX, _B_LO, _B_HI, _B_DIMPL) = (
     0, 3, 12, 15, 51, 52, 53, 54, 55, 56, 57, 58, 59, 60)
-# compile-time maxima of the kernel (csrc/fused_step.cu OIGE_*_MAX)
-NB_MAX, NCP_MAX, NS_MAX = 32, 64, 8
+# compile-time maxima of the kernel (csrc/fused_step.cu OIGE_*_MAX): bodies,
+# ground contact points, sensors, pairs, surfaces, tendons, FREE roots
+NB_MAX, NCP_MAX, NS_MAX = 32, 128, 8
+NPAIR_MAX, NSURF_MAX, NT_MAX, NFREE_MAX = 1024, 32, 8, 4
+LIMITS = (NB_MAX, NCP_MAX, NS_MAX, NPAIR_MAX, NSURF_MAX, NT_MAX, NFREE_MAX)
 
 
 # ---------------------------------------------------------------------------
 # scope and model tables
 # ---------------------------------------------------------------------------
 
+def n_free_roots(model: Model) -> int:
+    return sum(model.jtype[r] == JointType.FREE for r in model.roots)
+
+
 def scope_errors(model: Model) -> List[str]:
     """What `model` has beyond the kernels' own scope (empty when in
-    scope): exactly one root, FREE, at body 0; revolute joints only; sizes
-    within the kernel's compile-time maxima. Features the port has no path
-    for on any device (pairs, tendons, gravity compensation) are the
-    engine's `unported_features`."""
+    scope): the sizes must lie within the kernels' compile-time maxima."""
     errs = []
-    if model.roots != (0,) or model.jtype[0] != JointType.FREE:
-        errs.append("kernel needs exactly one root, FREE, at body 0 "
-                    f"(roots {model.roots}, types "
-                    f"{[JointType(model.jtype[r]).name for r in model.roots]})")
-    if any(model.jtype[i] != JointType.REVOLUTE for i in range(1, model.nb)):
-        errs.append("kernel supports revolute joints only")
-    if model.nb > NB_MAX:
-        errs.append(f"{model.nb} bodies > kernel maximum {NB_MAX}")
-    if model.ncp > NCP_MAX:
-        errs.append(f"{model.ncp} contact points > kernel maximum {NCP_MAX}")
-    if model.num_sensors > NS_MAX:
-        errs.append(f"{model.num_sensors} sensors > kernel maximum {NS_MAX}")
+    for n, cap, what in (
+        (model.nb, NB_MAX, "bodies"),
+        (model.ncp, NCP_MAX, "contact points"),
+        (model.num_sensors, NS_MAX, "sensors"),
+        (len(model.pair_surf), NPAIR_MAX, "contact pairs"),
+        (len(model.surf_type), NSURF_MAX, "receiver surfaces"),
+        (model.nt, NT_MAX, "fixed tendons"),
+        (n_free_roots(model), NFREE_MAX, "FREE roots"),
+    ):
+        if n > cap:
+            errs.append(f"{n} {what} > kernel maximum {cap}")
     return errs
 
 
@@ -77,11 +85,49 @@ def _np64(x) -> np.ndarray:
     return x.detach().cpu().double().numpy()
 
 
-def pack_tables(model: Model, h: float, gravity, contact, gains: np.ndarray):
+def _quat_mat64(q) -> np.ndarray:
+    w, x, y, z = (float(v) for v in q)
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ])
+
+
+def table_dims(model: Model) -> tuple:
+    """The sizes the kernels' entry points take beside the tables."""
+    return (model.nb, model.ncp, model.num_sensors, len(model.pair_surf),
+            len(model.surf_type), model.nt, model.nq, model.nv, model.njd)
+
+
+def table_offsets(model: Model) -> dict:
+    """Start of each section of the float (`f_*`) and int (`i_*`) table."""
+    nb, ncp, ns, npair, nsurf, _, _, _, _ = table_dims(model)
+    f_cp = _F_BODY + _BODY_STRIDE * nb
+    f_gc = f_cp + _CP_STRIDE * ncp
+    f_pair = f_gc + _GC_STRIDE * nb
+    f_surf = f_pair + _PAIR_STRIDE * npair
+    f_tend = f_surf + _SURF_STRIDE * nsurf
+    i_cp = _IB_STRIDE * nb
+    i_sens = i_cp + ncp
+    i_pair = i_sens + ns
+    i_surf = i_pair + 2 * npair
+    i_tend = i_surf + 2 * nsurf
+    return dict(f_cp=f_cp, f_gc=f_gc, f_pair=f_pair, f_surf=f_surf,
+                f_tend=f_tend, f_end=f_tend + _TEND_STRIDE * model.nt,
+                i_cp=i_cp, i_sens=i_sens, i_pair=i_pair, i_surf=i_surf,
+                i_tend=i_tend, i_end=i_tend + 2 * model.nt)
+
+
+def pack_tables(model: Model, h: float, gravity, contact, gains: np.ndarray,
+                pair_gains: np.ndarray | None = None):
     """(float32 table, int32 table) of the model constants the kernels read.
-    `gains`: (3, ncp) per-point ground (kn, kt, fn_max)."""
-    nb, ncp = model.nb, model.ncp
-    f = np.zeros(_F_BODY + _BODY_STRIDE * nb + _CP_STRIDE * ncp)
+    `gains`: (3, ncp) per-point ground (kn, kt, fn_max); `pair_gains`:
+    (3, npair) the same per pair (`contacts.pair_gains`, computed here when
+    not given)."""
+    nb, ncp, npair = model.nb, model.ncp, len(model.pair_surf)
+    off = table_offsets(model)
+    f = np.zeros(off["f_end"])
     f[0:3] = np.asarray(gravity, np.float64)
     f[3] = h
     f[4] = contact.kd
@@ -89,9 +135,21 @@ def pack_tables(model: Model, h: float, gravity, contact, gains: np.ndarray):
                       _np64(model.joint_pos))
     mass, com, I3 = (_np64(model.body_mass), _np64(model.body_com),
                      _np64(model.body_inertia))
+    gcomp = _np64(model.gravity_comp)
     dof = {k: _np64(getattr(model, "dof_" + k)) for k in (
         "armature", "damping", "friction", "stiffness", "drive_damping",
         "max_effort", "max_velocity", "limit_lower", "limit_upper")}
+    d_impl = h * (dof["drive_damping"] + dof["damping"] + h * dof["stiffness"])
+    # fixed tendons add h (c + h (k + k_lim)) coef^2 to their two joints'
+    # implicit diagonal
+    tend = {k: _np64(getattr(model, "tendon_" + k)) for k in (
+        "coef", "rest", "stiffness", "damping", "limit_lower", "limit_upper",
+        "limit_stiffness")}
+    for t in range(model.nt):
+        per_t = h * (tend["damping"][t] + h * (tend["stiffness"][t]
+                                               + tend["limit_stiffness"][t]))
+        for j in range(2):
+            d_impl[model.tendon_dof[t, j]] += per_t * tend["coef"][t, j] ** 2
     for i in range(nb):
         B = _F_BODY + _BODY_STRIDE * i
         f[B + _B_AXIS: B + _B_AXIS + 3] = axis[i]
@@ -103,30 +161,61 @@ def pack_tables(model: Model, h: float, gravity, contact, gains: np.ndarray):
         I6 = np.block([[I3[i] + mass[i] * cx @ cx.T, mass[i] * cx],
                        [mass[i] * cx.T, mass[i] * np.eye(3)]])
         f[B + _B_I6: B + _B_I6 + 36] = I6.reshape(-1)
+        G = off["f_gc"] + _GC_STRIDE * i
+        f[G] = gcomp[i] * mass[i]
+        f[G + 1: G + 4] = com[i]
         d = model.jdof[i]
         if d < 0:
             continue
-        kp, kd = dof["stiffness"][d], dof["drive_damping"][d]
         f[B + _B_ARM] = dof["armature"][d]
         f[B + _B_DAMP] = dof["damping"][d]
         f[B + _B_FRIC] = dof["friction"][d]
-        f[B + _B_KP] = kp
-        f[B + _B_KD] = kd
+        f[B + _B_KP] = dof["stiffness"][d]
+        f[B + _B_KD] = dof["drive_damping"][d]
         f[B + _B_EMAX] = dof["max_effort"][d]
         f[B + _B_VMAX] = dof["max_velocity"][d]
         f[B + _B_LO] = dof["limit_lower"][d]
         f[B + _B_HI] = dof["limit_upper"][d]
-        f[B + _B_DIMPL] = h * (kd + dof["damping"][d] + h * kp)
+        f[B + _B_DIMPL] = d_impl[d]
     cp_pos, cp_rad, cp_mu = (_np64(model.cp_pos), _np64(model.cp_radius),
                              _np64(model.cp_friction))
     for k in range(ncp):
-        C = _F_BODY + _BODY_STRIDE * nb + _CP_STRIDE * k
+        C = off["f_cp"] + _CP_STRIDE * k
         f[C: C + 3] = cp_pos[k]
         f[C + 3] = cp_rad[k]
         f[C + 4] = contact.mu * cp_mu[k]
         f[C + 5: C + 8] = gains[:, k]
-    it = np.concatenate([np.asarray(model.parents), model.cp_body,
-                         np.asarray(model.sensor_body, np.int64)])
+    if npair:
+        if pair_gains is None:
+            pair_gains = contacts.pair_gains(
+                model, contacts.build_pair_groups(model), contact)
+        f[off["f_pair"]: off["f_surf"]].reshape(npair, _PAIR_STRIDE)[:, 0:3] = (
+            pair_gains.T)
+    for si, (stype, prm) in enumerate(zip(model.surf_type, model.surf_params)):
+        S = off["f_surf"] + _SURF_STRIDE * si
+        if stype == SurfaceType.BOX:
+            # centre, half extents, then the rotation box -> body
+            f[S: S + 6] = prm[0:6]
+            f[S + 6: S + 15] = _quat_mat64(prm[6:10]).reshape(-1)
+        else:
+            f[S: S + len(prm)] = prm
+    jbody = [i for i in range(nb) if model.jdof[i] >= 0]
+    for t in range(model.nt):
+        T = off["f_tend"] + _TEND_STRIDE * t
+        f[T: T + 2] = tend["coef"][t]
+        f[T + 2: T + 8] = [tend[k][t] for k in (
+            "rest", "stiffness", "damping", "limit_lower", "limit_upper",
+            "limit_stiffness")]
+    body_rec = np.stack([model.parents, model.jtype, model.q_adr, model.v_adr,
+                         model.jdof], axis=1).reshape(-1)
+    it = np.concatenate([
+        body_rec, model.cp_body, np.asarray(model.sensor_body, np.int64),
+        np.stack([model.pair_point, np.asarray(model.pair_surf, np.int64)],
+                 axis=1).reshape(-1) if npair else np.zeros(0, np.int64),
+        np.stack([model.surf_type, model.surf_body], axis=1).reshape(-1)
+        if model.surf_type else np.zeros(0, np.int64),
+        np.asarray([jbody[d] for d in model.tendon_dof.reshape(-1)], np.int64),
+    ])
     return f.astype(np.float32), it.astype(np.int32)
 
 
@@ -135,11 +224,12 @@ class FusedKernels:
     launch count of each kernel wrapper."""
 
     def __init__(self, model: Model, h: float, gravity, contact,
-                 gains: np.ndarray):
-        ftab, itab = pack_tables(model, h, gravity, contact, gains)
+                 gains: np.ndarray, pair_gains: np.ndarray | None = None):
+        ftab, itab = pack_tables(model, h, gravity, contact, gains, pair_gains)
         self.ftab = torch.as_tensor(ftab, device=model.device)
         self.itab = torch.as_tensor(itab, device=model.device)
-        self.launches = {"step": 0, "fk": 0}
+        self.dims = (ctypes.c_int * 9)(*table_dims(model))
+        self.launches = {"step": 0, "fk": 0, "substep": 0}
 
     def reset_counts(self):
         for k in self.launches:
@@ -166,6 +256,15 @@ def step_plain(engine, q, qd, effort, pos_target, vel_target, f_applied,
         q, qd, sf = engine._substep(q, qd, ctrl, f_applied, engine.h)
     pos, quat, avel, lvel = fk_plain(m, q, qd)
     return q, qd, sf, pos, quat, avel, lvel
+
+
+def substep_plain(engine, q, qd, effort, pos_target, vel_target, f_applied):
+    """One plain substep (`engine._substep`): (q, qd, sensor_forces)."""
+    from omniisaacgymenvs_torch.physics.state import Control
+
+    ctrl = Control(effort=effort, pos_target=pos_target,
+                   vel_target=vel_target, body_force=None, body_torque=None)
+    return engine._substep(q, qd, ctrl, f_applied, engine.h)
 
 
 def fk_plain(model: Model, q, qd):
@@ -198,6 +297,20 @@ def _kernels(engine) -> FusedKernels:
     return engine.kernels
 
 
+def _check_step_inputs(k, m, q, qd, effort, pos_target, vel_target, f_applied):
+    N = q.shape[0]
+    if N < 1:
+        raise ValueError("need N >= 1")
+    dev = k.ftab.device
+    _check(q, (N, m.nq), "q", dev)
+    _check(qd, (N, m.nv), "qd", dev)
+    for name, x in (("effort", effort), ("pos_target", pos_target),
+                    ("vel_target", vel_target)):
+        _check(x, (N, m.njd), name, dev)
+    _check(f_applied, (N, m.nb, 6), "f_applied", dev)
+    return N, dev
+
+
 def step(engine, q, qd, effort, pos_target, vel_target, f_applied,
          n_steps: int):
     """K1: n_steps substeps + report FK in one launch. Same returns as
@@ -207,32 +320,47 @@ def step(engine, q, qd, effort, pos_target, vel_target, f_applied,
                           f_applied, n_steps)
     k = _kernels(engine)
     m = engine.model
-    N = q.shape[0]
-    if N < 1 or n_steps < 1:
-        raise ValueError(f"need N >= 1 and n_steps >= 1, got {N}, {n_steps}")
-    dev = k.ftab.device
-    _check(q, (N, m.nq), "q", dev)
-    _check(qd, (N, m.nv), "qd", dev)
-    for name, x in (("effort", effort), ("pos_target", pos_target),
-                    ("vel_target", vel_target)):
-        _check(x, (N, m.njd), name, dev)
-    _check(f_applied, (N, m.nb, 6), "f_applied", dev)
-    ns = m.num_sensors
+    if n_steps < 1:
+        raise ValueError(f"need n_steps >= 1, got {n_steps}")
+    ins = (q, qd, effort, pos_target, vel_target, f_applied)
+    N, dev = _check_step_inputs(k, m, *ins)
     e = torch.empty
     outs = (e((N, m.nq), device=dev), e((N, m.nv), device=dev),
-            e((N, ns, 6), device=dev), e((N, m.nb, 3), device=dev),
+            e((N, m.num_sensors, 6), device=dev), e((N, m.nb, 3), device=dev),
             e((N, m.nb, 4), device=dev), e((N, m.nb, 3), device=dev),
             e((N, m.nb, 3), device=dev))
-    ptrs = [x.data_ptr() for x in (k.ftab, k.itab)]
-    args = [x.data_ptr() for x in (q, qd, effort, pos_target, vel_target,
-                                   f_applied)] + [x.data_ptr() for x in outs]
     err = library().lib.oige_step(
-        *ptrs, m.nb, m.ncp, ns, *args, N, int(n_steps),
+        k.ftab.data_ptr(), k.itab.data_ptr(), k.dims,
+        *[x.data_ptr() for x in ins + outs], N, int(n_steps),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
         raise RuntimeError(f"oige_step launch failed: cudaError {err}")
     k.launches["step"] += 1
+    return outs
+
+
+def substep(engine, q, qd, effort, pos_target, vel_target, f_applied):
+    """K3: one substep in one launch, without the report FK: (q, qd,
+    sensor_forces). Runs `substep_plain` for CPU tensors."""
+    if not q.is_cuda:
+        return substep_plain(engine, q, qd, effort, pos_target, vel_target,
+                             f_applied)
+    k = _kernels(engine)
+    m = engine.model
+    ins = (q, qd, effort, pos_target, vel_target, f_applied)
+    N, dev = _check_step_inputs(k, m, *ins)
+    e = torch.empty
+    outs = (e((N, m.nq), device=dev), e((N, m.nv), device=dev),
+            e((N, m.num_sensors, 6), device=dev))
+    err = library().lib.oige_substep(
+        k.ftab.data_ptr(), k.itab.data_ptr(), k.dims,
+        *[x.data_ptr() for x in ins + outs], N,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"oige_substep launch failed: cudaError {err}")
+    k.launches["substep"] += 1
     return outs
 
 
@@ -252,7 +380,7 @@ def fk(engine, q, qd):
     outs = (e((N, m.nb, 3), device=dev), e((N, m.nb, 4), device=dev),
             e((N, m.nb, 3), device=dev), e((N, m.nb, 3), device=dev))
     err = library().lib.oige_fk(
-        k.ftab.data_ptr(), k.itab.data_ptr(), m.nb, m.ncp, m.num_sensors,
+        k.ftab.data_ptr(), k.itab.data_ptr(), k.dims,
         q.data_ptr(), qd.data_ptr(), *[x.data_ptr() for x in outs], N,
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -272,68 +400,120 @@ def _dot(k: int) -> int:
 
 
 def op_count(model: Model, n_steps: int) -> dict:
-    """FP32 operations per env that K1 (`step`, n_steps substeps + FK) and
-    K2 (`fk`) need, counted over the steps of csrc/fused_step.cu. An add, multiply,
-    compare, min/max, division, sqrt, sin, cos or tanh is 1 (a fused
-    multiply-add is a multiply and an add); a product that is zero by the
-    structure of its operands is not counted, nor is a value that equals
+    """FP32 operations per env that K1 (`step`, n_steps substeps + FK), K2
+    (`fk`) and K3 (`substep`, one substep) need, counted over the steps of
+    csrc/fused_step.cu for this model's bodies, joints, roots, contact
+    points, pairs by surface type, compensated bodies and tendons. An add,
+    multiply, compare, min/max, division, sqrt, sin, cos or tanh is 1 (a
+    fused multiply-add is a multiply and an add); a product that is zero by
+    the structure of its operands is not counted, nor is a value that equals
     another by symmetry (the kernel's inward pass multiplies X's zero block
-    and the whole of X^T Ia X all the same). The kernel is branch-free, so
-    the count does not depend on the data."""
+    and the whole of X^T Ia X all the same), nor one the kernel computes a
+    second time (a prismatic joint's offset). The only branch on the data is
+    a box's inside / outside: it is counted as inside, the shorter side, so
+    the count never exceeds what a run's data needs."""
     nb, ncp = model.nb, model.ncp
-    nj = nb - 1
-    nv = 5 + nb
+    jts = [model.jtype[i] for i in range(nb) if model.parents[i] >= 0]
+    n_pri = sum(j == JointType.PRISMATIC for j in jts)
+    n_rev = len(jts) - n_pri
+    nj = n_rev + n_pri
+    n_free = n_free_roots(model)
+    n_fixed = len(model.roots) - n_free
+    # joints whose parent is a FIXED root skip the 6x6 accumulation
+    n_under_fixed = sum(
+        model.parents[i] >= 0 and model.parents[model.parents[i]] < 0
+        and model.jtype[model.parents[i]] == JointType.FIXED
+        for i in range(nb))
+    n_surf = {t: 0 for t in SurfaceType}
+    for si in model.pair_surf:
+        n_surf[SurfaceType(model.surf_type[si])] += 1
+    n_gc = int((model.gravity_comp != 0).sum())
     mv3 = 3 * _dot(3)                       # 3x3 matrix-vector, 15
     mm3 = 9 * _dot(3)                       # 3x3 matrix product, 45
     cross = 9
-    # forward kinematics, per joint body: sincos 2, Rodrigues 34 (1 - cos,
+    # forward kinematics, per revolute joint: sincos 2, Rodrigues 34 (1 - cos,
     # 3 diagonal entries of 3, 6 off-diagonal of 4), E = R^T Et, r x w_p and
     # subtract 12, two mat-vecs, vJ 6, two crosses, Rw = Rw_p E^T, pw mat-vec
-    # and add 3; per body world velocities, two mat-vecs; root quaternion
-    # -> matrix 30 (9 products, 3 per diagonal and 2 per other entry)
-    fk = (nj * (2 + 34 + mm3 + 12 + 2 * mv3 + 6 + 2 * cross + mm3 + mv3 + 3)
-          + nb * 2 * mv3 + 30)
+    # and add 3; per prismatic joint: r = jpos + Et^T (a q) 21, E = Et free,
+    # r x w_p and subtract 12, two mat-vecs, vJ 6, one cross, Rw, pw; per
+    # body world velocities, two mat-vecs; per FREE root quaternion ->
+    # matrix 30 (9 products, 3 per diagonal and 2 per other entry); a FIXED
+    # root's pose is constant
+    fk_rev = 2 + 34 + mm3 + 12 + 2 * mv3 + 6 + 2 * cross + mm3 + mv3 + 3
+    fk_pri = 21 + 12 + 2 * mv3 + 6 + cross + mm3 + mv3 + 3
+    fk = n_rev * fk_rev + n_pri * fk_pri + nb * 2 * mv3 + 30 * n_free
     # contact point: mat-vec, cross, velocity 3, penetration 2, normal force
     # 8, tangential norm 5, friction 7, torque cross, accumulate 6
     contact = mv3 + cross + 3 + 2 + 8 + 5 + 7 + cross + 6
+    # pair, whatever the surface: point mat-vec, offset from the surface's
+    # body 6, two velocity crosses and the difference 9, the contact force
+    # along a general normal 40 (normal speed 5, tangential part 6, normal
+    # force 8, its norm 7, friction scale 5, force 9), two torque crosses
+    # and 12 accumulating adds
+    pair = mv3 + 6 + 2 * cross + 9 + 40 + 2 * cross + 12
+    # sphere: centre mat-vec, offset 3, unit vector 12, penetration 2
+    pair_sphere = pair + mv3 + 3 + 12 + 2
+    # capsule: two end mat-vecs, axis 3, projection 8 + 6 + 1, clamp 2,
+    # nearest point 6, offset 3, unit vector 12, penetration 2
+    pair_capsule = pair + 2 * mv3 + 3 + 8 + 6 + 1 + 2 + 6 + 3 + 12 + 2
+    # box: centre mat-vec, offset 3, into the box frame two mat-vecs, clamp
+    # and squared distance 15, sqrt 2, outside test 1, face distances 6,
+    # nearest face 3 + 2, inside normal and penetration 4, normal back to
+    # the world two mat-vecs
+    pair_box = pair + mv3 + 3 + 2 * mv3 + 15 + 2 + 1 + 6 + 3 + 2 + 4 + 2 * mv3
+    pairs = (n_surf[SurfaceType.SPHERE] * pair_sphere
+             + n_surf[SurfaceType.CAPSULE] * pair_capsule
+             + n_surf[SurfaceType.BOX] * pair_box)
+    # gravity compensation per compensated body: force 3, CoM mat-vec,
+    # cross, 6 adds
+    gravcomp = 3 + mv3 + cross + 6
     # drive per joint: PD 7, clamp 2, passive 5, sum 2
     drive = 16
+    # tendon: length 7, rate 3, limit excess 3, force 6, two torques 4
+    tendon = 23
     # bias force per body: I v over the structural non-zeros (3 rows of 5
     # terms, 3 of 3), three crosses, wrench adds 6, two mat-vecs, combine 9
     bias = 3 * _dot(5) + 3 * _dot(3) + 3 * cross + 6 + 2 * mv3 + 9
-    # inward per joint: U = IA S 6 rows of 3 terms; D 7; u 6; 1/D 1; U/D 6;
+    # inward per joint: U = IA S 6 rows of 3 terms; D 7; u 6 (a joint under
+    # a FIXED root stops here); 1/D 1; U/D 6;
     # Ia upper triangle 21 x 2; pa = pA + Ia c + U u/D: 6 rows of 6 terms,
     # 1 and 3 per row; M = r x rows(E); T = Ia X: 18 entries of 6 terms and
     # 18 of 3; X^T T upper triangle: 15 entries of 6 terms, 6 of 3, and 21
     # accumulating adds; X^T pa 3 of 6 terms and 3 of 3, accumulate 6
-    inward = (6 * _dot(3) + 7 + 6 + 1 + 6 + 21 * 2 + 6 * _dot(6) + 1 + 6 * 3
+    inward_head = 6 * _dot(3) + 7 + 6
+    inward = (inward_head + 1 + 6 + 21 * 2 + 6 * _dot(6) + 1 + 6 * 3
               + 3 * cross + 18 * _dot(6) + 18 * _dot(3)
               + 15 * _dot(6) + 6 * _dot(3) + 21
               + 3 * _dot(6) + 3 * _dot(3) + 6)
-    # root: gravity in the body frame (mat-vec), rhs 6 rows of 3 terms and
-    # 1 add, Cholesky factor 97 and two triangular solves of 36, acc 3
+    # FREE root: gravity in the body frame (mat-vec), rhs 6 rows of 3 terms
+    # and 1 add, Cholesky factor 97 and two triangular solves of 36, acc 3;
+    # FIXED root: the gravity mat-vec
     root = mv3 + 6 * (_dot(3) + 1) + 97 + 2 * 36 + 3
     # outward per joint: cross, subtract 3, two mat-vecs, bias 6, U.a 6
     # terms, qdd 2, acc 6
     outward = cross + 3 + 2 * mv3 + 6 + _dot(6) + 2 + 6
-    # integration: qd + h qdd 2 per dof, root caps 12, 10 per joint; root
-    # position mat-vec and 6; quaternion exponential 4 + 7 + 6, product 28,
-    # normalization 9 + 4
-    integ = 2 * nv + 12 + 10 * nj + mv3 + 6 + 4 + 7 + 6 + 28 + 13
-    sub = (fk + contact * ncp + drive * nj + bias * nb + inward * nj + root
-           + outward * nj + integ)
-    report = fk + 43 * nb  # Shepperd quaternion 43 per body
-    return {"step": n_steps * sub + report, "fk": report}
+    # integration: qd + h qdd 2 per dof, 10 per joint; per FREE root caps
+    # 12, position mat-vec and 6; quaternion exponential 4 + 7 + 6, product
+    # 28, normalization 9 + 4
+    integ = 2 * model.nv + 10 * nj + n_free * (12 + mv3 + 6 + 4 + 7 + 6 + 28 + 13)
+    sub = (fk + contact * ncp + pairs + gravcomp * n_gc + drive * nj
+           + tendon * model.nt + bias * nb
+           + inward * (nj - n_under_fixed) + inward_head * n_under_fixed
+           + root * n_free + mv3 * n_fixed + outward * nj + integ)
+    # Shepperd quaternion 43 per body that moves
+    report = fk + 43 * (nb - n_fixed)
+    return {"step": n_steps * sub + report, "fk": report, "substep": sub}
 
 
 def io_bytes(model: Model) -> dict:
-    """Bytes per env that K1 and K2 must move: each input read once, each
-    output written once (float32)."""
+    """Bytes per env that K1, K2 and K3 must move: each input read once,
+    each output written once (float32)."""
     nq, nv, njd, nb, ns = (model.nq, model.nv, model.njd, model.nb,
                            model.num_sensors)
     report = 13 * nb
-    return {"step": 4 * (nq + nv + 3 * njd + 6 * nb + nq + nv + 6 * ns + report),
-            "fk": 4 * (nq + nv + report)}
+    sub = nq + nv + 3 * njd + 6 * nb + nq + nv + 6 * ns
+    return {"step": 4 * (sub + report), "fk": 4 * (nq + nv + report),
+            "substep": 4 * sub}
 
 
 # ---------------------------------------------------------------------------
@@ -387,15 +567,18 @@ def build(flags=NVCC_FLAGS) -> _Library:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.oige_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.oige_limits.restype = ci
-    lib.oige_step.argtypes = [vp, vp, ci, ci, ci] + [vp] * 13 + [ci, ci, vp]
+    dims = ctypes.POINTER(ctypes.c_int)
+    lib.oige_step.argtypes = [vp, vp, dims] + [vp] * 13 + [ci, ci, vp]
     lib.oige_step.restype = ci
-    lib.oige_fk.argtypes = [vp, vp, ci, ci, ci] + [vp] * 6 + [ci, vp]
+    lib.oige_substep.argtypes = [vp, vp, dims] + [vp] * 9 + [ci, vp]
+    lib.oige_substep.restype = ci
+    lib.oige_fk.argtypes = [vp, vp, dims] + [vp] * 6 + [ci, vp]
     lib.oige_fk.restype = ci
-    lim = (ctypes.c_int * 3)()
+    lim = (ctypes.c_int * len(LIMITS))()
     lib.oige_limits(lim)
-    if tuple(lim) != (NB_MAX, NCP_MAX, NS_MAX):
+    if tuple(lim) != LIMITS:
         raise RuntimeError(f"kernel maxima {tuple(lim)} disagree with "
-                           f"{(NB_MAX, NCP_MAX, NS_MAX)}")
+                           f"{LIMITS}")
     return _Library(lib, log.read_text() if log.exists() else "", build_s, so)
 
 

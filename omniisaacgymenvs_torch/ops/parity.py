@@ -39,38 +39,203 @@ STEP_TOL = {"q": (1e-3, 1e-4, 0.0), "qd": (2e-3, 4e-4, 0.0),
 FK_TOL = {"body_pos": (1e-4, 1e-5, 0.0), "body_quat": (0.0, 1e-3, 0.0),
           "body_avel": (1e-4, 1e-5, 0.0), "body_lvel": (1e-4, 1e-5, 0.0)}
 
-# the check states lower the root by up to this much (m): feet press into
-# the ground about as deep as they do in a standing rollout's first steps
+# The ShadowHand scene (8 substeps, fingers of a few grams, the cube's 26
+# points sticking and slipping on the palm) spreads its velocities three
+# times as far: the sound build read up to 1.37 of the limits above on qd
+# and body_avel, and so did a --use_fast_math build (1.11), while a dropped
+# substep, a dropped pair, a box 1 mm larger or tendons 0.1% stiffer read
+# 639 and more (scripts/tolerance_controls.py task=ShadowHand, PERF.md).
+# Its velocity limits sit between the two, at three times the above; they
+# do not tell a fast-math build from a sound one, the Humanoid's do.
+_WIDE = (6e-3, 1.2e-3, 0.0)
+STEP_TOL_BY_MODEL = {
+    "ShadowHand": {**STEP_TOL, "qd": _WIDE, "body_avel": _WIDE},
+}
+
+
+def step_tol(model) -> dict:
+    """K1's tolerances for `model`."""
+    return STEP_TOL_BY_MODEL.get(model.name, STEP_TOL)
+
+
+# K3: one substep (a fraction of K1's drift) and no report; every model's
+# sound build stays below 0.1 of K1's limits, and a tendon 0.1% stiffer
+# reads 2.0 on the ShadowHand
+SUBSTEP_NAMES = ("q", "qd", "sensor_forces")
+SUBSTEP_TOL = {k: STEP_TOL[k] for k in SUBSTEP_NAMES}
+
+# the check states lower every FREE root by up to this much (m): Humanoid
+# feet press into the ground about as deep as in a standing rollout's first
+# steps
 CHECK_DROP = 0.1
+
+# How the check states of a model are drawn (`check_inputs`), by model name:
+# joint and FREE-root jitter, velocity scale, how far the FREE roots are
+# lowered (uniform in [drop_min, drop]), the range of the efforts and of the
+# position targets about the joint coordinates. `anchors`: root positions
+# the first FREE root cycles through, env by env, instead of default_q's.
+# `curl`: joint angles (by dof name, jittered by `joint`) that every other
+# env takes instead of its draw.
+_DEFAULT_PROFILE = dict(joint=0.05, root_pos=0.05, root_rot=0.05, vel=0.3,
+                        drop_min=0.0, drop=CHECK_DROP, effort=40.0,
+                        target=0.1, anchors=None, curl=None)
+CHECK_PROFILES = {
+    # the cube 1 cm above the palm at default_q: tilted by some 15 degrees
+    # and lowered onto and up to 1 cm into it (corners), less than the palm's half
+    # thickness of 1.2 cm, where the nearest face changes; efforts within
+    # the fingers' caps. In every other env the middle and ring fingers curl
+    # onto the cube's side, so their tips' force sensors read a contact
+    # (those two sit 2 cm from the cube's other faces; the first finger
+    # would press at an edge, where the nearest face changes)
+    "ShadowHand": dict(joint=0.1, root_pos=0.002, root_rot=0.15, drop=0.01,
+                       effort=0.5, target=0.3,
+                       curl={"MFJ2": 1.1, "MFJ1": 0.9, "MFJ0": 0.3,
+                             "RFJ2": 1.1, "RFJ1": 0.9, "RFJ0": 0.3}),
+    # the ball rests on the tray at z = 0.68 and spawns at 1.0
+    "BallBalance": dict(drop_min=0.28, drop=0.35, effort=2.0),
+    # the puck over the box, the sphere, the capsule and the arm's capsule
+    # (lowered by at most 2 cm: a point deeper in than the surface's half
+    # thickness, or near a capsule's axis, meets a true discontinuity of
+    # the contact normal, where one ulp decides the direction of the force)
+    "PairScene": dict(root_pos=0.005, root_rot=0.2, drop=0.02, effort=1.0,
+                      anchors=((0.0, 0.0, 0.575), (0.5, 0.0, 0.755),
+                               (-0.6, 0.0, 0.705), (0.0, 0.7, 0.705))),
+}
+
+
+def check_profile(model) -> dict:
+    return {**_DEFAULT_PROFILE, **CHECK_PROFILES.get(model.name, {})}
 
 
 def perturbed_batch(default_q, jq, lower, upper, nv, rng, N, scale=0.05,
-                    vel=0.3, drop=0.0):
-    """(q, qd) float32 numpy batch near default_q for a single FREE-root
-    model: joint coords jittered within limits, root pose jittered with a
-    renormalized quaternion, root height lowered by up to `drop`."""
+                    vel=0.3, drop=0.0, free_q=(0,), root_pos=None,
+                    root_rot=None, drop_min=0.0, anchors=None):
+    """(q, qd) float32 numpy batch near default_q: joint coords jittered by
+    `scale` within limits; every FREE root (its q address in `free_q`)
+    jittered in position (`root_pos`, default `scale`) and orientation
+    (`root_rot`, default `scale`; renormalized) and lowered by a uniform
+    draw from [drop_min, drop]."""
+    root_pos = scale if root_pos is None else root_pos
+    root_rot = scale if root_rot is None else root_rot
     q = np.tile(np.asarray(default_q, np.float64), (N, 1))
     q[:, jq] += scale * rng.standard_normal((N, len(jq)))
     q[:, jq] = np.clip(q[:, jq], lower, upper)
-    q[:, 0:3] += scale * rng.standard_normal((N, 3))
-    q[:, 2] -= drop * rng.uniform(0.0, 1.0, N)
-    q[:, 3:7] += scale * rng.standard_normal((N, 4))
-    q[:, 3:7] /= np.linalg.norm(q[:, 3:7], axis=1, keepdims=True)
+    for k, qa in enumerate(free_q):
+        if k == 0 and anchors is not None:
+            q[:, qa:qa + 3] = np.asarray(anchors, np.float64)[
+                np.arange(N) % len(anchors)]
+        q[:, qa:qa + 3] += root_pos * rng.standard_normal((N, 3))
+        q[:, qa + 2] -= rng.uniform(drop_min, max(drop, drop_min), N)
+        q[:, qa + 3:qa + 7] += root_rot * rng.standard_normal((N, 4))
+        q[:, qa + 3:qa + 7] /= np.linalg.norm(q[:, qa + 3:qa + 7], axis=1,
+                                              keepdims=True)
     qd = vel * rng.standard_normal((N, nv))
     return q.astype(np.float32), qd.astype(np.float32)
 
 
-def check_inputs(model, n: int, seed: int, device, drop: float = CHECK_DROP):
-    """(q, qd, effort) on `device`: states near default_q (perturbed_batch)
-    and uniform efforts in [-40, 40] N m, made from `seed` with numpy."""
+def _free_q(model):
+    return tuple(model.q_adr[r] for r in model.roots if model.jtype[r] == 0)
+
+
+def check_inputs(model, n: int, seed: int, device, drop: float | None = None):
+    """(q, qd, effort) on `device`: states near default_q (perturbed_batch,
+    drawn as the model's `check_profile` says; `drop` overrides the
+    profile's) and uniform efforts, made from `seed` with numpy."""
     cpu = lambda x: x.detach().cpu().numpy()  # noqa: E731
+    pr = check_profile(model)
     rng = np.random.default_rng(seed)
-    q, qd = perturbed_batch(cpu(model.default_q), model.jq_idx,
-                            cpu(model.dof_limit_lower),
-                            cpu(model.dof_limit_upper), model.nv, rng, n,
-                            drop=drop)
-    eff = rng.uniform(-40.0, 40.0, (n, model.njd)).astype(np.float32)
+    q, qd = perturbed_batch(
+        cpu(model.default_q), model.jq_idx, cpu(model.dof_limit_lower),
+        cpu(model.dof_limit_upper), model.nv, rng, n, scale=pr["joint"],
+        vel=pr["vel"], drop=pr["drop"] if drop is None else drop,
+        free_q=_free_q(model), root_pos=pr["root_pos"],
+        root_rot=pr["root_rot"], drop_min=pr["drop_min"],
+        anchors=pr["anchors"])
+    eff = rng.uniform(-pr["effort"], pr["effort"],
+                      (n, model.njd)).astype(np.float32)
+    for name, angle in (pr["curl"] or {}).items():
+        d = model.dof_index(name)
+        q[1::2, model.jq_idx[d]] = np.clip(
+            angle + pr["joint"] * rng.standard_normal(q[1::2].shape[0]),
+            cpu(model.dof_limit_lower)[d], cpu(model.dof_limit_upper)[d])
     return tuple(torch.as_tensor(x, device=device) for x in (q, qd, eff))
+
+
+def check_targets(model, q: torch.Tensor, seed: int) -> torch.Tensor:
+    """Position targets for the check: the joint coordinates of `q` plus
+    the profile's jitter, within the joint limits."""
+    rng = np.random.default_rng(seed + 7919)
+    jq = torch.as_tensor(model.jq_idx.astype(np.int64), device=q.device)
+    jit = check_profile(model)["target"] * rng.standard_normal(
+        (q.shape[0], model.njd))
+    tgt = q[:, jq] + torch.as_tensor(jit, dtype=q.dtype, device=q.device)
+    return torch.minimum(torch.maximum(tgt, model.dof_limit_lower),
+                         model.dof_limit_upper).contiguous()
+
+
+def active_contacts(engine, q, qd) -> dict:
+    """Contacts of the states (q, qd), counted with the plain FK: `ground`
+    contact points in the ground, candidate `pairs` in contact, and those
+    pairs by the surface's type (`sphere`, `capsule`, `box`)."""
+    from omniisaacgymenvs_torch.physics import contacts, dynamics
+
+    m = engine.model
+    kin = dynamics.kinematics(m, q, qd)
+    out = dict(ground=0, pairs=0)
+    if m.ncp:
+        cb = torch.as_tensor(m.cp_body.astype(np.int64), device=q.device)
+        pt = kin.pw[:, cb] + (kin.Rw[:, cb] @ m.cp_pos[..., None])[..., 0]
+        out["ground"] = int((pt[..., 2] < m.cp_radius).sum())
+    pen = contacts.pair_penetrations(m, engine.pair_groups, kin.pw, kin.Rw)
+    for name, g in zip(("sphere", "capsule", "box"), engine.pair_groups):
+        out[name] = int((pen[:, g["idx"].astype(np.int64)] > 0).sum())
+    out["pairs"] = out["sphere"] + out["capsule"] + out["box"]
+    return out
+
+
+def build_pair_scene(device="cpu"):
+    """A small scene that holds every pair-contact branch: a FIXED base with
+    a box, a sphere and a capsule surface; on it an arm of a prismatic and
+    two revolute joints, the last two coupled by a fixed tendon with limits,
+    carrying a capsule surface that moves and a gravity-compensated link;
+    and a FREE puck (a dense box of 26 points and a sphere) that the check
+    states set on each surface in turn (CHECK_PROFILES["PairScene"])."""
+    from omniisaacgymenvs_torch.physics.model import JointType, ModelBuilder
+
+    b = ModelBuilder("PairScene")
+    base = b.add_body("base", parent=-1, joint_type=JointType.FIXED,
+                      joint_pos=(0.0, 0.0, 0.5), mass=1.0)
+    b.add_box_collider(base, (0, 0, -0.08), (0.3, 0.3, 0.1), receive=True)
+    b.add_sphere_collider(base, (0.5, 0.0, 0.1), 0.1, receive=True)
+    b.add_capsule_collider(base, (-0.6, -0.2, 0.05), (-0.6, 0.2, 0.05), 0.1,
+                           receive=True)
+    slide = b.add_body("slide", parent=base, joint_type=JointType.PRISMATIC,
+                       joint_axis=(0, 0, 1), joint_pos=(0.0, 0.6, 0.05),
+                       limit=(-0.05, 0.05), mass=0.5, inertia=(1e-3,) * 3,
+                       stiffness=200.0, drive_damping=20.0, max_effort=50.0,
+                       armature=0.01, max_velocity=5.0)
+    hinge = b.add_body("hinge", parent=slide, joint_type=JointType.REVOLUTE,
+                       joint_axis=(1, 0, 0), limit=(-0.4, 0.4), mass=0.2,
+                       com=(0.0, 0.1, 0.0), inertia=(1e-3,) * 3,
+                       stiffness=5.0, drive_damping=0.5, max_effort=5.0,
+                       armature=1e-3, max_velocity=20.0)
+    b.add_capsule_collider(hinge, (0, 0, 0), (0, 0.2, 0), 0.1, receive=True)
+    b.add_body("hinge2", parent=hinge, joint_type=JointType.REVOLUTE,
+               joint_axis=(1, 0, 0), joint_pos=(0.0, 0.2, 0.0),
+               limit=(-0.4, 0.4), mass=0.1, com=(0.0, 0.05, 0.0),
+               inertia=(5e-4,) * 3, damping=0.01, armature=1e-3,
+               max_velocity=20.0, gravity_comp=True)
+    b.add_fixed_tendon("hinge", "hinge2", coef=(1.0, -1.0), stiffness=2.0,
+                       damping=0.05, limit=(-0.05, 0.05),
+                       limit_stiffness=10.0)
+    b.add_force_sensor(hinge)
+    puck = b.add_body("puck", parent=-1, joint_type=JointType.FREE,
+                      mass=0.3, inertia=(5e-4,) * 3,
+                      default_pos=(0.0, 0.0, 0.575))
+    b.add_box_collider(puck, (0, 0, 0), (0.05, 0.05, 0.05), dense=True)
+    b.add_sphere_collider(puck, (0, 0, 0), 0.06)
+    b.add_force_sensor(puck)
+    return b.finalize(device)
 
 
 def sign_align(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -83,7 +248,9 @@ def sign_align(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def tolerance_use(a: torch.Tensor, b: torch.Tensor, rtol: float,
                   scale: float, atol: float) -> float:
     """Largest |a - b| / (atol + rtol |b| + scale max_env |b|); inf where a
-    is not finite or an error meets a zero limit."""
+    is not finite or an error meets a zero limit; 0 for an empty output."""
+    if a.numel() == 0:
+        return 0.0
     if not bool(torch.isfinite(a).all()):
         return float("inf")
     a64, b64 = a.double().reshape(a.shape[0], -1), b.double().reshape(b.shape[0], -1)
@@ -100,7 +267,8 @@ def compare(outs, refs, names, tol) -> dict:
     for n, a, b in zip(names, outs, refs):
         if n == "body_quat":
             a = sign_align(a, b)
-        res[n] = (float((a - b).abs().max()), tolerance_use(a, b, *tol[n]))
+        err = float((a - b).abs().max()) if a.numel() else 0.0
+        res[n] = (err, tolerance_use(a, b, *tol[n]))
     return res
 
 

@@ -1,11 +1,13 @@
-"""Ground contact model: compiled contact points against the flat plane
-z = 0 (PyTorch port of the ground part of the JAX package's
-`physics/contacts.py`).
+"""Contact model: compiled contact points against the flat plane z = 0,
+and against the receiver surfaces (sphere, capsule, box) of other bodies
+(PyTorch port of the JAX package's `physics/contacts.py`, without
+heightfields and randomization scales).
 
 A regularized compliant contact: Hunt-Crossley normal force (spring scaled
 by 1 - chi * vn, so no spike at first touch) capped per point, plus
 stiction-capped viscous friction. The build-time gain helpers work in
-numpy on the model's fields; `plane_contacts` is batched over envs.
+numpy on the model's fields; `plane_contacts` and `pair_contacts` are
+batched over envs.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from omniisaacgymenvs_torch.physics.model import JointType, Model
+from omniisaacgymenvs_torch.physics import rotations as rot
+from omniisaacgymenvs_torch.physics.model import JointType, Model, SurfaceType
 
 
 def _np(x) -> np.ndarray:
@@ -154,6 +157,28 @@ def point_effective_masses(model: Model) -> np.ndarray:
     return _eff_mass(m, I_min, r2)
 
 
+def surface_effective_mass(model: Model, si: int) -> float:
+    """Conservative effective mass of a receiver surface's body: the lever
+    is the surface's farthest point from the CoM."""
+    sb = model.surf_body[si]
+    stype = SurfaceType(model.surf_type[si])
+    prm = np.asarray(model.surf_params[si])
+    com = _np(model.body_com)[sb]
+    if stype == SurfaceType.SPHERE:
+        r_max = np.linalg.norm(prm[0:3] - com) + prm[3]
+    elif stype == SurfaceType.CAPSULE:
+        r_max = max(
+            np.linalg.norm(prm[0:3] - com), np.linalg.norm(prm[3:6] - com)
+        ) + prm[6]
+    else:  # BOX
+        r_max = np.linalg.norm(prm[0:3] - com) + np.linalg.norm(prm[3:6])
+    m = float(_np(model.body_mass)[sb])
+    I = _np(model.body_inertia)[sb]
+    I_min = float(min(I[0, 0], I[1, 1], I[2, 2]))
+    return float(_eff_mass(np.asarray(m), np.asarray(I_min),
+                           np.asarray(r_max ** 2)))
+
+
 class ContactResult(NamedTuple):
     f_ext: torch.Tensor          # (N, nb, 6) world wrench [torque; force]
     body_force: torch.Tensor     # (N, nb, 3) net world contact force
@@ -214,3 +239,202 @@ def plane_contacts(
     body_torque = zeros3.clone().index_add_(1, cb, n_w)
     f_ext = torch.cat([body_torque, body_force], dim=-1)
     return ContactResult(f_ext, body_force, body_torque)
+
+
+# ----------------------------------------------------------------------
+# Pair contacts: contact points against the receiver surfaces of other
+# bodies (tray + ball, hand + object), over a static candidate-pair list
+# compiled into the model.
+# ----------------------------------------------------------------------
+
+_N_SURF_PARAMS = {SurfaceType.SPHERE: 4, SurfaceType.CAPSULE: 7,
+                  SurfaceType.BOX: 10}
+
+
+class PairGroups(NamedTuple):
+    """Static candidate pairs grouped by surface type (numpy, build-time).
+    Each group: pt (point index), sbody (surface body), params (surface
+    geometry), mmin (lighter effective mass of point and surface), mbody
+    (lighter full body mass), idx (position in the model's pair list)."""
+
+    sphere: dict
+    capsule: dict
+    box: dict
+
+
+def build_pair_groups(model: Model) -> PairGroups:
+    pts = np.asarray(model.pair_point)
+    groups = {t: [] for t in SurfaceType}
+    for k in range(pts.shape[0]):
+        si = model.pair_surf[k]
+        groups[SurfaceType(model.surf_type[si])].append((int(pts[k]), si, k))
+
+    meff_pt = point_effective_masses(model)
+    bm = _np(model.body_mass)
+
+    def pack(pairs, nparams):
+        if not pairs:
+            return dict(
+                pt=np.zeros(0, np.int32), sbody=np.zeros(0, np.int32),
+                params=np.zeros((0, nparams)), mmin=np.zeros(0),
+                mbody=np.zeros(0), idx=np.zeros(0, np.int32),
+            )
+        pt = np.array([p for p, _, _ in pairs], np.int32)
+        sbody = np.array([model.surf_body[s] for _, s, _ in pairs], np.int32)
+        params = np.array([model.surf_params[s] for _, s, _ in pairs])
+        mmin = np.minimum(
+            meff_pt[pt],
+            np.array([surface_effective_mass(model, s) for _, s, _ in pairs]),
+        )
+        mbody = np.minimum(bm[model.cp_body[pt]], bm[sbody])
+        return dict(pt=pt, sbody=sbody, params=params, mmin=mmin,
+                    mbody=mbody, idx=np.array([k for _, _, k in pairs], np.int32))
+
+    return PairGroups(*(pack(groups[t], _N_SURF_PARAMS[t]) for t in SurfaceType))
+
+
+def pair_gains(model: Model, groups: PairGroups,
+               params: ContactParams) -> np.ndarray:
+    """(3, npair) float64 gains (kn, kt, fn_max) in the order of the model's
+    pair list: per-mass params scale with each pair's lighter effective mass
+    (force cap: lighter body mass), else the params' scalars."""
+    out = np.zeros((3, len(model.pair_surf)))
+    for g in groups:
+        if params.per_mass:
+            out[:, g["idx"]] = np.stack([params.kn_pm * g["mmin"],
+                                         params.kt_pm * g["mmin"],
+                                         params.fnm_pm * g["mbody"]])
+        else:
+            out[:, g["idx"]] = np.array(
+                [[params.kn], [params.kt], [params.fn_max]])
+    return out
+
+
+def _contact_force(pen, n, vrel, mu, chi, kn, kt, fnm):
+    """Compliant normal (Hunt-Crossley damped) + stiction-capped friction:
+    world-frame force on the point body. pen (N,P), n and vrel (N,P,3)."""
+    vn = torch.sum(vrel * n, dim=-1)
+    vt = vrel - vn[..., None] * n
+    fn = torch.minimum(
+        kn * torch.clamp(pen, min=0.0) * torch.clamp(1.0 - chi * vn, 0.0, 5.0),
+        fnm,
+    )
+    vt_norm = torch.sqrt(torch.sum(vt * vt, dim=-1) + 1e-12)
+    ft_mag = torch.minimum(mu * fn, kt * vt_norm)
+    return fn[..., None] * n - (ft_mag / (vt_norm + 1e-6))[..., None] * vt
+
+
+def _unit(d):
+    """(unit vector, length) of d (N,P,3), floored as the kernel does."""
+    dist = torch.sqrt(torch.sum(d * d, dim=-1) + 1e-18)
+    return d / (dist[..., None] + 1e-9), dist
+
+
+def _pair_geometry(model: Model, groups: PairGroups, body_pos, body_rot):
+    """Per non-empty surface-type group: (group, point body, surface body,
+    world point, world point where the surface's velocity is taken,
+    penetration (N,P), unit normal (N,P,3) from the surface to the point).
+    A box classifies a point as outside on the squared distance to the box
+    (d2 > 1e-14), so a point resting inside (d2 = 0 exactly) never flips on
+    the rounding of a square root."""
+    dev = body_pos.device
+
+    def mv(R, x):
+        return (R @ x[..., None])[..., 0]
+
+    for stype, g in zip(SurfaceType, groups):
+        if g["pt"].shape[0] == 0:
+            continue
+        idx = lambda x: torch.as_tensor(  # noqa: E731
+            np.asarray(x, np.int64), device=dev)
+        pi, sb = idx(g["pt"]), idx(g["sbody"])
+        prm = torch.as_tensor(g["params"], dtype=body_pos.dtype, device=dev)
+        pb = idx(model.cp_body[g["pt"]])
+        pt_w = body_pos[:, pb] + mv(body_rot[:, pb], model.cp_pos[pi])
+        r_pt = model.cp_radius[pi]
+        Rs, ps = body_rot[:, sb], body_pos[:, sb]
+        v_at = pt_w
+        if stype == SurfaceType.SPHERE:
+            n, dist = _unit(pt_w - (ps + mv(Rs, prm[:, 0:3])))
+            pen = prm[:, 3] + r_pt - dist
+        elif stype == SurfaceType.CAPSULE:
+            p0 = ps + mv(Rs, prm[:, 0:3])
+            seg = ps + mv(Rs, prm[:, 3:6]) - p0
+            t = torch.clamp(
+                torch.sum((pt_w - p0) * seg, dim=-1)
+                / (torch.sum(seg * seg, dim=-1) + 1e-9), 0.0, 1.0)
+            v_at = p0 + t[..., None] * seg
+            n, dist = _unit(pt_w - v_at)
+            pen = prm[:, 6] + r_pt - dist
+        else:  # BOX
+            half = prm[:, 3:6]
+            R_box = Rs @ rot.quat_to_rotmat(prm[:, 6:10])   # box -> world
+            c_w = ps + mv(Rs, prm[:, 0:3])
+            p_l = mv(R_box.transpose(-1, -2), pt_w - c_w)    # world -> box
+            d_out = p_l - torch.minimum(torch.maximum(p_l, -half), half)
+            d2 = torch.sum(d_out * d_out, dim=-1)
+            dist_out = torch.sqrt(d2 + 1e-18)
+            outside = d2 > 1e-14
+            n_out = d_out / (dist_out[..., None] + 1e-9)
+            # inside: push out through the nearest face
+            f0, f1, f2 = (half - torch.abs(p_l)).unbind(-1)
+            is0 = f0 <= torch.minimum(f1, f2)
+            is1 = ~is0 & (f1 <= f2)
+            pick = torch.stack([is0, is1, ~(is0 | is1)], dim=-1)
+            n_in = torch.where(pick, torch.sign(p_l), torch.zeros_like(p_l))
+            min_d = torch.minimum(f0, torch.minimum(f1, f2))
+            n_l = torch.where(outside[..., None], n_out, n_in)
+            pen = torch.where(outside, r_pt - dist_out, r_pt + min_d)
+            n = mv(R_box, n_l)
+        yield g, pb, sb, pt_w, v_at, pen, n
+
+
+def pair_penetrations(model: Model, groups: PairGroups, body_pos,
+                      body_rot) -> torch.Tensor:
+    """(N, npair) penetration depth of every candidate pair, in the order of
+    the model's pair list (positive: in contact)."""
+    out = body_pos.new_zeros((body_pos.shape[0], len(model.pair_surf)))
+    for g, _, _, _, _, pen, _ in _pair_geometry(model, groups, body_pos,
+                                                body_rot):
+        out[:, torch.as_tensor(g["idx"].astype(np.int64),
+                               device=out.device)] = pen
+    return out
+
+
+def pair_contacts(
+    model: Model,
+    groups: PairGroups,
+    body_pos: torch.Tensor,     # (N, nb, 3) world
+    body_rot: torch.Tensor,     # (N, nb, 3, 3)
+    body_avel: torch.Tensor,    # (N, nb, 3)
+    body_lvel: torch.Tensor,    # (N, nb, 3)
+    params: ContactParams,
+    gains: Optional[np.ndarray] = None,
+) -> torch.Tensor:
+    """Point-vs-surface contact wrenches -> (N, nb, 6) [torque; force] per
+    body in world coordinates, equal and opposite on the point's and the
+    surface's body. `gains`: `pair_gains` of the model, computed from
+    `params` when not given."""
+    N, nb = body_pos.shape[0], model.nb
+    f_ext = body_pos.new_zeros((N, nb, 6))
+    dev = body_pos.device
+    if gains is None:
+        gains = pair_gains(model, groups, params)
+
+    def vel_at(b, x):
+        return body_lvel[:, b] + torch.linalg.cross(
+            body_avel[:, b], x - body_pos[:, b], dim=-1)
+
+    for g, pb, sb, pt_w, v_at, pen, n in _pair_geometry(
+            model, groups, body_pos, body_rot):
+        kn, kt, fnm = torch.as_tensor(gains[:, g["idx"]],
+                                      dtype=body_pos.dtype, device=dev)
+        pi = torch.as_tensor(g["pt"].astype(np.int64), device=dev)
+        vrel = vel_at(pb, pt_w) - vel_at(sb, v_at)
+        mu = params.mu * model.cp_friction[pi]
+        f = _contact_force(pen, n, vrel, mu, params.kd, kn, kt, fnm)
+        n_pt = torch.linalg.cross(pt_w - body_pos[:, pb], f, dim=-1)
+        n_sf = torch.linalg.cross(pt_w - body_pos[:, sb], -f, dim=-1)
+        f_ext.index_add_(1, pb, torch.cat([n_pt, f], dim=-1))
+        f_ext.index_add_(1, sb, torch.cat([n_sf, -f], dim=-1))
+    return f_ext

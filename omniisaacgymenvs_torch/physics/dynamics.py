@@ -6,8 +6,7 @@ Per-body math is batched across the bodies of one tree depth level; the
 tree recursions (velocity and pose propagation, articulated-inertia
 accumulation, acceleration propagation) run level by level, with parent
 accumulation by `index_add_`. This is the plain version of the physics that
-the hand-written kernels (`ops/fused_step.py`) are held against. Fixed
-tendons are not ported yet (`drive_torques` and `aba` raise on them).
+the hand-written kernels (`ops/fused_step.py`) are held against.
 """
 
 from __future__ import annotations
@@ -42,6 +41,7 @@ class _Tree(NamedTuple):
     is_rev: torch.Tensor      # (njd,) 1.0 revolute, 0.0 prismatic
     jq: torch.Tensor          # (njd,) indices into q
     jv: torch.Tensor          # (njd,) indices into qd
+    td: torch.Tensor          # (nt, 2) joint indices coupled by each tendon
     lvl_b: tuple              # per level: body indices
     lvl_p: tuple              # per level: parent body indices
     lvl_jd: tuple             # per level: joint indices
@@ -72,7 +72,8 @@ def _tree(model: Model) -> _Tree:
             lvl_p.append(idx([model.parents[i] for i in lvl]))
             lvl_jd.append(idx([model.jdof[i] for i in lvl]))
         t = _Tree(idx(jb), is_rev, idx(model.jq_idx), idx(model.jv_idx),
-                  tuple(lvl_b), tuple(lvl_p), tuple(lvl_jd))
+                  idx(model.tendon_dof).reshape(-1, 2), tuple(lvl_b),
+                  tuple(lvl_p), tuple(lvl_jd))
         _TREE_CACHE[key] = t
         weakref.finalize(model, _TREE_CACHE.pop, key, None)
     return t
@@ -197,13 +198,21 @@ def aba(
     damping + h*stiffness) to the joint diagonal (implicit damping /
     Stable-PD, see drive_torques).
     """
-    if model.nt:
-        raise NotImplementedError("fixed tendons are not ported yet")
     N, nb = q.shape[0], model.nb
     tr = _tree(model)
     d_implicit = h * (
         model.dof_drive_damping + model.dof_damping + h * model.dof_stiffness
     )
+    if model.nt:
+        # fixed-tendon implicit diagonal: h*(c + h*(k + k_lim))*coef^2 per
+        # coupled dof, the diagonal part of the implicit tendon Jacobian
+        # (the off-diagonal coupling is dropped; errs on the damped side)
+        per_t = h * (model.tendon_damping + h * (
+            model.tendon_stiffness + model.tendon_limit_stiffness))
+        d_implicit = d_implicit.index_add(
+            0, tr.td.reshape(-1),
+            (per_t[:, None] * model.tendon_coef ** 2).reshape(-1),
+        )
 
     IA0 = spatial.spatial_inertia(
         model.body_mass, model.body_com, model.body_inertia
@@ -309,8 +318,6 @@ def drive_torques(model: Model, q: torch.Tensor, qd: torch.Tensor, control,
     passive damping/friction. Stable-PD: the spring acts on the
     velocity-predicted position q + h*qd, and the damping is made implicit
     by the matching h*Kd on the ABA diagonal (see aba)."""
-    if model.nt:
-        raise NotImplementedError("fixed tendons are not ported yet")
     tr = _tree(model)
     qj = q[:, tr.jq]
     qjd = qd[:, tr.jv]
@@ -323,4 +330,21 @@ def drive_torques(model: Model, q: torch.Tensor, qd: torch.Tensor, control,
     emax = model.dof_max_effort
     drive = torch.minimum(torch.maximum(drive, -emax), emax)
     passive = -model.dof_damping * qjd - model.dof_friction * torch.tanh(qjd * 10.0)
-    return drive + control.effort + passive
+    tau = drive + control.effort + passive
+    if model.nt:
+        # fixed tendons, Stable-PD style: length at the velocity-predicted
+        # position, damping made implicit by the matching diagonal in aba()
+        co = model.tendon_coef                            # (nt, 2)
+        L = torch.sum(co * (qj + h * qjd)[:, tr.td], dim=-1)
+        Ldot = torch.sum(co * qjd[:, tr.td], dim=-1)
+        excess = L - torch.minimum(
+            torch.maximum(L, model.tendon_limit_lower),
+            model.tendon_limit_upper)
+        F = (model.tendon_limit_stiffness * excess
+             + model.tendon_stiffness * (L - model.tendon_rest)
+             + model.tendon_damping * Ldot)
+        tau = tau.index_add(
+            1, tr.td.reshape(-1),
+            (-co * F[..., None]).reshape(q.shape[0], -1),
+        )
+    return tau

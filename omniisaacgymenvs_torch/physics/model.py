@@ -130,6 +130,27 @@ class Model:
     def num_sensors(self) -> int:
         return len(self.sensor_body)
 
+    def dof_index(self, name: str) -> int:
+        """Joint-dof index by name."""
+        return self.dof_names.index(name)
+
+    def body_index(self, name: str) -> int:
+        return self.body_names.index(name)
+
+    def _free_root(self, body_name: str) -> int:
+        i = self.body_index(body_name)
+        if self.jtype[i] != JointType.FREE:
+            raise ValueError(f"{body_name!r} is not a FREE root")
+        return i
+
+    def root_q_adr(self, body_name: str) -> int:
+        """Start of a FREE root's 7 coords [pos, quat] in q."""
+        return self.q_adr[self._free_root(body_name)]
+
+    def root_v_adr(self, body_name: str) -> int:
+        """Start of a FREE root's 6 velocities [angular, linear] in qd."""
+        return self.v_adr[self._free_root(body_name)]
+
 
 @dataclasses.dataclass
 class _BodySpec:

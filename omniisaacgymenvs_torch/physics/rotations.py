@@ -176,3 +176,15 @@ def compute_rot(
 def unscale(x: torch.Tensor, lower: torch.Tensor, upper: torch.Tensor) -> torch.Tensor:
     """Map [lower, upper] -> [-1, 1]."""
     return (2.0 * x - upper - lower) / (upper - lower)
+
+
+def scale(x: torch.Tensor, lower: torch.Tensor, upper: torch.Tensor) -> torch.Tensor:
+    """Map [-1, 1] -> [lower, upper]."""
+    return 0.5 * (x + 1.0) * (upper - lower) + lower
+
+
+def quat_identity(shape=(), device=None) -> torch.Tensor:
+    """Identity quaternion(s) of shape `shape + (4,)`."""
+    q = torch.zeros(tuple(shape) + (4,), device=device)
+    q[..., 0] = 1.0
+    return q

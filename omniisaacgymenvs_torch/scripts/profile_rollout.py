@@ -2,6 +2,8 @@
 
     python -m omniisaacgymenvs_torch.scripts.profile_rollout \
         task=Humanoid num_envs=32768 max_iterations=8
+    python -m omniisaacgymenvs_torch.scripts.profile_rollout \
+        task=ShadowHand num_envs=8192 max_iterations=8
 
 Builds the same VecEnv as `random_policy`, resets and warms up for two
 steps, then traces `max_iterations` steps with `torch.profiler`. Prints

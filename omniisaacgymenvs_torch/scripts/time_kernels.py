@@ -1,0 +1,77 @@
+"""Times of the kernels alone at a task's shapes, for comparing two trees
+of the port within one call on one card.
+
+    python omniisaacgymenvs_torch/scripts/time_kernels.py \
+        [task=Humanoid] [num_envs=32768] [label=change]
+
+Imports whichever `omniisaacgymenvs_torch` comes first on `sys.path`, so
+the same file times another tree of the port: unpack the parent commit
+with `git archive` into a git-ignored directory and run this file with
+`PYTHONPATH` set to it, in turns (parent, change, change, parent). Prints
+three readings of K1 (at the task's own substeps and decimation), K2 and,
+where the tree has it, K3, each over 20 launches with CUDA events, then
+the ptxas lines of the build. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+
+import torch
+
+from omniisaacgymenvs_torch.ops import fused_step as fs
+from omniisaacgymenvs_torch.ops import parity
+from omniisaacgymenvs_torch.tasks import get_task
+from omniisaacgymenvs_torch.utils.config import load_config
+
+
+def time_ms(fn, reps: int = 20) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main(argv=None) -> int:
+    args = dict(a.split("=", 1) for a in (sys.argv[1:] if argv is None else argv))
+    name = args.get("task", "Humanoid")
+    n = int(args.get("num_envs", 32768))
+    label = args.get("label", "change")
+    if not torch.cuda.is_available():
+        print("time_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    task = get_task(name, load_config({"task": name})["task"], device=dev)
+    eng = task.engine
+    m = eng.model
+    n_sub = task.decimation * eng.params.substeps
+    q, qd, eff = parity.check_inputs(m, n, seed=1, device=dev)
+    z = torch.zeros((n, m.njd), device=dev)
+    fa = torch.zeros((n, m.nb, 6), device=dev)
+    runs = {"K1": lambda: fs.step(eng, q, qd, eff, z, z, fa, n_sub),
+            "K2": lambda: fs.fk(eng, q, qd)}
+    if hasattr(fs, "substep"):
+        runs["K3"] = lambda: fs.substep(eng, q, qd, eff, z, z, fa)
+    for rep in range(3):
+        print(f"{label} {card} | {name} {n} envs, {n_sub} substeps, reading "
+              f"{rep}: " + "  ".join(f"{k} {time_ms(fn):.4f} ms"
+                                     for k, fn in runs.items()), flush=True)
+    for line in fs.library().ptxas_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

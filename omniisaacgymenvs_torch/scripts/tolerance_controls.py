@@ -2,16 +2,25 @@
 sound build against the plain version, and broken controls that the
 tolerances must refuse.
 
-    python -m omniisaacgymenvs_torch.scripts.tolerance_controls [num_envs=32805]
+    python -m omniisaacgymenvs_torch.scripts.tolerance_controls \
+        [task=Humanoid|ShadowHand] [num_envs=N]
 
-Needs a CUDA card. Runs on Humanoid states from `parity.check_inputs`:
+Needs a CUDA card. Runs on the task's states from `parity.check_inputs`
+(32805 Humanoid envs, 8229 ShadowHand envs unless num_envs is given):
   sound       the kernels as built for the main path (two seeds, and one
-              seed with the root dropped 0.5 m, five times deeper);
+              seed with the FREE roots lowered further: Humanoid 0.5 m, five
+              times deeper; ShadowHand 2 cm, past the palm's half thickness);
   fast-math   the same source built with --use_fast_math;
-  3 substeps  K1 with one substep dropped;
+  -1 substep  K1 with one substep dropped;
+Humanoid:
   kn x1.001   K1 with every contact point's normal gain 0.1% high;
   cp +1mm     K1 with every contact point 1 mm off along the body's x
               (torques and penetration about the wrong point);
+ShadowHand:
+  pair drop   K1 and K3 without the candidate pair most often in contact;
+  box +1mm    K1 and K3 with every box surface's half extents 1 mm larger;
+  tendon x1.001  K1 and K3 with every tendon's stiffnesses 0.1% high;
+both:
   jpos +0.1mm K2 with every joint 0.1 mm off along x.
 Each line gives, per output, the max abs error and the tolerance use (the
 largest error over its limit; below 1 passes). A control is caught when
@@ -29,14 +38,17 @@ import torch
 
 from omniisaacgymenvs_torch.ops import fused_step as fs
 from omniisaacgymenvs_torch.ops import parity
+from omniisaacgymenvs_torch.physics import contacts, dynamics
+from omniisaacgymenvs_torch.physics.model import SurfaceType
 from omniisaacgymenvs_torch.tasks import get_task
+from omniisaacgymenvs_torch.utils.config import load_config
 
-N_SUB = 4  # Humanoid: decimation 2 x substeps 2
 
 
 def main(argv=None) -> int:
     args = dict(a.split("=", 1) for a in (sys.argv[1:] if argv is None else argv))
-    n = int(args.get("num_envs", 32805))
+    task_name = args.get("task", "Humanoid")
+    n = int(args.get("num_envs", 32805 if task_name == "Humanoid" else 8229))
     if not torch.cuda.is_available():
         print("tolerance_controls: no CUDA device", file=sys.stderr)
         return 1
@@ -52,13 +64,17 @@ def main(argv=None) -> int:
         sound, fast = sound_f.result(), fast_f.result()
 
     dev = torch.device("cuda")
-    eng = get_task("Humanoid", device=dev).engine
+    task = get_task(task_name, load_config({"task": task_name})["task"],
+                    device=dev)
+    eng = task.engine
+    n_sub = task.decimation * eng.params.substeps
     m = eng.model
     k = eng.kernels
     ftab = k.ftab.clone()
-    C0 = fs._F_BODY + fs._BODY_STRIDE * m.nb
-    cp_kn = fs._CP_STRIDE * torch.arange(m.ncp, device=dev) + C0 + 5
-    cp_x = fs._CP_STRIDE * torch.arange(m.ncp, device=dev) + C0
+    off = fs.table_offsets(m)
+    ar = lambda count: torch.arange(count, device=dev)  # noqa: E731
+    cp_kn = fs._CP_STRIDE * ar(m.ncp) + off["f_cp"] + 5
+    cp_x = fs._CP_STRIDE * ar(m.ncp) + off["f_cp"]
     jpos_x = (fs._BODY_STRIDE * torch.arange(1, m.nb, device=dev)
               + fs._F_BODY + fs._B_JPOS)
 
@@ -70,17 +86,22 @@ def main(argv=None) -> int:
 
     readings = []
 
-    def run(label, kernel, seed=0, drop=parity.CHECK_DROP, lib=sound,
-            tab=None, n_steps=N_SUB):
+    def run(label, kernel, seed=0, drop=None, lib=sound, tab=None,
+            n_steps=n_sub):
         q, qd, eff = parity.check_inputs(m, n, seed, dev, drop=drop)
+        ptg = parity.check_targets(m, q, seed)
         z = torch.zeros((n, m.njd), device=dev)
         fa = torch.zeros((n, m.nb, 6), device=dev)
         fs._LIBRARY, k.ftab = lib, ftab if tab is None else tab
         try:
             if kernel == "K1":
-                out = fs.step(eng, q, qd, eff, z, z, fa, n_steps)
-                ref = fs.step_plain(eng, q, qd, eff, z, z, fa, N_SUB)
-                names, tol = parity.STEP_NAMES, parity.STEP_TOL
+                out = fs.step(eng, q, qd, eff, ptg, z, fa, n_steps)
+                ref = fs.step_plain(eng, q, qd, eff, ptg, z, fa, n_sub)
+                names, tol = parity.STEP_NAMES, parity.step_tol(m)
+            elif kernel == "K3":
+                out = fs.substep(eng, q, qd, eff, ptg, z, fa)
+                ref = fs.substep_plain(eng, q, qd, eff, ptg, z, fa)
+                names, tol = parity.SUBSTEP_NAMES, parity.SUBSTEP_TOL
             else:
                 out = fs.fk(eng, q, qd)
                 ref = fs.fk_plain(m, q, qd)
@@ -92,21 +113,42 @@ def main(argv=None) -> int:
         worst = max(use for _, use in res.values())
         readings.append(dict(label=label, kernel=kernel, seed=seed, drop=drop,
                              worst_use=worst, fields=res))
-        print(f"{kernel} {label:12s} worst use {worst:.4g} | " + "  ".join(
+        print(f"{kernel} {label:13s} worst use {worst:.4g} | " + "  ".join(
             f"{f} {e:.3e}/{u:.3g}" for f, (e, u) in res.items()), flush=True)
 
-    print(f"card: {card} | {n} envs, Humanoid, {N_SUB} substeps")
-    for kern in ("K1", "K2"):
+    q0, qd0, _ = parity.check_inputs(m, n, 0, dev)
+    print(f"card: {card} | {n} envs, {task_name}, {n_sub} substeps, active "
+          f"contacts {parity.active_contacts(eng, q0, qd0)}")
+    deep = 0.5 if task_name == "Humanoid" else 0.02
+    for kern in ("K1", "K3", "K2"):
         run("sound", kern, seed=0)
         run("sound", kern, seed=1)
-        run("sound deep", kern, seed=0, drop=0.5)
+        run("sound deep", kern, seed=0, drop=deep)
         run("fast-math", kern, lib=fast)
-    run("3 substeps", "K1", n_steps=N_SUB - 1)
-    run("kn x1.001", "K1", tab=table(cp_kn, mul=1.001))
-    run("cp +1mm", "K1", tab=table(cp_x, add=1e-3))
+    run("-1 substep", "K1", n_steps=n_sub - 1)
+    if task_name == "Humanoid":
+        run("kn x1.001", "K1", tab=table(cp_kn, mul=1.001))
+        run("cp +1mm", "K1", tab=table(cp_x, add=1e-3))
+    else:
+        # the pair most often in contact on the check states
+        kin = dynamics.kinematics(m, q0, qd0)
+        pen = contacts.pair_penetrations(m, eng.pair_groups, kin.pw, kin.Rw)
+        busiest = int((pen > 0).sum(0).argmax())
+        pair_gain = off["f_pair"] + fs._PAIR_STRIDE * busiest + ar(3)
+        boxes = [si for si, t in enumerate(m.surf_type)
+                 if t == SurfaceType.BOX]
+        box_half = torch.cat([off["f_surf"] + fs._SURF_STRIDE * si + 3 + ar(3)
+                              for si in boxes])
+        tend_k = torch.cat([off["f_tend"] + fs._TEND_STRIDE * ar(m.nt) + c
+                            for c in (3, 7)])
+        for kern in ("K1", "K3"):
+            run("pair drop", kern, tab=table(pair_gain, mul=0.0))
+            run("box +1mm", kern, tab=table(box_half, add=1e-3))
+            run("tendon x1.001", kern, tab=table(tend_k, mul=1.001))
     run("jpos +0.1mm", "K2", tab=table(jpos_x, add=1e-4))
     print(card)
-    print(json.dumps({"card": card, "num_envs": n, "readings": readings}))
+    print(json.dumps({"card": card, "task": task_name, "num_envs": n,
+                      "readings": readings}))
     return 0
 
 

@@ -6,9 +6,14 @@ from omniisaacgymenvs_torch.tasks.base import EnvState, RLTask
 
 def _registry():
     from omniisaacgymenvs_torch.tasks.ant import AntLocomotionTask
+    from omniisaacgymenvs_torch.tasks.ball_balance import BallBalanceTask
+    from omniisaacgymenvs_torch.tasks.cartpole import CartpoleTask
     from omniisaacgymenvs_torch.tasks.humanoid import HumanoidLocomotionTask
+    from omniisaacgymenvs_torch.tasks.shadow_hand import ShadowHandTask
 
-    return {"Ant": AntLocomotionTask, "Humanoid": HumanoidLocomotionTask}
+    return {"Ant": AntLocomotionTask, "BallBalance": BallBalanceTask,
+            "Cartpole": CartpoleTask, "Humanoid": HumanoidLocomotionTask,
+            "ShadowHand": ShadowHandTask}
 
 
 def get_task(name: str, cfg: dict | None = None, device=None) -> RLTask:

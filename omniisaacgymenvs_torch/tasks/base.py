@@ -59,7 +59,8 @@ class RLTask:
     batched hooks:
       initial_carry(n) -> carry
       sample_reset(n, generator) -> (q, qd, carry)
-      control(action, es) -> Control
+      control(action, es, generator) -> Control (may update es.carry, which
+          is this step's own dict)
       observe(phys, carry, action) -> (obs, states, carry)
       reward_done(obs, action, phys, carry, progress)
           -> (reward, done, carry, metrics)
@@ -91,7 +92,8 @@ class RLTask:
     def sample_reset(self, n: int, generator: torch.Generator):
         raise NotImplementedError
 
-    def control(self, action: torch.Tensor, es: EnvState) -> Control:
+    def control(self, action: torch.Tensor, es: EnvState,
+                generator: torch.Generator | None = None) -> Control:
         raise NotImplementedError
 
     def observe(self, phys: State, carry, action: torch.Tensor):
@@ -99,6 +101,23 @@ class RLTask:
 
     def reward_done(self, obs, action, phys, carry, progress):
         raise NotImplementedError
+
+    def adjust_progress(self, carry, progress):
+        """Progress after the reward: in-hand tasks with
+        maxConsecutiveSuccesses > 0 zero the counter on a goal hit, and the
+        time-limit check must see the adjusted value."""
+        return progress
+
+    # -- statistics across envs ----------------------------------------
+    # Per-env metrics cannot express a reduction over the batch (the
+    # in-hand tasks' consecutive-success average over finished episodes).
+    # A learner carries a stats dict and calls episode_stats_update(stats,
+    # es) after every env step.
+    def episode_stats_init(self) -> Dict[str, torch.Tensor]:
+        return {}
+
+    def episode_stats_update(self, stats, es: EnvState):
+        return stats
 
     # ------------------------------------------------------------------
     def reset(self, n: int, generator: torch.Generator) -> EnvState:
@@ -134,13 +153,14 @@ class RLTask:
         es = tree_where(es.done, fresh, es)
 
         action = torch.clamp(action, -self.clip_actions, self.clip_actions)
-        ctrl = self.control(action, es)
+        ctrl = self.control(action, es, generator)
         phys = self.physics_steps(es.phys, ctrl)
         progress = es.progress + 1
         obs, states, carry = self.observe(phys, es.carry, action)
         reward, done, carry, metrics = self.reward_done(
             obs, action, phys, carry, progress
         )
+        progress = self.adjust_progress(carry, progress)
         # physics-explosion guard: a non-finite state ends the episode with
         # zero reward instead of poisoning the batch
         finite = torch.isfinite(

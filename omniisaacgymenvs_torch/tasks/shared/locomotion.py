@@ -97,7 +97,7 @@ class LocomotionTask(RLTask):
         )
         return q, qd, carry
 
-    def control(self, action: torch.Tensor, es: EnvState):
+    def control(self, action: torch.Tensor, es: EnvState, generator=None):
         ctrl = self.engine.default_control(action.shape[0])
         ctrl.effort = action * self.joint_gears * self.power_scale
         return ctrl

@@ -1,5 +1,7 @@
-"""Card tests of the PyTorch port: each kernel against its plain version on
-the card, and the engine's refusal of scenes outside the kernels' scope.
+"""Card tests of the PyTorch port: each kernel (K1 whole control step, K2
+report FK, K3 single substep) against its plain version on the card, on
+the Humanoid, BallBalance, ShadowHand and the synthetic pair scene, and the
+engine's refusal of scenes beyond the kernels' maxima.
 They skip without a CUDA device. This file imports no JAX, so it also runs
 where JAX is not installed:
 
@@ -14,6 +16,7 @@ from omniisaacgymenvs_torch.ops import fused_step as fs
 from omniisaacgymenvs_torch.ops import parity
 from omniisaacgymenvs_torch.physics.engine import PhysicsEngine, SimParams
 from omniisaacgymenvs_torch.physics.model import JointType, ModelBuilder
+from omniisaacgymenvs_torch.tasks import get_task
 from torch_parity import cuda_device  # noqa: F401
 
 N_STEPS = 4
@@ -45,11 +48,71 @@ def test_kernels_match_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["BallBalance", "ShadowHand", "Cartpole",
+                                  "PairScene"])
+def test_kernels_match_plain_on_card_forest_scenes(name, cuda_device):
+    """K1, K2 and K3 on scenes with FIXED roots, forests, prismatic joints,
+    pair contacts, gravity compensation and tendons, on check states with
+    pairs in contact; tolerances from ops/parity.py only."""
+    if name == "PairScene":
+        eng = PhysicsEngine(parity.build_pair_scene(cuda_device),
+                            SimParams(dt=1.0 / 120.0, substeps=2))
+    else:
+        eng = get_task(name, device=cuda_device).engine
+    m = eng.model
+    n = 1061
+    q, qd, eff = parity.check_inputs(m, n, seed=3, device=cuda_device)
+    ptg = parity.check_targets(m, q, 3)
+    z = torch.zeros((n, m.njd), device=cuda_device)
+    fa = torch.zeros((n, m.nb, 6), device=cuda_device)
+    active = parity.active_contacts(eng, q, qd)
+    if len(m.pair_surf):
+        assert active["pairs"] > 0
+    if name == "PairScene":
+        assert min(active[k] for k in ("sphere", "capsule", "box")) > 0
+    tol = parity.step_tol(m)
+    out = fs.step(eng, q, qd, eff, ptg, z, fa, N_STEPS)
+    ref = fs.step_plain(eng, q, qd, eff, ptg, z, fa, N_STEPS)
+    parity.assert_within(f"{name} K1", parity.compare(
+        out, ref, parity.STEP_NAMES, tol), tol)
+    out = fs.substep(eng, q, qd, eff, ptg, z, fa)
+    ref = fs.substep_plain(eng, q, qd, eff, ptg, z, fa)
+    parity.assert_within(f"{name} K3", parity.compare(
+        out, ref, parity.SUBSTEP_NAMES, parity.SUBSTEP_TOL), parity.SUBSTEP_TOL)
+    out = fs.fk(eng, q, qd)
+    ref = fs.fk_plain(m, q, qd)
+    parity.assert_within(f"{name} K2", parity.compare(
+        out, ref, parity.FK_NAMES, parity.FK_TOL), parity.FK_TOL)
+    torch.cuda.synchronize()
+    assert eng.kernels.launches == {"step": 1, "fk": 1, "substep": 1}
+
+
+@pytest.mark.cuda
+def test_engine_step_and_substep_launch_once_on_card(cuda_device):
+    """`step_n` is one K1 launch and `init_state` one K2 launch; a K3
+    launch agrees bit for bit with K1 run for one substep."""
+    eng = get_task("BallBalance", device=cuda_device).engine
+    m = eng.model
+    q, qd, _ = parity.check_inputs(m, 300, seed=4, device=cuda_device)
+    st = eng.init_state(q, qd)
+    ctrl = eng.default_control(300)
+    eng.step_n(st, ctrl, 2)
+    assert eng.kernels.launches == {"step": 1, "fk": 1, "substep": 0}
+    fa = torch.zeros((300, m.nb, 6), device=cuda_device)
+    q3, qd3, sf3 = fs.substep(eng, q, qd, ctrl.effort, ctrl.pos_target,
+                              ctrl.vel_target, fa)
+    one = fs.step(eng, q, qd, ctrl.effort, ctrl.pos_target, ctrl.vel_target,
+                  fa, 1)
+    for a, b in zip((q3, qd3, sf3), one[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
 def test_engine_refuses_out_of_scope_scene_on_card(cuda_device):
-    b = ModelBuilder("fixed")
-    root = b.add_body("base", parent=-1, joint_type=JointType.FIXED)
-    b.add_body("j1", parent=root)
-    b.add_sphere_collider(root, (0, 0, 0), 0.1)
+    b = ModelBuilder("long")
+    p = b.add_body("base", parent=-1, joint_type=JointType.FIXED)
+    for i in range(fs.NB_MAX):
+        p = b.add_body(f"x{i}", parent=p)
     with pytest.raises(NotImplementedError):
         PhysicsEngine(b.finalize(cuda_device), SimParams())
 
@@ -66,4 +129,6 @@ def test_wrapper_refuses_bad_inputs_on_card(cuda_device):
         fs.fk(eng, q[:, :-1], qd)
     with pytest.raises(ValueError):
         fs.fk(eng, q.t().contiguous().t(), qd)
-    assert eng.kernels.launches["fk"] == 0
+    with pytest.raises(ValueError):
+        fs.substep(eng, q, qd, qd, qd, qd, qd)
+    assert eng.kernels.launches == {"step": 0, "fk": 0, "substep": 0}

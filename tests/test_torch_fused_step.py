@@ -1,7 +1,7 @@
 """Port parity of the whole-control-step (K1) and report-FK (K2) plain
 versions against the JAX engine's XLA path; the wrappers' CPU routing and
-launch counters; and the kernels' scope check. The kernels themselves
-run in tests/test_torch_cuda.py."""
+launch counters; the packed tables; and the kernels' scope check. The
+kernels themselves run in tests/test_torch_cuda.py."""
 
 import jax
 import jax.numpy as jnp
@@ -16,10 +16,12 @@ from omniisaacgymenvs_torch.ops.parity import perturbed_batch, sign_align
 from omniisaacgymenvs_torch.physics.engine import (PhysicsEngine, SimParams,
                                                    check_scope)
 from omniisaacgymenvs_torch.physics.model import JointType, ModelBuilder
+from omniisaacgymenvs_tpu.physics.engine import PhysicsEngine as JPhysicsEngine
+from omniisaacgymenvs_tpu.physics.engine import SimParams as JSimParams
 from omniisaacgymenvs_tpu.physics.state import Control as JControl
-from omniisaacgymenvs_tpu.physics.state import State as JState
 from omniisaacgymenvs_tpu.tasks import get_task as jget_task
-from torch_parity import np_
+from test_torch_scenes import one_feature_scene
+from torch_parity import assert_step_close, jax_model_from_port, jax_step, np_
 
 N = 8
 N_STEPS = 4  # Humanoid: decimation 2 x substeps 2
@@ -110,7 +112,7 @@ def test_cpu_tensors_take_plain_path_and_count_nothing(humanoid):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
         for a, b in zip(fs.fk(eng, t(q), t(qd)), fs.fk_plain(m, t(q), t(qd))):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
-        assert eng.kernels.launches == {"step": 0, "fk": 0}
+        assert eng.kernels.launches == {"step": 0, "fk": 0, "substep": 0}
     finally:
         eng.kernels = None
 
@@ -122,9 +124,13 @@ def test_pack_tables_layout(humanoid):
     ftab, itab = fs.pack_tables(m, eng.h, eng.params.gravity,
                                 eng.contact_params, gains)
     assert ftab.dtype == np.float32 and itab.dtype == np.int32
-    assert ftab.shape == (8 + 64 * m.nb + 8 * m.ncp,)
-    assert itab.tolist() == (list(m.parents) + m.cp_body.tolist()
-                             + list(m.sensor_body))
+    # header, body and contact-point records, then a 4-float gravity
+    # compensation record per body; no pairs, surfaces or tendons
+    assert ftab.shape == (8 + 64 * m.nb + 8 * m.ncp + 4 * m.nb,)
+    body_rec = np.stack([m.parents, m.jtype, m.q_adr, m.v_adr, m.jdof], 1)
+    assert itab.tolist() == (body_rec.reshape(-1).tolist()
+                             + m.cp_body.tolist() + list(m.sensor_body))
+    assert fs.table_dims(m) == (m.nb, m.ncp, 2, 0, 0, 0, m.nq, m.nv, m.njd)
     B = 8 + 64 * 5  # body 5, joint dof 4
     h = eng.h
     kd, damp, kp = (float(np_(getattr(m, f))[4]) for f in
@@ -138,11 +144,13 @@ def test_pack_tables_layout(humanoid):
 def test_humanoid_bounds_per_env(humanoid):
     m = humanoid[1].model
     # 250 input and 353 output floats per env
-    assert fs.io_bytes(m) == {"step": 4 * 603, "fk": 4 * 341}
+    assert fs.io_bytes(m) == {"step": 4 * 603, "fk": 4 * 341,
+                              "substep": 4 * 317}
     # the counts PERF.md's bounds use: per substep FK 5100, contacts 1344,
     # drives 336, bias 2508, inward 16002, root 223, outward 1407,
     # integration 355; the report FK adds 43 per body to FK
-    assert fs.op_count(m, N_STEPS) == {"step": 4 * 27275 + 6046, "fk": 6046}
+    assert fs.op_count(m, N_STEPS) == {"step": 4 * 27275 + 6046, "fk": 6046,
+                                       "substep": 27275}
 
 
 def test_tolerance_use_scales_per_env():
@@ -168,50 +176,179 @@ def test_check_inputs_put_feet_in_the_ground(humanoid):
     assert (sf.abs().amax((1, 2)) > 0).float().mean() > 0.25
 
 
-def _scene(kind):
-    b = ModelBuilder(kind)
-    if kind == "fixed_root":
-        root = b.add_body("base", parent=-1, joint_type=JointType.FIXED)
-    else:
-        root = b.add_body("base", parent=-1, joint_type=JointType.FREE)
-    jt = JointType.PRISMATIC if kind == "prismatic" else JointType.REVOLUTE
-    b.add_body("j1", parent=root, joint_type=jt,
-               gravity_comp=(kind == "gravity_comp"))
-    b.add_body("j2", parent=root)
-    b.add_sphere_collider(root, (0, 0, 0), 0.1, receive=(kind == "pairs"))
-    if kind == "tendon":
-        b.add_fixed_tendon("j1", "j2", stiffness=1.0)
-    if kind == "forest":
-        b.add_body("ball", parent=-1, joint_type=JointType.FREE)
-    if kind == "pairs":
-        b.add_body("ball", parent=-1, joint_type=JointType.FREE)
-        b.add_sphere_collider(3, (0, 0, 0), 0.05)
-    if kind == "too_many_bodies":
-        p = 1
-        for i in range(fs.NB_MAX):
-            p = b.add_body(f"x{i}", parent=p)
-    return b.finalize()
+def test_pack_tables_sections_of_the_hand_scene():
+    from omniisaacgymenvs_torch.tasks import get_task
+
+    eng = get_task("ShadowHand", device="cpu").engine
+    m = eng.model
+    gains = np.stack([np_(g) for g in eng.contact_gains]).astype(np.float64)
+    ftab, itab = fs.pack_tables(m, eng.h, eng.params.gravity,
+                                eng.contact_params, gains, eng.pair_gains)
+    off = fs.table_offsets(m)
+    assert ftab.shape == (off["f_end"],) and itab.shape == (off["i_end"],)
+    # gravity compensation: mass of every hand link, none on the cube
+    gc = ftab[off["f_gc"]:off["f_pair"]].reshape(m.nb, 4)
+    np.testing.assert_allclose(gc[:, 0], np_(m.gravity_comp * m.body_mass))
+    np.testing.assert_array_equal(gc[:, 1:], np_(m.body_com))
+    assert gc[m.body_index("object"), 0] == 0 and gc[0, 0] > 0
+    # pairs: gains, and (point, surface) in the model's order
+    pg = ftab[off["f_pair"]:off["f_surf"]].reshape(-1, 4)
+    np.testing.assert_allclose(pg[:, :3], eng.pair_gains.T, rtol=1e-6)
+    pairs = itab[off["i_pair"]:off["i_surf"]].reshape(-1, 2)
+    np.testing.assert_array_equal(pairs[:, 0], m.pair_point)
+    assert pairs[:, 1].tolist() == list(m.pair_surf)
+    # a box record: centre, half extents, rotation (identity here)
+    box = ftab[off["f_surf"]:off["f_surf"] + 16]
+    np.testing.assert_allclose(box[:6], m.surf_params[0][:6], rtol=1e-6)
+    np.testing.assert_array_equal(box[6:15].reshape(3, 3), np.eye(3))
+    # tendons: the joint bodies they couple, and their share of the
+    # implicit diagonal h (c + h k_lim) coef^2 on both joints
+    tb = itab[off["i_tend"]:].reshape(-1, 2)
+    assert [m.body_names[i] for i in tb[0]] == ["FFJ1", "FFJ0"]
+    h = eng.h
+    for b in tb[0]:
+        d = m.jdof[b]
+        base = h * float(np_(m.dof_drive_damping)[d] + np_(m.dof_damping)[d]
+                         + h * np_(m.dof_stiffness)[d])
+        assert ftab[8 + 64 * b + 60] == pytest.approx(
+            base + h * (0.1 + h * 30.0), rel=1e-5)
+
+
+def test_hand_scene_bounds_per_env():
+    from omniisaacgymenvs_torch.models import build_shadow_hand
+
+    m = build_shadow_hand()
+    # 289 input and 429 output floats per env for K1; K3 writes no report
+    assert fs.io_bytes(m) == {"step": 4 * 718, "fk": 4 * 399,
+                              "substep": 4 * 380}
+    ops = fs.op_count(m, 4)
+    assert ops["step"] == 4 * ops["substep"] + ops["fk"]
+    # 69 box pairs of 229, 25 compensated bodies of 33 and 4 tendons of 23
+    # operations a substep are part of the count
+    bare = fs.op_count(dataclasses_replace_no_contacts(m), 4)
+    assert ops["substep"] - bare["substep"] == 69 * 229 + 25 * 33 + 4 * 23
+
+
+def dataclasses_replace_no_contacts(m):
+    import dataclasses
+
+    return dataclasses.replace(
+        m, pair_surf=(), pair_point=np.zeros(0, np.int32), nt=0,
+        tendon_dof=np.zeros((0, 2), np.int32),
+        gravity_comp=torch.zeros_like(m.gravity_comp))
 
 
 @pytest.mark.parametrize("kind", ["fixed_root", "prismatic", "tendon",
                                   "gravity_comp", "forest", "pairs",
                                   "too_many_bodies"])
 def test_scope_rejects_out_of_slice_scene(kind):
-    with pytest.raises(NotImplementedError):
-        check_scope(_scene(kind), cuda=True)
+    """Only a scene beyond the kernels' maxima is refused; FIXED roots,
+    prismatic joints, tendons, gravity compensation, forests and pairs are
+    in scope, and their plain step matches the JAX engine's on the same
+    scene."""
+    if kind == "too_many_bodies":
+        with pytest.raises(NotImplementedError, match="bodies > kernel maximum"):
+            check_scope(one_feature_scene("plain", n_chain=fs.NB_MAX), cuda=True)
+        return
+    pm = one_feature_scene(kind)
+    assert fs.scope_errors(pm) == []
+    check_scope(pm, cuda=True)
+    _compare_one_step(pm, seed=11)
+
+
+def _compare_one_step(pm, seed):
+    eng = PhysicsEngine(pm, SimParams(dt=1.0 / 120.0, substeps=2))
+    jeng = JPhysicsEngine(jax_model_from_port(pm),
+                          JSimParams(dt=1.0 / 120.0, substeps=2))
+    n = 4
+    q, qd, eff = parity.check_inputs(pm, n, seed=seed, device="cpu")
+    ptg = parity.check_targets(pm, q, seed)
+    fa = torch.zeros((n, pm.nb, 6))
+    out = fs.step_plain(eng, q, qd, eff, ptg, torch.zeros_like(ptg), fa, 2)
+    ref = jax_step(jeng, np_(q), np_(qd), np_(eff), np_(ptg), np_(fa), 2)
+    assert_step_close(out, ref)
 
 
 def test_scope_accepts_slice_models():
-    from omniisaacgymenvs_torch.models import build_ant
+    from omniisaacgymenvs_torch.models import (build_ant, build_balance_bot,
+                                               build_cartpole,
+                                               build_shadow_hand)
 
-    for m in (build_humanoid(), build_ant(), _scene("plain")):
+    for m in (build_humanoid(), build_ant(), build_cartpole(),
+              build_balance_bot(), build_shadow_hand(),
+              build_shadow_hand(self_collisions=True),
+              parity.build_pair_scene(), one_feature_scene("plain")):
         assert fs.scope_errors(m) == []
         check_scope(m, cuda=True)
-    # a FIXED root is refused only where the kernels would run
-    check_scope(_scene("fixed_root"), cuda=False)
+    # the maxima bind only where the kernels would run
+    check_scope(one_feature_scene("plain", n_chain=fs.NB_MAX), cuda=False)
 
 
 @pytest.mark.parametrize("kind", ["tendon", "gravity_comp", "pairs"])
 def test_engine_refuses_unported_features(kind):
-    with pytest.raises(NotImplementedError):
-        PhysicsEngine(_scene(kind), SimParams())
+    """The engine steps tendons, gravity compensation and pair contacts on
+    every device now (a second seed of the scene against the JAX engine);
+    what it still refuses is terrain and randomization overlays."""
+    pm = one_feature_scene(kind)
+    _compare_one_step(pm, seed=12)
+    eng = PhysicsEngine(pm, SimParams())
+    with pytest.raises(NotImplementedError, match="terrain"):
+        PhysicsEngine(pm, SimParams(), height_fn=lambda x, y: (x, y))
+    with pytest.raises(NotImplementedError, match="terrain"):
+        PhysicsEngine(pm, SimParams(), contact_plane_fn=lambda p, r: (p, r))
+    st = eng.init_state(pm.default_q[None], torch.zeros((1, pm.nv)))
+    with pytest.raises(NotImplementedError, match="overlays"):
+        eng.step_n(st, eng.default_control(1), 1,
+                   overlay={"mass_scale": torch.ones(pm.nb)})
+
+
+def _oversized(what):
+    b = ModelBuilder(what)
+    root = b.add_body("base", parent=-1, joint_type=JointType.FREE)
+    b.add_body("j1", parent=root)
+    b.add_body("j2", parent=root)
+    if what == "contact points":
+        for _ in range(fs.NCP_MAX + 1):
+            b.add_sphere_collider(root, (0, 0, 0), 0.1)
+    elif what == "sensors":
+        for _ in range(fs.NS_MAX + 1):
+            b.add_force_sensor(root)
+    elif what == "receiver surfaces":
+        for _ in range(fs.NSURF_MAX + 1):
+            b.add_sphere_collider(root, (0, 0, 0), 0.1, receive=True)
+    elif what == "contact pairs":
+        for _ in range(20):
+            b.add_sphere_collider(root, (0, 0, 0), 0.1, receive=True)
+        ball = b.add_body("ball", parent=-1, joint_type=JointType.FREE)
+        for _ in range(fs.NPAIR_MAX // 20 + 1):
+            b.add_sphere_collider(ball, (0, 0, 0), 0.1)
+    elif what == "fixed tendons":
+        for _ in range(fs.NT_MAX + 1):
+            b.add_fixed_tendon("j1", "j2")
+    elif what == "FREE roots":
+        for i in range(fs.NFREE_MAX):
+            b.add_body(f"r{i}", parent=-1, joint_type=JointType.FREE)
+    return b.finalize()
+
+
+@pytest.mark.parametrize("what", ["contact points", "sensors",
+                                  "receiver surfaces", "contact pairs",
+                                  "fixed tendons", "FREE roots"])
+def test_scope_rejects_beyond_kernel_maxima(what):
+    pm = _oversized(what)
+    errs = fs.scope_errors(pm)
+    assert len(errs) == 1 and f"{what} > kernel maximum" in errs[0], errs
+    with pytest.raises(NotImplementedError, match=what):
+        check_scope(pm, cuda=True)
+    check_scope(pm, cuda=False)
+
+
+def test_task_registry_refuses_randomization_and_unported_tasks():
+    from omniisaacgymenvs_torch.tasks import get_task
+
+    with pytest.raises(NotImplementedError, match="randomization"):
+        get_task("ShadowHand", {"domain_randomization": {"randomize": True}},
+                 device="cpu")
+    for name in ("ShadowHandOpenAI_FF", "AllegroHand", "AnymalTerrain"):
+        with pytest.raises(KeyError, match="ported so far"):
+            get_task(name, device="cpu")

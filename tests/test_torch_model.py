@@ -1,5 +1,5 @@
-"""Port parity: model data (build_humanoid / build_ant), the JAX-model
-converter, and the copied task yamls."""
+"""Port parity: model data (every ported builder, field by field), the
+JAX-model converter, and the copied task yamls."""
 
 import dataclasses
 import os
@@ -10,17 +10,27 @@ import torch
 import yaml
 
 from omniisaacgymenvs_torch import convert
-from omniisaacgymenvs_torch.models import build_ant, build_humanoid
+from omniisaacgymenvs_torch.models import (build_ant, build_balance_bot,
+                                           build_cartpole, build_humanoid,
+                                           build_shadow_hand)
 from omniisaacgymenvs_torch.physics import contacts as tcontacts
 from omniisaacgymenvs_torch.physics.model import Model
 from omniisaacgymenvs_torch.utils.config import CFG_DIR, load_config
 from omniisaacgymenvs_tpu.models import build_ant as jbuild_ant
 from omniisaacgymenvs_tpu.models import build_humanoid as jbuild_humanoid
+from omniisaacgymenvs_tpu.models.balance_bot import (
+    build_balance_bot as jbuild_balance_bot)
+from omniisaacgymenvs_tpu.models.cartpole import build_cartpole as jbuild_cartpole
+from omniisaacgymenvs_tpu.models.shadow_hand import (
+    build_shadow_hand as jbuild_shadow_hand)
 from omniisaacgymenvs_tpu.physics import contacts as jcontacts
 from torch_parity import jax_fields, np_
 
 BUILDERS = {"Humanoid": (build_humanoid, jbuild_humanoid),
-            "Ant": (build_ant, jbuild_ant)}
+            "Ant": (build_ant, jbuild_ant),
+            "Cartpole": (build_cartpole, jbuild_cartpole),
+            "BallBalance": (build_balance_bot, jbuild_balance_bot),
+            "ShadowHand": (build_shadow_hand, jbuild_shadow_hand)}
 
 
 def _assert_model_equal(pm: Model, jf: dict):
@@ -89,3 +99,35 @@ def test_contact_gains_equal():
     for a, b in zip(tcontacts.ground_point_gains(pm, pp),
                     jcontacts.ground_point_gains(jm, jp)):
         np.testing.assert_allclose(a, b, rtol=1e-12)
+
+
+def test_hand_model_carries_pairs_tendons_and_gravity_compensation():
+    """The converter brings surfaces, pairs, tendons and gravity_comp of
+    the ShadowHand scene across, also with self-collisions on."""
+    for sc in (False, True):
+        jm = jbuild_shadow_hand(self_collisions=sc)
+        carried = convert.model_from_arrays(jax_fields(jm), device="cpu")
+        _assert_model_equal(carried, jax_fields(jm))
+        own = build_shadow_hand(self_collisions=sc)
+        assert carried.pair_surf == own.pair_surf
+        assert carried.surf_type == own.surf_type
+        assert carried.surf_params == own.surf_params
+        np.testing.assert_array_equal(carried.pair_point, own.pair_point)
+        np.testing.assert_array_equal(carried.tendon_dof, own.tendon_dof)
+    assert carried.pair_point.dtype == carried.tendon_dof.dtype == np.int32
+    assert len(own.pair_surf) == 674
+    m = build_shadow_hand()
+    assert (m.nb, m.nq, m.nv, m.njd, m.ncp, len(m.pair_surf), m.nt,
+            m.num_sensors) == (26, 31, 30, 24, 69, 69, 4, 5)
+    assert int(m.gravity_comp.sum()) == 25
+    assert [m.jtype[r] for r in m.roots] == [3, 0]  # FIXED + FREE
+
+
+def test_model_lookup_helpers():
+    m = build_balance_bot()
+    assert m.body_index("ball") == 4 and m.dof_index("tilt_x") == 1
+    assert (m.root_q_adr("ball"), m.root_v_adr("ball")) == (3, 3)
+    with pytest.raises(ValueError):
+        m.root_q_adr("base")  # a FIXED root has no coordinates
+    with pytest.raises(ValueError):
+        m.body_index("nobody")

@@ -42,3 +42,79 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def jax_model_from_port(pm):
+    """The port's Model as a JAX Model with the same fields (the two
+    dataclasses have equal field names, tests/test_torch_model.py)."""
+    import jax.numpy as jnp
+
+    from omniisaacgymenvs_tpu.physics.model import Model as JModel
+
+    out = {}
+    for f in dataclasses.fields(pm):
+        v = getattr(pm, f.name)
+        if isinstance(v, (torch.Tensor, np.ndarray)):
+            v = jnp.asarray(np_(v))
+        out[f.name] = v
+    return JModel(**out)
+
+
+def jax_step(jeng, q, qd, eff, ptg, fa, n_substeps):
+    """The JAX engine's step_n (XLA path on the CPU) over a numpy batch:
+    (q, qd, sensor_forces, pos, quat, avel, lvel) after n_substeps."""
+    import jax
+    import jax.numpy as jnp
+
+    from omniisaacgymenvs_tpu.physics.state import Control as JControl
+
+    m = jeng.model
+
+    def one(q1, qd1, e1, p1, f1):
+        st = jeng.init_state(q1, qd1)
+        ctrl = JControl(effort=e1, pos_target=p1, vel_target=jnp.zeros(m.njd),
+                        body_force=f1[:, 3:6], body_torque=f1[:, 0:3])
+        s = jeng.step_n(st, ctrl, n_substeps // jeng.params.substeps)
+        return (s.q, s.qd, s.sensor_forces, s.body_pos, s.body_quat,
+                s.body_avel, s.body_lvel)
+
+    return jax.jit(jax.vmap(one))(*map(jnp.asarray, (q, qd, eff, ptg, fa)))
+
+
+def jax_substep(jeng, q, qd, eff, ptg, fa):
+    """One JAX `_substep` over a numpy batch: (q, qd, sensor_forces)."""
+    import jax
+    import jax.numpy as jnp
+
+    from omniisaacgymenvs_tpu.physics.state import Control as JControl
+
+    m = jeng.model
+    h = jeng.params.dt / jeng.params.substeps
+
+    def one(q1, qd1, e1, p1, f1):
+        ctrl = JControl(effort=e1, pos_target=p1, vel_target=jnp.zeros(m.njd),
+                        body_force=f1[:, 3:6], body_torque=f1[:, 0:3])
+        return jeng._substep(q1, qd1, ctrl, f1, h)
+
+    return jax.jit(jax.vmap(one))(*map(jnp.asarray, (q, qd, eff, ptg, fa)))
+
+
+# step_n over 4 substeps of float32 dynamics in another operation order:
+# positions to 1e-4, velocities and contact wrenches (stiff contacts
+# amplify rounding) relative; quaternions sign-aligned. (rtol, atol)
+STEP_N_TOL = {"q": (1e-3, 1e-4), "qd": (5e-3, 5e-3),
+              "sensor_forces": (1e-3, 1e-2), "pos": (1e-3, 1e-4),
+              "quat": (1e-3, 1e-3), "avel": (5e-3, 5e-3), "lvel": (5e-3, 5e-3)}
+STEP_N_NAMES = ("q", "qd", "sensor_forces", "pos", "quat", "avel", "lvel")
+
+
+def assert_step_close(out, ref, names=STEP_N_NAMES, tol=STEP_N_TOL):
+    from omniisaacgymenvs_torch.ops.parity import sign_align
+
+    for name, a, b in zip(names, out, ref):
+        a, b = np_(a), np.asarray(b)
+        assert a.shape == b.shape, name
+        if name == "quat":
+            a = np_(sign_align(torch.tensor(a), torch.tensor(b)))
+        rtol, atol = tol[name]
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol, err_msg=name)
