@@ -49,19 +49,32 @@ def state_from_arrays(fields: dict, device="cpu") -> State:
                     for f in dataclasses.fields(State)})
 
 
+def _tensor_tree(v, device):
+    if isinstance(v, dict):
+        return {k: _tensor_tree(x, device) for k, x in v.items()}
+    return _tensor(v, device)
+
+
 def env_state_from_arrays(fields: dict, device="cpu") -> EnvState:
     """fields: the EnvState's fields as numpy arrays, with `phys` a dict of
-    State fields and `carry` / `metrics` dicts of arrays (an empty carry of
-    another type becomes an empty dict)."""
+    State fields and `carry` / `metrics` dicts of arrays, which may nest (an
+    empty carry of another type becomes an empty dict). Random keys do not
+    cross, the port draws from an explicit `torch.Generator`: a carry's
+    per-env `noise_key` (AnymalTerrain) becomes the port's `obs_noise`, the
+    step's observation noise, at zero."""
+    obs = _tensor(fields["obs"], device)
+    carry = dict(fields["carry"] or {})
+    if "noise_key" in carry:
+        del carry["noise_key"]
+        carry["obs_noise"] = np.zeros(obs.shape, np.float32)
     return EnvState(
         phys=state_from_arrays(fields["phys"], device),
-        carry={k: _tensor(v, device)
-               for k, v in dict(fields["carry"] or {}).items()},
-        obs=_tensor(fields["obs"], device),
+        carry=_tensor_tree(carry, device),
+        obs=obs,
         states=_tensor(fields["states"], device),
         reward=_tensor(fields["reward"], device),
         done=_tensor(fields["done"], device),
         timeout=_tensor(fields["timeout"], device),
         progress=_tensor(fields["progress"], device),
-        metrics={k: _tensor(v, device) for k, v in fields["metrics"].items()},
+        metrics=_tensor_tree(fields["metrics"], device),
     )

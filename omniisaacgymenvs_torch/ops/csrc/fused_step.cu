@@ -6,7 +6,8 @@
  * Which TPU kernel each entry replaces
  *   oige_step -> omniisaacgymenvs_tpu/ops/fused_substep.py, batched_step /
  *                _step_kernel(n_steps) (K1): n_steps whole substeps (forward
- *                kinematics, ground contacts, PD and passive drives, the
+ *                kinematics, ground contacts on z = 0 or on per-point terrain
+ *                planes, pair contacts, PD and passive drives, the
  *                articulated-body algorithm with a 6x6 Cholesky solve at the
  *                floating root, semi-implicit integration with limits and
  *                velocity caps) followed by the report FK epilogue.
@@ -18,10 +19,11 @@
  *                FK. It launches step_kernel with n_steps = 1 and the report
  *                switched off, so there is one substep body for K1 and K3.
  *   Scope: forests of FREE and FIXED roots, revolute and prismatic joints,
- *   the flat ground plane z = 0 with per-point gains, point-vs-surface pair
- *   contacts (sphere, capsule, box), gravity compensation, fixed tendons,
- *   force sensors. The wrapper refuses models with terrain planes or
- *   randomization overlays.
+ *   the flat ground plane z = 0 or one terrain contact plane per contact
+ *   point and env (the `planes` input, has_height in the JAX kernel), both
+ *   with per-point gains, point-vs-surface pair contacts (sphere, capsule,
+ *   box), gravity compensation, fixed tendons, force sensors. The engine
+ *   refuses randomization overlays.
  *
  * What bounds it on this card
  *   Per env, K1 moves about 2.4 KB (250 input and 353 output floats for the
@@ -31,7 +33,11 @@
  *   (ops/fused_step.py op_count counts what the function needs: it skips
  *   X's zero block and uses the symmetry of X^T Ia X, which this kernel
  *   does not; layouts of the inward pass that skip them measured slower on
- *   the H100, as they cost registers and spill). The real limit of
+ *   the H100, as they cost registers and spill). AnymalTerrain's launch is
+ *   one substep on terrain planes (231 input and 230 output floats, some
+ *   2 x 10^4 operations per env): there the bytes bound it by the roofline,
+ *   but at its 2048 envs (16 blocks on 132 SMs) the launch takes one
+ *   thread's serial latency, 0.146 ms on the H100. The real limit of
  *   this first design is thread-local memory: the per-body articulated
  *   inertias (36 floats per body) and the other per-body arrays of one env
  *   (about 13.8 KB for the Humanoid) do not fit in registers and live in
@@ -388,18 +394,25 @@ __device__ __forceinline__ float sign0(float x) {
 }
 
 // one substep of one env: (q, qd) -> (q, qd) in place; leaves this
-// substep's contact wrenches in w.fx / w.tx
+// substep's contact wrenches in w.fx / w.tx. PLANES: the ground contacts
+// read this env's terrain planes `pl` (a compile-time variant, like the JAX
+// kernel's has_height: a run-time test of the pointer in the contact loop
+// cost the flat-ground Humanoid 17% of its K1 time on the H100)
+template <bool PLANES>
 __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
                                         const float* eff, const float* ptg,
                                         const float* vtg, const float* fapp,
-                                        Work& w) {
+                                        const float* pl, Work& w) {
   const int nb = t.nb;
   const float h = tf(t, 3);
   const float chi = tf(t, 4);
   Frames& k = w.k;
   fk_full(t, q, qd, k);
 
-  // ---- ground contacts against z = 0 ----
+  // ---- ground contacts: with PLANES against this env's terrain planes
+  // [n, d] (pen = radius - (n.pt - d), force along the general normal; n
+  // arrives as a unit vector and is not renormalized), else against z = 0.
+  // The planes stay as given for the whole launch. ----
   for (int i = 0; i < nb; ++i)
     for (int c = 0; c < 3; ++c) w.fx[i][c] = w.tx[i][c] = 0.f;
   for (int c_ = 0; c_ < t.ncp; ++c_) {
@@ -412,16 +425,28 @@ __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
     cross3(k.wv[b], rel, crs);
 #pragma unroll
     for (int c = 0; c < 3; ++c) vpt[c] = k.lv[b][c] + crs[c];
-    const float pen = tf(t, C + C_RAD) - (k.pw[b][2] + rel[2]);
-    const float vn = vpt[2];
-    const float fn = jmin(tf(t, C + C_KN) * jmax(pen, 0.f) *
-                              jclip(1.f - chi * vn, 0.f, 5.f),
-                          tf(t, C + C_FNM));
-    const float vt0 = vpt[0], vt1 = vpt[1];
-    const float vt_norm = sqrtf(vt0 * vt0 + vt1 * vt1 + 1e-12f);
-    const float ft_mag = jmin(tf(t, C + C_MU) * fn, tf(t, C + C_KT) * vt_norm);
-    const float sc = ft_mag / (vt_norm + 1e-6f);
-    const float f[3] = {-sc * vt0, -sc * vt1, fn};
+    float f[3];
+    if constexpr (PLANES) {
+      const float4 P = __ldg(reinterpret_cast<const float4*>(pl) + c_);
+      const float pn[3] = {P.x, P.y, P.z};
+      const float dist = pn[0] * (k.pw[b][0] + rel[0]) + pn[1] * (k.pw[b][1] + rel[1]) +
+                         pn[2] * (k.pw[b][2] + rel[2]) - P.w;
+      contact_force(tf(t, C + C_RAD) - dist, pn, vpt, tf(t, C + C_MU), tf(t, C + C_KN),
+                    tf(t, C + C_KT), tf(t, C + C_FNM), chi, f);
+    } else {
+      const float pen = tf(t, C + C_RAD) - (k.pw[b][2] + rel[2]);
+      const float vn = vpt[2];
+      const float fn = jmin(tf(t, C + C_KN) * jmax(pen, 0.f) *
+                                jclip(1.f - chi * vn, 0.f, 5.f),
+                            tf(t, C + C_FNM));
+      const float vt0 = vpt[0], vt1 = vpt[1];
+      const float vt_norm = sqrtf(vt0 * vt0 + vt1 * vt1 + 1e-12f);
+      const float ft_mag = jmin(tf(t, C + C_MU) * fn, tf(t, C + C_KT) * vt_norm);
+      const float sc = ft_mag / (vt_norm + 1e-6f);
+      f[0] = -sc * vt0;
+      f[1] = -sc * vt1;
+      f[2] = fn;
+    }
     float n[3];
     cross3(rel, f, n);
 #pragma unroll
@@ -850,11 +875,14 @@ __device__ __forceinline__ void write_report(const Tables& t, const Frames& k, l
 }
 
 // n_steps substeps of one env, then the report FK unless `pos` is null
-// (the single-substep launch mode writes no report)
+// (the single-substep launch mode writes no report); with PLANES, `planes`
+// is (n_env, ncp, 4)
+template <bool PLANES>
 __device__ __forceinline__ void step_env(const Tables t, long e, const float* q_in,
                                          const float* qd_in, const float* eff,
                                          const float* ptg, const float* vtg,
-                                         const float* fapp, float* q_out,
+                                         const float* fapp, const float* planes,
+                                         float* q_out,
                                          float* qd_out, float* sf_out, float* pos,
                                          float* quat, float* avel, float* lvel,
                                          int n_steps) {
@@ -867,8 +895,9 @@ __device__ __forceinline__ void step_env(const Tables t, long e, const float* q_
   const float* ptg_e = ptg + e * njd;
   const float* vtg_e = vtg + e * njd;
   const float* fapp_e = fapp + e * 6 * nb;
+  const float* pl_e = PLANES ? planes + e * 4 * t.ncp : nullptr;
   for (int s = 0; s < n_steps; ++s)
-    substep(t, q, qd, eff_e, ptg_e, vtg_e, fapp_e, w);
+    substep<PLANES>(t, q, qd, eff_e, ptg_e, vtg_e, fapp_e, pl_e, w);
   for (int c = 0; c < nq; ++c) q_out[e * nq + c] = q[c];
   for (int c = 0; c < nv; ++c) qd_out[e * nv + c] = qd[c];
   // sensors read the last substep's contact wrench [force, torque]: ground
@@ -899,17 +928,19 @@ __device__ __forceinline__ void fk_env(const Tables t, long e, const float* q_in
   write_report(t, k, e, pos, quat, avel, lvel);
 }
 
+template <bool PLANES>
 __global__ void __launch_bounds__(128) step_kernel(
     const Tables t, const float* __restrict__ q_in, const float* __restrict__ qd_in,
     const float* __restrict__ eff, const float* __restrict__ ptg,
     const float* __restrict__ vtg, const float* __restrict__ fapp,
-    float* __restrict__ q_out, float* __restrict__ qd_out, float* __restrict__ sf_out,
+    const float* __restrict__ planes, float* __restrict__ q_out,
+    float* __restrict__ qd_out, float* __restrict__ sf_out,
     float* __restrict__ pos, float* __restrict__ quat, float* __restrict__ avel,
     float* __restrict__ lvel, int n_env, int n_steps) {
   const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n_env) return;
-  step_env(t, e, q_in, qd_in, eff, ptg, vtg, fapp, q_out, qd_out, sf_out, pos, quat,
-           avel, lvel, n_steps);
+  step_env<PLANES>(t, e, q_in, qd_in, eff, ptg, vtg, fapp, planes, q_out, qd_out, sf_out,
+                   pos, quat, avel, lvel, n_steps);
 }
 
 __global__ void __launch_bounds__(128) fk_kernel(
@@ -964,17 +995,24 @@ extern "C" int oige_limits(int* out) {
   return 0;
 }
 
+// planes: (n_env, ncp, 4) contiguous terrain planes, or null for flat ground
 extern "C" int oige_step(const float* ftab, const int* itab, const int* dims,
                          const float* q, const float* qd, const float* eff,
                          const float* ptg, const float* vtg, const float* fapp,
-                         float* q_out, float* qd_out, float* sf_out, float* pos,
+                         const float* planes, float* q_out, float* qd_out,
+                         float* sf_out, float* pos,
                          float* quat, float* avel, float* lvel, int n_env, int n_steps,
                          void* stream) {
   const Tables t = make_tables(ftab, itab, dims);
   const int blocks = (n_env + OIGE_THREADS - 1) / OIGE_THREADS;
-  step_kernel<<<blocks, OIGE_THREADS, 0, (cudaStream_t)stream>>>(
-      t, q, qd, eff, ptg, vtg, fapp, q_out, qd_out, sf_out, pos, quat, avel, lvel,
-      n_env, n_steps);
+  if (planes != nullptr)
+    step_kernel<true><<<blocks, OIGE_THREADS, 0, (cudaStream_t)stream>>>(
+        t, q, qd, eff, ptg, vtg, fapp, planes, q_out, qd_out, sf_out, pos, quat, avel,
+        lvel, n_env, n_steps);
+  else
+    step_kernel<false><<<blocks, OIGE_THREADS, 0, (cudaStream_t)stream>>>(
+        t, q, qd, eff, ptg, vtg, fapp, planes, q_out, qd_out, sf_out, pos, quat, avel,
+        lvel, n_env, n_steps);
   return (int)cudaGetLastError();
 }
 
@@ -982,10 +1020,10 @@ extern "C" int oige_step(const float* ftab, const int* itab, const int* dims,
 extern "C" int oige_substep(const float* ftab, const int* itab, const int* dims,
                             const float* q, const float* qd, const float* eff,
                             const float* ptg, const float* vtg, const float* fapp,
-                            float* q_out, float* qd_out, float* sf_out, int n_env,
-                            void* stream) {
-  return oige_step(ftab, itab, dims, q, qd, eff, ptg, vtg, fapp, q_out, qd_out, sf_out,
-                   nullptr, nullptr, nullptr, nullptr, n_env, 1, stream);
+                            const float* planes, float* q_out, float* qd_out,
+                            float* sf_out, int n_env, void* stream) {
+  return oige_step(ftab, itab, dims, q, qd, eff, ptg, vtg, fapp, planes, q_out, qd_out,
+                   sf_out, nullptr, nullptr, nullptr, nullptr, n_env, 1, stream);
 }
 
 extern "C" int oige_fk(const float* ftab, const int* itab, const int* dims,

@@ -13,8 +13,10 @@ of the source and flags) and bound with ctypes.
 A wrapper given CPU tensors runs the plain version (`step_plain`,
 `fk_plain`, `substep_plain`); given CUDA tensors it launches the kernel or
 raises. The kernels cover forests of FREE and FIXED roots, revolute and
-prismatic joints, the flat ground plane, pair contacts against sphere,
-capsule and box surfaces, gravity compensation and fixed tendons;
+prismatic joints, the flat ground plane or one terrain contact plane per
+contact point and env (`planes`, frozen over the substeps of a launch), pair
+contacts against sphere, capsule and box surfaces, gravity compensation and
+fixed tendons;
 `scope_errors` lists what a model has beyond the kernels' compile-time
 maxima, and the engine's `check_scope` refuses such a model on CUDA.
 """
@@ -241,30 +243,36 @@ class FusedKernels:
 # ---------------------------------------------------------------------------
 
 def step_plain(engine, q, qd, effort, pos_target, vel_target, f_applied,
-               n_steps: int):
+               n_steps: int, planes=None):
     """n_steps plain substeps (`engine._substep`), then the report FK.
     Returns (q, qd, sensor_forces, body_pos, body_quat, body_avel,
-    body_lvel); sensor forces are those of the last substep."""
+    body_lvel); sensor forces are those of the last substep. `planes`
+    (N, ncp, 4): the terrain contact planes of an engine with terrain, the
+    same for all n_steps substeps, as in the kernel."""
     from omniisaacgymenvs_torch.physics.state import Control
 
     m = engine.model
     N = q.shape[0]
+    _check_planes(engine, planes, N, q.device)
     ctrl = Control(effort=effort, pos_target=pos_target,
                    vel_target=vel_target, body_force=None, body_torque=None)
     sf = q.new_zeros((N, m.num_sensors, 6))
     for _ in range(n_steps):
-        q, qd, sf = engine._substep(q, qd, ctrl, f_applied, engine.h)
+        q, qd, sf = engine._substep(q, qd, ctrl, f_applied, engine.h, planes)
     pos, quat, avel, lvel = fk_plain(m, q, qd)
     return q, qd, sf, pos, quat, avel, lvel
 
 
-def substep_plain(engine, q, qd, effort, pos_target, vel_target, f_applied):
-    """One plain substep (`engine._substep`): (q, qd, sensor_forces)."""
+def substep_plain(engine, q, qd, effort, pos_target, vel_target, f_applied,
+                  planes=None):
+    """One plain substep (`engine._substep`): (q, qd, sensor_forces);
+    `planes` as in `step_plain`."""
     from omniisaacgymenvs_torch.physics.state import Control
 
+    _check_planes(engine, planes, q.shape[0], q.device)
     ctrl = Control(effort=effort, pos_target=pos_target,
                    vel_target=vel_target, body_force=None, body_torque=None)
-    return engine._substep(q, qd, ctrl, f_applied, engine.h)
+    return engine._substep(q, qd, ctrl, f_applied, engine.h, planes)
 
 
 def fk_plain(model: Model, q, qd):
@@ -290,6 +298,20 @@ def _check(x: torch.Tensor, shape, name: str, device: torch.device):
         raise ValueError(f"{name} is not contiguous")
 
 
+def _check_planes(engine, planes, n: int, device: torch.device):
+    """`planes` must be given, as (n, ncp, 4) float32 on `device`, exactly
+    when the engine has terrain."""
+    if planes is None:
+        if engine.has_terrain:
+            raise ValueError(f"{engine.model.name}: the engine has terrain, "
+                             "so the step needs `planes`")
+        return
+    if not engine.has_terrain:
+        raise ValueError(f"{engine.model.name}: `planes` given to an engine "
+                         "without terrain")
+    _check(planes, (n, engine.model.ncp, 4), "planes", device)
+
+
 def _kernels(engine) -> FusedKernels:
     if engine.kernels is None:
         raise RuntimeError("engine was built for the CPU; its kernels have "
@@ -311,19 +333,24 @@ def _check_step_inputs(k, m, q, qd, effort, pos_target, vel_target, f_applied):
     return N, dev
 
 
+def _planes_ptr(planes):
+    return None if planes is None else planes.data_ptr()
+
+
 def step(engine, q, qd, effort, pos_target, vel_target, f_applied,
-         n_steps: int):
-    """K1: n_steps substeps + report FK in one launch. Same returns as
-    `step_plain`, which it runs for CPU tensors."""
+         n_steps: int, planes=None):
+    """K1: n_steps substeps + report FK in one launch. Same arguments and
+    returns as `step_plain`, which it runs for CPU tensors."""
     if not q.is_cuda:
         return step_plain(engine, q, qd, effort, pos_target, vel_target,
-                          f_applied, n_steps)
+                          f_applied, n_steps, planes)
     k = _kernels(engine)
     m = engine.model
     if n_steps < 1:
         raise ValueError(f"need n_steps >= 1, got {n_steps}")
     ins = (q, qd, effort, pos_target, vel_target, f_applied)
     N, dev = _check_step_inputs(k, m, *ins)
+    _check_planes(engine, planes, N, dev)
     e = torch.empty
     outs = (e((N, m.nq), device=dev), e((N, m.nv), device=dev),
             e((N, m.num_sensors, 6), device=dev), e((N, m.nb, 3), device=dev),
@@ -331,7 +358,8 @@ def step(engine, q, qd, effort, pos_target, vel_target, f_applied,
             e((N, m.nb, 3), device=dev))
     err = library().lib.oige_step(
         k.ftab.data_ptr(), k.itab.data_ptr(), k.dims,
-        *[x.data_ptr() for x in ins + outs], N, int(n_steps),
+        *[x.data_ptr() for x in ins], _planes_ptr(planes),
+        *[x.data_ptr() for x in outs], N, int(n_steps),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
@@ -340,22 +368,25 @@ def step(engine, q, qd, effort, pos_target, vel_target, f_applied,
     return outs
 
 
-def substep(engine, q, qd, effort, pos_target, vel_target, f_applied):
+def substep(engine, q, qd, effort, pos_target, vel_target, f_applied,
+            planes=None):
     """K3: one substep in one launch, without the report FK: (q, qd,
     sensor_forces). Runs `substep_plain` for CPU tensors."""
     if not q.is_cuda:
         return substep_plain(engine, q, qd, effort, pos_target, vel_target,
-                             f_applied)
+                             f_applied, planes)
     k = _kernels(engine)
     m = engine.model
     ins = (q, qd, effort, pos_target, vel_target, f_applied)
     N, dev = _check_step_inputs(k, m, *ins)
+    _check_planes(engine, planes, N, dev)
     e = torch.empty
     outs = (e((N, m.nq), device=dev), e((N, m.nv), device=dev),
             e((N, m.num_sensors, 6), device=dev))
     err = library().lib.oige_substep(
         k.ftab.data_ptr(), k.itab.data_ptr(), k.dims,
-        *[x.data_ptr() for x in ins + outs], N,
+        *[x.data_ptr() for x in ins], _planes_ptr(planes),
+        *[x.data_ptr() for x in outs], N,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
@@ -399,11 +430,12 @@ def _dot(k: int) -> int:
     return 2 * k - 1
 
 
-def op_count(model: Model, n_steps: int) -> dict:
+def op_count(model: Model, n_steps: int, planes: bool = False) -> dict:
     """FP32 operations per env that K1 (`step`, n_steps substeps + FK), K2
     (`fk`) and K3 (`substep`, one substep) need, counted over the steps of
     csrc/fused_step.cu for this model's bodies, joints, roots, contact
-    points, pairs by surface type, compensated bodies and tendons. An add,
+    points (against terrain `planes`, or flat ground), pairs by surface
+    type, compensated bodies and tendons. An add,
     multiply, compare, min/max, division, sqrt, sin, cos or tanh is 1 (a
     fused multiply-add is a multiply and an add); a product that is zero by
     the structure of its operands is not counted, nor is a value that equals
@@ -445,6 +477,12 @@ def op_count(model: Model, n_steps: int) -> dict:
     # contact point: mat-vec, cross, velocity 3, penetration 2, normal force
     # 8, tangential norm 5, friction 7, torque cross, accumulate 6
     contact = mv3 + cross + 3 + 2 + 8 + 5 + 7 + cross + 6
+    if planes:
+        # against a terrain plane [n, d]: mat-vec, cross, velocity 3, the
+        # point's world position 3, distance n.pt - d 6, penetration 1, the
+        # contact force along a general normal 40 (as for a pair, below),
+        # torque cross, accumulate 6
+        contact = mv3 + cross + 3 + 3 + 6 + 1 + 40 + cross + 6
     # pair, whatever the surface: point mat-vec, offset from the surface's
     # body 6, two velocity crosses and the difference 9, the contact force
     # along a general normal 40 (normal speed 5, tangential part 6, normal
@@ -505,13 +543,16 @@ def op_count(model: Model, n_steps: int) -> dict:
     return {"step": n_steps * sub + report, "fk": report, "substep": sub}
 
 
-def io_bytes(model: Model) -> dict:
-    """Bytes per env that K1, K2 and K3 must move: each input read once,
-    each output written once (float32)."""
+def io_bytes(model: Model, planes: bool = False) -> dict:
+    """Bytes per env that K1, K2 and K3 must move: each input read once
+    (with `planes`, four more floats per contact point), each output
+    written once (float32)."""
     nq, nv, njd, nb, ns = (model.nq, model.nv, model.njd, model.nb,
                            model.num_sensors)
     report = 13 * nb
     sub = nq + nv + 3 * njd + 6 * nb + nq + nv + 6 * ns
+    if planes:
+        sub += 4 * model.ncp
     return {"step": 4 * (sub + report), "fk": 4 * (nq + nv + report),
             "substep": 4 * sub}
 
@@ -568,9 +609,9 @@ def build(flags=NVCC_FLAGS) -> _Library:
     lib.oige_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.oige_limits.restype = ci
     dims = ctypes.POINTER(ctypes.c_int)
-    lib.oige_step.argtypes = [vp, vp, dims] + [vp] * 13 + [ci, ci, vp]
+    lib.oige_step.argtypes = [vp, vp, dims] + [vp] * 14 + [ci, ci, vp]
     lib.oige_step.restype = ci
-    lib.oige_substep.argtypes = [vp, vp, dims] + [vp] * 9 + [ci, vp]
+    lib.oige_substep.argtypes = [vp, vp, dims] + [vp] * 10 + [ci, vp]
     lib.oige_substep.restype = ci
     lib.oige_fk.argtypes = [vp, vp, dims] + [vp] * 6 + [ci, vp]
     lib.oige_fk.restype = ci

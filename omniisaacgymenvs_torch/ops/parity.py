@@ -53,6 +53,13 @@ STEP_TOL_BY_MODEL = {
 }
 
 
+# AnymalTerrain on its terrain planes stays within the default limits: the
+# sound build read at most 0.38 over one substep and 0.67 over four on the
+# same planes, a plane offset 1 mm high, one point's normals set vertical or
+# planes shifted by one env 412 and more, a 0.1% gain error 3.4
+# (scripts/tolerance_controls.py task=AnymalTerrain, PERF.md).
+
+
 def step_tol(model) -> dict:
     """K1's tolerances for `model`."""
     return STEP_TOL_BY_MODEL.get(model.name, STEP_TOL)
@@ -159,6 +166,52 @@ def check_inputs(model, n: int, seed: int, device, drop: float | None = None):
             angle + pr["joint"] * rng.standard_normal(q[1::2].shape[0]),
             cpu(model.dof_limit_lower)[d], cpu(model.dof_limit_upper)[d])
     return tuple(torch.as_tensor(x, device=device) for x in (q, qd, eff))
+
+
+# terrain check states: the lowest contact point of each env sits this deep
+# (m) in its tread, a few millimetres to 2 cm as under a walking robot
+TERRAIN_DEPTH = (0.002, 0.02)
+
+
+def terrain_check_inputs(task, n: int, seed: int, device,
+                         depth=TERRAIN_DEPTH):
+    """(q, qd, effort) on `device` for a task on terrain (AnymalTerrain):
+    `check_inputs` states with the bases spread over every level and type of
+    the terrain grid, up to 3.5 m from their cell's centre (stairs, slopes,
+    obstacles and stones under the feet), and set down so that each env's
+    lowest contact point is `depth` (a range, m) deep in the tread below
+    it. Feet beside a riser then meet its wall or its edge."""
+    m = task.model
+    q, qd, eff = check_inputs(m, n, seed, device, drop=0.0)
+    rng = np.random.default_rng(seed + 104729)
+    rows, cols = task.terrain.env_rows, task.terrain.env_cols
+    cell = np.arange(n) % (rows * cols)
+    origin = task._origins[torch.as_tensor(cell // cols, device=device),
+                           torch.as_tensor(cell % cols, device=device)]
+    t32 = lambda a: torch.as_tensor(a, dtype=q.dtype, device=device)  # noqa: E731
+    q[:, 0:2] = origin[:, 0:2] + t32(rng.uniform(-3.5, 3.5, (n, 2)))
+    q[:, 2] = 0.0
+    pt = task.engine.contact_points(task.engine.init_state(q, qd))
+    # how far each point is over its tread with the base at z = 0
+    clear = pt[..., 2] - m.cp_radius - task.tread_height(pt[..., 0], pt[..., 1])
+    q[:, 2] = -clear.amin(dim=1) - t32(rng.uniform(*depth, n))
+    return q.contiguous(), qd, eff
+
+
+def terrain_contacts(task, engine, q, qd) -> dict:
+    """Active ground contacts of the states by the terrain feature their
+    plane came from: `tread`, `wall`, `edge`, and `wedge` (a secondary foot
+    point on its own-cell tread)."""
+    from omniisaacgymenvs_torch.tasks import anymal_terrain as at
+
+    m = engine.model
+    pt = engine.contact_points(engine.init_state(q, qd))
+    n_, d, kind = task.contact_features(pt, m.cp_radius)
+    active = m.cp_radius - ((pt * n_).sum(-1) - d) > 0
+    count = lambda ks: int((active & torch.isin(  # noqa: E731
+        kind, torch.as_tensor(list(ks), device=q.device))).sum())
+    return dict(tread=count([at.TREAD]), wall=count(at.WALLS),
+                edge=count(at.EDGES), wedge=count([at.WEDGE_ON]))
 
 
 def check_targets(model, q: torch.Tensor, seed: int) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Contact model: compiled contact points against the flat plane z = 0,
-and against the receiver surfaces (sphere, capsule, box) of other bodies
-(PyTorch port of the JAX package's `physics/contacts.py`, without
-heightfields and randomization scales).
+"""Contact model: compiled contact points against the flat plane z = 0 or
+against terrain (per-point contact planes, a plane function or a height
+function), and against the receiver surfaces (sphere, capsule, box) of
+other bodies (PyTorch port of the JAX package's `physics/contacts.py`,
+without randomization scales).
 
 A regularized compliant contact: Hunt-Crossley normal force (spring scaled
 by 1 - chi * vn, so no spike at first touch) capped per point, plus
@@ -13,7 +14,7 @@ batched over envs.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -193,8 +194,16 @@ def plane_contacts(
     body_lvel: torch.Tensor,    # (N, nb, 3) world velocity of body origin
     params: ContactParams,
     gains: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    height_fn: Optional[Callable] = None,
+    plane_fn: Optional[Callable] = None,
+    planes: Optional[torch.Tensor] = None,
 ) -> ContactResult:
-    """Contact forces against the ground plane z = 0. `gains`: per-point
+    """Contact forces against the ground plane z = 0, or against terrain in
+    one of three forms (the first given wins): `planes` (N, ncp, 4), one
+    plane [unit normal n, offset d] per contact point with penetration
+    radius - (n.pt - d); `plane_fn(pt, radius) -> (n, d)`, the same planes
+    computed from the points (N, ncp, 3); `height_fn(x, y) -> (h, n)`, a
+    height field with penetration radius - (z - h) n_z. `gains`: per-point
     (kn, kt, fn_max) tensors; computed from `params` when not given (the
     engine passes them precomputed on its device)."""
     N, nb = body_pos.shape[0], model.nb
@@ -210,14 +219,31 @@ def plane_contacts(
     cb = torch.as_tensor(model.cp_body, dtype=torch.long, device=body_pos.device)
     pos_b = body_pos[:, cb]
     pt = pos_b + (body_rot[:, cb] @ model.cp_pos[..., None])[..., 0]
-    pen = model.cp_radius - pt[..., 2]
+    n = None  # flat ground: n = +z
+    if planes is not None:
+        n, d = planes[..., 0:3], planes[..., 3]
+        pen = model.cp_radius - ((pt * n).sum(-1) - d)
+    elif plane_fn is not None:
+        n, d = plane_fn(pt, model.cp_radius)
+        pen = model.cp_radius - ((pt * n).sum(-1) - d)
+    elif height_fn is not None:
+        # normal (not vertical) distance to the plane through (x, y, h)
+        h, n = height_fn(pt[..., 0], pt[..., 1])
+        pen = model.cp_radius - (pt[..., 2] - h) * n[..., 2]
+    else:
+        pen = model.cp_radius - pt[..., 2]
     active = pen > 0.0
 
     rel = pt - pos_b
     avel_b = body_avel[:, cb]
     v_pt = body_lvel[:, cb] + torch.linalg.cross(avel_b, rel, dim=-1)
-    vn = v_pt[..., 2]
-    vt = torch.cat([v_pt[..., 0:2], torch.zeros_like(vn)[..., None]], dim=-1)
+    if n is None:
+        vn = v_pt[..., 2]
+        vt = torch.cat([v_pt[..., 0:2], torch.zeros_like(vn)[..., None]],
+                       dim=-1)
+    else:
+        vn = (v_pt * n).sum(-1)
+        vt = v_pt - vn[..., None] * n
 
     # Hunt-Crossley: damping scaled by penetration (no touch spike)
     fn = torch.where(
@@ -231,8 +257,11 @@ def plane_contacts(
     ft_mag = torch.minimum(mu * fn, kt * vt_norm)
     ft = -ft_mag[..., None] * vt / (vt_norm[..., None] + 1e-6)
 
-    f_w = ft.clone()
-    f_w[..., 2] = f_w[..., 2] + fn                      # n = +z
+    if n is None:
+        f_w = ft.clone()
+        f_w[..., 2] = f_w[..., 2] + fn
+    else:
+        f_w = fn[..., None] * n + ft
     n_w = torch.linalg.cross(rel, f_w, dim=-1)          # torque about origin
 
     body_force = zeros3.clone().index_add_(1, cb, f_w)

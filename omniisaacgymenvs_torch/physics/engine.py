@@ -1,23 +1,26 @@
 """Physics engine: stepping functions bound to a (model, params) pair,
 batched over a leading env axis (PyTorch port of the JAX package's
-`physics/engine.py`: flat ground, pair contacts, gravity compensation and
-fixed tendons; heightfields and randomization overlays are not ported and
-raise).
+`physics/engine.py`: flat ground or terrain contact planes, pair contacts,
+gravity compensation and fixed tendons; randomization overlays are not
+ported and raise).
 
 The device of the model's tensors picks the path. On CUDA, `step_n` is
-one launch of the whole-control-step kernel K1 and `_report` (hence
-`init_state`) one launch of the report-FK kernel K2
-(`ops/fused_step.py`, which also has the single-substep kernel K3 that no
-engine path launches); a model beyond the kernels' maxima raises
-`NotImplementedError` there (`check_scope`). On the CPU both run the plain
-versions.
+one launch of the whole-control-step kernel K1 (with `plane_refresh`, one
+launch of a single substep per substep, each on planes sampled from the
+launch before) and `_report` (hence `init_state`) one launch of the
+report-FK kernel K2 (`ops/fused_step.py`, which also has the single-substep
+kernel K3 that no engine path launches); a model beyond the kernels' maxima
+raises `NotImplementedError` there (`check_scope`). On the CPU both run the
+plain versions, with the same plane semantics: terrain planes are sampled
+from the reported state and stay frozen over the substeps of one launch.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from omniisaacgymenvs_torch.ops import fused_step
@@ -31,6 +34,7 @@ from omniisaacgymenvs_torch.physics.contacts import (
     plane_contacts,
     point_gains,
 )
+from omniisaacgymenvs_torch.physics import rotations as rot
 from omniisaacgymenvs_torch.physics.model import Model
 from omniisaacgymenvs_torch.physics.state import Control, State
 
@@ -74,15 +78,29 @@ def check_scope(model: Model, cuda: bool):
 class PhysicsEngine:
     """Stepping functions over batched (N, ...) states of one model."""
 
-    def __init__(self, model: Model, params: SimParams, height_fn=None,
-                 contact_plane_fn=None):
-        if height_fn is not None or contact_plane_fn is not None:
-            raise NotImplementedError(
-                "heightfield and contact-plane terrain are not ported yet")
+    def __init__(self, model: Model, params: SimParams,
+                 height_fn: Optional[Callable] = None,
+                 contact_plane_fn: Optional[Callable] = None,
+                 plane_refresh: bool = False):
+        """height_fn(x, y) -> (h, n): terrain as a height function.
+        contact_plane_fn(pt, radius) -> (n, d): a contact plane per point
+        (unit normal n, offset d, penetration radius - (n.pt - d)), which
+        can express vertical features a height function cannot; it takes
+        precedence over height_fn. Both are batched over the env axis: pt
+        is (N, ncp, 3), x and y are (N, ncp).
+        plane_refresh: sample the contact_plane_fn planes anew before every
+        substep instead of once per `step_n`."""
         check_scope(model, cuda=model.device.type == "cuda")
         self.model = model
         self.params = params
         self.device = model.device
+        self.height_fn = height_fn
+        self.contact_plane_fn = contact_plane_fn
+        self.plane_refresh = bool(plane_refresh)
+        self.has_terrain = (height_fn is not None
+                            or contact_plane_fn is not None)
+        self._cp_body = torch.as_tensor(model.cp_body.astype(np.int64),
+                                        device=self.device)
         self.h = params.dt / params.substeps
         self.contact_params = (
             params.contact
@@ -142,16 +160,46 @@ class PhysicsEngine:
         return self._report(q, qd, sf)
 
     # ------------------------------------------------------------------
-    def _substep(self, q, qd, control: Control, f_applied, h):
+    def contact_points(self, state: State) -> torch.Tensor:
+        """(N, ncp, 3) world positions of the contact points, from the
+        reported body poses."""
+        cb = self._cp_body
+        R = rot.quat_to_rotmat(state.body_quat[:, cb])
+        return state.body_pos[:, cb] + (R @ self.model.cp_pos[..., None])[..., 0]
+
+    def _contact_planes(self, state: State) -> torch.Tensor:
+        """(N, ncp, 4) terrain contact plane [unit normal n, offset d] of
+        every contact point, penetration radius - (n.pt - d), sampled at the
+        contact points of the reported state (body_pos, body_quat). With
+        contact_plane_fn the task picks the local feature; with height_fn
+        alone the plane is anchored at the sampled height. Zeros when there
+        is no terrain (flat ground)."""
+        m = self.model
+        N = state.q.shape[0]
+        if not self.has_terrain or m.ncp == 0:
+            return state.q.new_zeros((N, m.ncp, 4))
+        pt = self.contact_points(state)
+        if self.contact_plane_fn is not None:
+            n, d = self.contact_plane_fn(pt, m.cp_radius)
+        else:
+            h, n = self.height_fn(pt[..., 0], pt[..., 1])
+            anchor = torch.stack([pt[..., 0], pt[..., 1], h], dim=-1)
+            d = (n * anchor).sum(-1)
+        return torch.cat([n, d[..., None]], dim=-1).contiguous()
+
+    def _substep(self, q, qd, control: Control, f_applied, h, planes=None):
         """One plain substep: FK -> contacts -> drives -> ABA -> integrate.
         Returns (q, qd, sensor_forces); sensors read the contact wrench
         [force, torque] of their bodies: ground and pair contacts, without
-        applied forces and gravity compensation."""
+        applied forces and gravity compensation. `planes` (N, ncp, 4): the
+        ground contacts' terrain planes (`_contact_planes`), flat ground
+        when None."""
         m = self.model
         kin = dynamics.kinematics(m, q, qd)
         avel, lvel = dynamics.world_velocities(m, kin)
         cres = plane_contacts(m, kin.pw, kin.Rw, avel, lvel,
-                              self.contact_params, self.contact_gains)
+                              self.contact_params, self.contact_gains,
+                              planes=planes)
         f_contact = cres.f_ext
         if self._has_pairs:
             f_contact = f_contact + pair_contacts(
@@ -176,16 +224,32 @@ class PhysicsEngine:
     def step_n(self, state: State, control: Control, n: int = 1,
                overlay=None) -> State:
         """Advance n control steps under constant control: n * substeps
-        substeps and the report FK, one K1 launch on CUDA."""
+        substeps and the report FK. Flat ground, or terrain planes sampled
+        once from `state`: one K1 launch on CUDA. With `plane_refresh` and a
+        contact_plane_fn: one K1 launch of a single substep per substep,
+        each on planes sampled from the state the launch before reported (a
+        foot that crosses a stair edge within the control step meets the
+        new feature at once)."""
         if overlay is not None:
             raise NotImplementedError(
                 "domain-randomization overlays are not ported yet")
         f_applied = torch.cat([control.body_torque, control.body_force], dim=-1)
-        q, qd, sf, pos, quat, avel, lvel = fused_step.step(
-            self, state.q.contiguous(), state.qd.contiguous(),
-            control.effort.contiguous(), control.pos_target.contiguous(),
-            control.vel_target.contiguous(), f_applied,
-            n * self.params.substeps,
-        )
-        return State(q=q, qd=qd, body_pos=pos, body_quat=quat,
-                     body_lvel=lvel, body_avel=avel, sensor_forces=sf)
+        ctrl = (control.effort.contiguous(), control.pos_target.contiguous(),
+                control.vel_target.contiguous(), f_applied)
+        launches = self.k1_launches(n)
+        n_steps = n * self.params.substeps // launches
+        for _ in range(launches):
+            q, qd, sf, pos, quat, avel, lvel = fused_step.step(
+                self, state.q.contiguous(), state.qd.contiguous(), *ctrl,
+                n_steps,
+                planes=self._contact_planes(state) if self.has_terrain else None,
+            )
+            state = State(q=q, qd=qd, body_pos=pos, body_quat=quat,
+                          body_lvel=lvel, body_avel=avel, sensor_forces=sf)
+        return state
+
+    def k1_launches(self, n: int = 1) -> int:
+        """How many K1 launches `step_n(state, control, n)` makes."""
+        if self.plane_refresh and self.contact_plane_fn is not None:
+            return n * self.params.substeps
+        return 1

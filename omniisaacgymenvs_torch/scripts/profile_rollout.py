@@ -4,12 +4,17 @@
         task=Humanoid num_envs=32768 max_iterations=8
     python -m omniisaacgymenvs_torch.scripts.profile_rollout \
         task=ShadowHand num_envs=8192 max_iterations=8
+    python -m omniisaacgymenvs_torch.scripts.profile_rollout \
+        task=AnymalTerrain num_envs=2048 max_iterations=8
 
 Builds the same VecEnv as `random_policy`, resets and warms up for two
 steps, then traces `max_iterations` steps with `torch.profiler`. Prints
 the wall time per control step, the device-busy share of the window
 (kernel time summed over one stream, over wall time), and the kernels by
-device time. Needs a CUDA device.
+device time. For a task on terrain it then traces the sampling of the
+contact planes alone (`engine._contact_planes`, the task's plane function
+as small PyTorch ops) and prints its share of the step. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -31,8 +36,20 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _trace(fn, reps: int):
+    """(wall us, kernel events) of `reps` calls of fn under the profiler."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return wall_us, [e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def main(argv=None) -> int:
-    cfg, _, env = build_env(argv)
+    cfg, task, env = build_env(argv)
     if env.device.type != "cuda":
         raise SystemExit("profile_rollout measures the card: needs device=cuda")
     steps = int(cfg.get("max_iterations") or 8)
@@ -41,14 +58,12 @@ def main(argv=None) -> int:
     for _ in range(2):
         es = env.step(es, policy(es.obs, env.generator))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            es = env.step(es, policy(es.obs, env.generator))
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    state = [es]
+
+    def one_step():
+        state[0] = env.step(state[0], policy(state[0].obs, env.generator))
+
+    wall_us, kernels = _trace(one_step, steps)
     busy_us = sum(_device_us(e) for e in kernels)
     print(f"{cfg['task_name']} {env.num_envs} envs, {steps} traced steps: "
           f"{wall_us / steps / 1e3:.4f} ms per control step (wall, traced), "
@@ -62,6 +77,22 @@ def main(argv=None) -> int:
         us = _device_us(e)
         print(f"  {us / steps / 1e3:10.4f}  {us / max(busy_us, 1e-9):7.4f}  "
               f"{e.count / steps:6.1f}  {e.key[:90]}")
+    eng = task.engine
+    if eng.has_terrain:
+        per_step = eng.k1_launches(task.decimation)
+        phys = state[0].phys
+        eng._contact_planes(phys)
+        torch.cuda.synchronize()
+        p_wall, p_kern = _trace(lambda: eng._contact_planes(phys), steps)
+        p_busy = sum(_device_us(e) for e in p_kern)
+        print(f"contact planes alone, {per_step} samplings per control step: "
+              f"{p_busy / steps / 1e3:.4f} ms of device time and "
+              f"{p_wall / steps / 1e3:.4f} ms of wall per sampling, "
+              f"{sum(e.count for e in p_kern) / steps:.1f} kernel launches; "
+              f"per control step {per_step * p_busy / busy_us:.4f} of the "
+              f"device-busy time, {per_step * p_wall / wall_us:.4f} of the "
+              f"wall time, {per_step * sum(e.count for e in p_kern) / steps:.1f} "
+              f"launches")
     return 0
 
 

@@ -4,8 +4,8 @@ learning in the loop, and print reward statistics and throughput.
     python -m omniisaacgymenvs_torch.scripts.random_policy \
         task=Humanoid num_envs=32768 max_iterations=64 [device=cpu]
 
-Tasks: Humanoid, Ant, Cartpole, BallBalance, ShadowHand. Runs on CUDA
-unless `device=cpu` is given.
+Tasks: Humanoid, Ant, Cartpole, BallBalance, ShadowHand, Anymal,
+AnymalTerrain. Runs on CUDA unless `device=cpu` is given.
 """
 
 from __future__ import annotations

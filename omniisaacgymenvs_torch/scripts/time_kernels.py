@@ -8,9 +8,10 @@ Imports whichever `omniisaacgymenvs_torch` comes first on `sys.path`, so
 the same file times another tree of the port: unpack the parent commit
 with `git archive` into a git-ignored directory and run this file with
 `PYTHONPATH` set to it, in turns (parent, change, change, parent). Prints
-three readings of K1 (at the task's own substeps and decimation), K2 and,
-where the tree has it, K3, each over 20 launches with CUDA events, then
-the ptxas lines of the build. Needs a CUDA card.
+three readings of K1 (the launch the task's control step makes: all its
+substeps at once, or, on terrain with the plane refresh, one substep on
+terrain planes), K2 and, where the tree has it, K3, each over 20 launches
+with CUDA events, then the ptxas lines of the build. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -56,15 +57,22 @@ def main(argv=None) -> int:
     eng = task.engine
     m = eng.model
     n_sub = task.decimation * eng.params.substeps
-    q, qd, eff = parity.check_inputs(m, n, seed=1, device=dev)
+    kw = {}
+    if getattr(eng, "has_terrain", False):
+        n_sub //= eng.k1_launches(task.decimation)
+        q, qd, eff = parity.terrain_check_inputs(task, n, seed=1, device=dev)
+        kw["planes"] = eng._contact_planes(eng.init_state(q, qd))
+    else:
+        q, qd, eff = parity.check_inputs(m, n, seed=1, device=dev)
     z = torch.zeros((n, m.njd), device=dev)
     fa = torch.zeros((n, m.nb, 6), device=dev)
-    runs = {"K1": lambda: fs.step(eng, q, qd, eff, z, z, fa, n_sub),
+    runs = {"K1": lambda: fs.step(eng, q, qd, eff, z, z, fa, n_sub, **kw),
             "K2": lambda: fs.fk(eng, q, qd)}
     if hasattr(fs, "substep"):
-        runs["K3"] = lambda: fs.substep(eng, q, qd, eff, z, z, fa)
+        runs["K3"] = lambda: fs.substep(eng, q, qd, eff, z, z, fa, **kw)
     for rep in range(3):
-        print(f"{label} {card} | {name} {n} envs, {n_sub} substeps, reading "
+        print(f"{label} {card} | {name} {n} envs, {n_sub} substeps a launch"
+              f"{', terrain planes' if kw else ''}, reading "
               f"{rep}: " + "  ".join(f"{k} {time_ms(fn):.4f} ms"
                                      for k, fn in runs.items()), flush=True)
     for line in fs.library().ptxas_log.splitlines():

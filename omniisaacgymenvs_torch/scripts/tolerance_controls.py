@@ -3,19 +3,28 @@ sound build against the plain version, and broken controls that the
 tolerances must refuse.
 
     python -m omniisaacgymenvs_torch.scripts.tolerance_controls \
-        [task=Humanoid|ShadowHand] [num_envs=N]
+        [task=Humanoid|ShadowHand|AnymalTerrain] [num_envs=N]
 
 Needs a CUDA card. Runs on the task's states from `parity.check_inputs`
-(32805 Humanoid envs, 8229 ShadowHand envs unless num_envs is given):
+(32805 Humanoid envs, 8229 ShadowHand envs, 2085 AnymalTerrain envs from
+`parity.terrain_check_inputs`, unless num_envs is given):
   sound       the kernels as built for the main path (two seeds, and one
               seed with the FREE roots lowered further: Humanoid 0.5 m, five
-              times deeper; ShadowHand 2 cm, past the palm's half thickness);
+              times deeper; ShadowHand 2 cm, past the palm's half thickness;
+              AnymalTerrain 2 to 5 cm into the treads);
   fast-math   the same source built with --use_fast_math;
   -1 substep  K1 with one substep dropped;
-Humanoid:
+Humanoid and AnymalTerrain:
   kn x1.001   K1 with every contact point's normal gain 0.1% high;
   cp +1mm     K1 with every contact point 1 mm off along the body's x
               (torques and penetration about the wrong point);
+AnymalTerrain (K1 is the main path's launch, one substep on terrain planes;
+K1x4 is four substeps on the same planes; the kernel gets the broken planes,
+the plain version the sound ones):
+  d +1mm      K1, K1x4 and K3 with every plane's offset 1 mm high;
+  n vertical  the same with the normal of one contact point's planes (the
+              point most often on a wall or an edge) set to +z;
+  env shift   the same with env i's planes fed to env i + 1;
 ShadowHand:
   pair drop   K1 and K3 without the candidate pair most often in contact;
   box +1mm    K1 and K3 with every box surface's half extents 1 mm larger;
@@ -48,7 +57,8 @@ from omniisaacgymenvs_torch.utils.config import load_config
 def main(argv=None) -> int:
     args = dict(a.split("=", 1) for a in (sys.argv[1:] if argv is None else argv))
     task_name = args.get("task", "Humanoid")
-    n = int(args.get("num_envs", 32805 if task_name == "Humanoid" else 8229))
+    n = int(args.get("num_envs", {"Humanoid": 32805, "AnymalTerrain": 2085}
+                     .get(task_name, 8229)))
     if not torch.cuda.is_available():
         print("tolerance_controls: no CUDA device", file=sys.stderr)
         return 1
@@ -67,7 +77,11 @@ def main(argv=None) -> int:
     task = get_task(task_name, load_config({"task": task_name})["task"],
                     device=dev)
     eng = task.engine
-    n_sub = task.decimation * eng.params.substeps
+    terrain = eng.has_terrain
+    # the main path's K1 launch: all substeps of a control step, or one
+    # substep when the planes are refreshed before each
+    n_sub = (task.decimation * eng.params.substeps
+             // eng.k1_launches(task.decimation))
     m = eng.model
     k = eng.kernels
     ftab = k.ftab.clone()
@@ -86,21 +100,35 @@ def main(argv=None) -> int:
 
     readings = []
 
+    def inputs(seed, drop=None):
+        """(q, qd, eff, planes or None) of the check states of `seed`."""
+        if not terrain:
+            return (*parity.check_inputs(m, n, seed, dev, drop=drop), None)
+        depth = parity.TERRAIN_DEPTH if drop is None else drop
+        q, qd, eff = parity.terrain_check_inputs(task, n, seed, dev, depth)
+        return q, qd, eff, eng._contact_planes(eng.init_state(q, qd))
+
     def run(label, kernel, seed=0, drop=None, lib=sound, tab=None,
-            n_steps=n_sub):
-        q, qd, eff = parity.check_inputs(m, n, seed, dev, drop=drop)
+            n_steps=None, break_planes=None):
+        q, qd, eff, planes = inputs(seed, drop)
         ptg = parity.check_targets(m, q, seed)
         z = torch.zeros((n, m.njd), device=dev)
         fa = torch.zeros((n, m.nb, 6), device=dev)
         fs._LIBRARY, k.ftab = lib, ftab if tab is None else tab
+        planes_k = planes if break_planes is None else break_planes(planes)
+        n_ref = 4 if kernel == "K1x4" else n_sub
+        n_steps = n_ref if n_steps is None else n_steps
         try:
-            if kernel == "K1":
-                out = fs.step(eng, q, qd, eff, ptg, z, fa, n_steps)
-                ref = fs.step_plain(eng, q, qd, eff, ptg, z, fa, n_sub)
+            if kernel in ("K1", "K1x4"):
+                out = fs.step(eng, q, qd, eff, ptg, z, fa, n_steps,
+                              planes=planes_k)
+                ref = fs.step_plain(eng, q, qd, eff, ptg, z, fa, n_ref,
+                                    planes=planes)
                 names, tol = parity.STEP_NAMES, parity.step_tol(m)
             elif kernel == "K3":
-                out = fs.substep(eng, q, qd, eff, ptg, z, fa)
-                ref = fs.substep_plain(eng, q, qd, eff, ptg, z, fa)
+                out = fs.substep(eng, q, qd, eff, ptg, z, fa, planes=planes_k)
+                ref = fs.substep_plain(eng, q, qd, eff, ptg, z, fa,
+                                       planes=planes)
                 names, tol = parity.SUBSTEP_NAMES, parity.SUBSTEP_TOL
             else:
                 out = fs.fk(eng, q, qd)
@@ -116,20 +144,45 @@ def main(argv=None) -> int:
         print(f"{kernel} {label:13s} worst use {worst:.4g} | " + "  ".join(
             f"{f} {e:.3e}/{u:.3g}" for f, (e, u) in res.items()), flush=True)
 
-    q0, qd0, _ = parity.check_inputs(m, n, 0, dev)
-    print(f"card: {card} | {n} envs, {task_name}, {n_sub} substeps, active "
-          f"contacts {parity.active_contacts(eng, q0, qd0)}")
-    deep = 0.5 if task_name == "Humanoid" else 0.02
-    for kern in ("K1", "K3", "K2"):
+    q0, qd0, _, planes0 = inputs(0)
+    active = (parity.terrain_contacts(task, eng, q0, qd0) if terrain
+              else parity.active_contacts(eng, q0, qd0))
+    print(f"card: {card} | {n} envs, {task_name}, {n_sub} substeps a K1 "
+          f"launch, active contacts {active}")
+    deep = {"Humanoid": 0.5, "AnymalTerrain": (0.02, 0.05)}.get(task_name, 0.02)
+    step_kernels = ("K1", "K1x4") if terrain else ("K1",)
+    for kern in (*step_kernels, "K3", "K2"):
         run("sound", kern, seed=0)
         run("sound", kern, seed=1)
         run("sound deep", kern, seed=0, drop=deep)
         run("fast-math", kern, lib=fast)
-    run("-1 substep", "K1", n_steps=n_sub - 1)
-    if task_name == "Humanoid":
-        run("kn x1.001", "K1", tab=table(cp_kn, mul=1.001))
-        run("cp +1mm", "K1", tab=table(cp_x, add=1e-3))
-    else:
+    for kern in step_kernels:
+        if kern == "K1x4" or n_sub > 1:
+            run("-1 substep", kern, n_steps=(4 if kern == "K1x4" else n_sub) - 1)
+    if task_name in ("Humanoid", "AnymalTerrain"):
+        for kern in step_kernels:
+            run("kn x1.001", kern, tab=table(cp_kn, mul=1.001))
+            run("cp +1mm", kern, tab=table(cp_x, add=1e-3))
+    if terrain:
+        # the contact point most often on a wall or an edge
+        slanted = (planes0[..., 2].abs() < 0.99).sum(0)
+        col = int(slanted.argmax())
+
+        def offset(p):
+            p = p.clone()
+            p[..., 3] += 1e-3
+            return p
+
+        def vertical(p):
+            p = p.clone()
+            p[:, col, 0:3] = p.new_tensor([0.0, 0.0, 1.0])
+            return p
+
+        for kern in (*step_kernels, "K3"):
+            run("d +1mm", kern, break_planes=offset)
+            run("n vertical", kern, break_planes=vertical)
+            run("env shift", kern, break_planes=lambda p: p.roll(1, 0).contiguous())
+    elif task_name != "Humanoid":
         # the pair most often in contact on the check states
         kin = dynamics.kinematics(m, q0, qd0)
         pen = contacts.pair_penetrations(m, eng.pair_groups, kin.pw, kin.Rw)

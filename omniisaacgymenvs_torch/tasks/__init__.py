@@ -6,12 +6,16 @@ from omniisaacgymenvs_torch.tasks.base import EnvState, RLTask
 
 def _registry():
     from omniisaacgymenvs_torch.tasks.ant import AntLocomotionTask
+    from omniisaacgymenvs_torch.tasks.anymal import AnymalTask
+    from omniisaacgymenvs_torch.tasks.anymal_terrain import AnymalTerrainTask
     from omniisaacgymenvs_torch.tasks.ball_balance import BallBalanceTask
     from omniisaacgymenvs_torch.tasks.cartpole import CartpoleTask
     from omniisaacgymenvs_torch.tasks.humanoid import HumanoidLocomotionTask
     from omniisaacgymenvs_torch.tasks.shadow_hand import ShadowHandTask
 
-    return {"Ant": AntLocomotionTask, "BallBalance": BallBalanceTask,
+    return {"Ant": AntLocomotionTask, "Anymal": AnymalTask,
+            "AnymalTerrain": AnymalTerrainTask,
+            "BallBalance": BallBalanceTask,
             "Cartpole": CartpoleTask, "Humanoid": HumanoidLocomotionTask,
             "ShadowHand": ShadowHandTask}
 

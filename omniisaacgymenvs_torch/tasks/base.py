@@ -64,6 +64,8 @@ class RLTask:
       observe(phys, carry, action) -> (obs, states, carry)
       reward_done(obs, action, phys, carry, progress)
           -> (reward, done, carry, metrics)
+    and may override resample_reset(es, generator) and
+    pre_physics(es, generator).
     """
 
     name: str = "RLTask"
@@ -108,6 +110,19 @@ class RLTask:
         time-limit check must see the adjusted value."""
         return progress
 
+    def resample_reset(self, es: EnvState,
+                       generator: torch.Generator) -> EnvState:
+        """Fresh state of every env for the auto-reset merge. A task whose
+        reset depends on the state of the episode that ends (the terrain
+        curriculum: walked distance -> next level) overrides this."""
+        return self.reset(es.done.shape[0], generator)
+
+    def pre_physics(self, es: EnvState,
+                    generator: torch.Generator) -> EnvState:
+        """Perturbation of the merged state before the actions apply (random
+        pushes of the robot). Default: none."""
+        return es
+
     # -- statistics across envs ----------------------------------------
     # Per-env metrics cannot express a reduction over the batch (the
     # in-hand tasks' consecutive-success average over finished episodes).
@@ -122,7 +137,11 @@ class RLTask:
     # ------------------------------------------------------------------
     def reset(self, n: int, generator: torch.Generator) -> EnvState:
         """Fresh state of n envs."""
-        q, qd, carry = self.sample_reset(n, generator)
+        return self.fresh_state(*self.sample_reset(n, generator))
+
+    def fresh_state(self, q, qd, carry) -> EnvState:
+        """The EnvState of an episode that starts at (q, qd, carry)."""
+        n = q.shape[0]
         phys = self.engine.init_state(q, qd)
         zero_action = torch.zeros((n, self.num_actions), device=self.device)
         obs, states, carry = self.observe(phys, carry, zero_action)
@@ -146,11 +165,13 @@ class RLTask:
     def step(self, es: EnvState, action: torch.Tensor,
              generator: torch.Generator) -> EnvState:
         """One control step. Envs flagged done on the previous step are
-        re-sampled before the actions apply: a fresh reset of every env is
-        merged with `where` on the done flag."""
-        n = es.done.shape[0]
-        fresh = self.reset(n, generator)
+        re-sampled before the actions apply: a fresh state of every env
+        (`resample_reset`, which sees the ending state) is merged with
+        `where` on the done flag, then `pre_physics` runs on the merged
+        state."""
+        fresh = self.resample_reset(es, generator)
         es = tree_where(es.done, fresh, es)
+        es = self.pre_physics(es, generator)
 
         action = torch.clamp(action, -self.clip_actions, self.clip_actions)
         ctrl = self.control(action, es, generator)

@@ -1,7 +1,9 @@
 """Card tests of the PyTorch port: each kernel (K1 whole control step, K2
 report FK, K3 single substep) against its plain version on the card, on
-the Humanoid, BallBalance, ShadowHand and the synthetic pair scene, and the
-engine's refusal of scenes beyond the kernels' maxima.
+the Humanoid, BallBalance, ShadowHand, Anymal and the synthetic pair scene,
+K1 and K3 on AnymalTerrain's contact planes, the engine's launches with and
+without the plane refresh, and its refusal of scenes beyond the kernels'
+maxima.
 They skip without a CUDA device. This file imports no JAX, so it also runs
 where JAX is not installed:
 
@@ -49,7 +51,7 @@ def test_kernels_match_plain_on_card(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["BallBalance", "ShadowHand", "Cartpole",
-                                  "PairScene"])
+                                  "PairScene", "Anymal"])
 def test_kernels_match_plain_on_card_forest_scenes(name, cuda_device):
     """K1, K2 and K3 on scenes with FIXED roots, forests, prismatic joints,
     pair contacts, gravity compensation and tendons, on check states with
@@ -105,6 +107,105 @@ def test_engine_step_and_substep_launch_once_on_card(cuda_device):
                   fa, 1)
     for a, b in zip((q3, qd3, sf3), one[:3]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# a small terrain grid: 4 levels x 10 types, every terrain kind twice
+TERRAIN = {"numLevels": 4, "numTerrains": 10}
+
+
+def _terrain_case(device, n, seed, **terrain):
+    task = get_task("AnymalTerrain", {"env": {"terrain": {**TERRAIN, **terrain}}},
+                    device=device)
+    eng, m = task.engine, task.model
+    q, qd, eff = parity.terrain_check_inputs(task, n, seed, device)
+    ptg = parity.check_targets(m, q, seed)
+    z = torch.zeros((n, m.njd), device=device)
+    fa = torch.zeros((n, m.nb, 6), device=device)
+    planes = eng._contact_planes(eng.init_state(q, qd))
+    return task, (q, qd, eff, ptg, z, fa), planes
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card_with_terrain_planes(cuda_device):
+    """K1 (one substep, as the plane refresh launches it, and four substeps
+    on the same planes) and K3 on AnymalTerrain's planes against their
+    plain versions given the same planes tensor; treads, riser walls, step
+    edges and wedge points all in contact; K3 equals K1 run for one substep
+    bit for bit."""
+    n = 1061
+    task, ins, planes = _terrain_case(cuda_device, n, seed=3)
+    eng, m = task.engine, task.model
+    active = parity.terrain_contacts(task, eng, ins[0], ins[1])
+    assert min(active.values()) > 0, active
+    tol = parity.step_tol(m)
+    one = fs.step(eng, *ins, 1, planes=planes)
+    for n_steps, out in ((1, one), (4, fs.step(eng, *ins, 4, planes=planes))):
+        ref = fs.step_plain(eng, *ins, n_steps, planes=planes)
+        parity.assert_within(f"AnymalTerrain K1 x{n_steps}", parity.compare(
+            out, ref, parity.STEP_NAMES, tol), tol)
+    out = fs.substep(eng, *ins, planes=planes)
+    ref = fs.substep_plain(eng, *ins, planes=planes)
+    parity.assert_within("AnymalTerrain K3", parity.compare(
+        out, ref, parity.SUBSTEP_NAMES, parity.SUBSTEP_TOL), parity.SUBSTEP_TOL)
+    for a, b in zip(out, one[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.cuda.synchronize()
+    eng.kernels.reset_counts()
+    # a wrong shape, the planes missing, and planes on a flat engine raise
+    # before any launch
+    with pytest.raises(ValueError, match="shape"):
+        fs.step(eng, *ins, 1, planes=planes[:, :-1].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        fs.substep(eng, *ins, planes=planes[:, :, [3, 0, 1, 2]].transpose(1, 2)
+                   .contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="needs `planes`"):
+        fs.step(eng, *ins, 1)
+    with pytest.raises(ValueError):
+        fs.step(eng, *ins, 1, planes=planes.cpu())
+    flat = get_task("Anymal", device=cuda_device).engine
+    with pytest.raises(ValueError, match="without terrain"):
+        fs.step(flat, ins[0][:, :flat.model.nq].contiguous(), *ins[1:], 1,
+                planes=planes[:, :flat.model.ncp].contiguous())
+    assert eng.kernels.launches == {"step": 0, "fk": 0, "substep": 0}
+    assert flat.kernels.launches == {"step": 0, "fk": 0, "substep": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refresh", [True, False])
+def test_terrain_engine_launches_once_per_substep_with_refresh(refresh, cuda_device):
+    """`step_n` with the plane refresh is one K1 launch of one substep per
+    substep, each on the planes of the state before it; without, one launch
+    of all substeps on planes sampled once. Either way it equals the plain
+    path run the same way."""
+    n = 300
+    task, ins, planes = _terrain_case(cuda_device, n, seed=4,
+                                      planeRefresh=refresh)
+    eng = task.engine
+    q, qd, eff, ptg, z, fa = ins
+    st = eng.init_state(q, qd)
+    ctrl = eng.default_control(n)
+    ctrl.effort, ctrl.pos_target = eff, ptg
+    eng.kernels.reset_counts()
+    out = eng.step_n(st, ctrl, task.decimation)
+    assert eng.kernels.launches == {"step": 4 if refresh else 1, "fk": 0,
+                                    "substep": 0}
+    assert eng.k1_launches(task.decimation) == (4 if refresh else 1)
+    rq, rqd = q, qd
+    ref = None
+    pl = planes
+    for _ in range(4 if refresh else 1):
+        ref = fs.step_plain(eng, rq, rqd, eff, ptg, z, fa, 1 if refresh else 4,
+                            planes=pl)
+        rq, rqd = ref[0], ref[1]
+        if refresh:
+            # the kernel path samples from its own reported state; feed the
+            # plain path planes from the plain state (no tie in these states)
+            pl = eng._contact_planes(eng.init_state(rq, rqd))
+    tol = parity.step_tol(task.model)
+    got = (out.q, out.qd, out.sensor_forces, out.body_pos, out.body_quat,
+           out.body_avel, out.body_lvel)
+    parity.assert_within("AnymalTerrain step_n", parity.compare(
+        got, ref, parity.STEP_NAMES, tol), tol)
 
 
 @pytest.mark.cuda

@@ -287,19 +287,36 @@ def test_scope_accepts_slice_models():
 @pytest.mark.parametrize("kind", ["tendon", "gravity_comp", "pairs"])
 def test_engine_refuses_unported_features(kind):
     """The engine steps tendons, gravity compensation and pair contacts on
-    every device now (a second seed of the scene against the JAX engine);
-    what it still refuses is terrain and randomization overlays."""
+    every device (a second seed of the scene against the JAX engine), and
+    takes terrain functions; what it still refuses is a randomization
+    overlay."""
     pm = one_feature_scene(kind)
     _compare_one_step(pm, seed=12)
     eng = PhysicsEngine(pm, SimParams())
-    with pytest.raises(NotImplementedError, match="terrain"):
-        PhysicsEngine(pm, SimParams(), height_fn=lambda x, y: (x, y))
-    with pytest.raises(NotImplementedError, match="terrain"):
-        PhysicsEngine(pm, SimParams(), contact_plane_fn=lambda p, r: (p, r))
+    assert not eng.has_terrain
+    flat_n = torch.tensor([0.0, 0.0, 1.0])
+    by_height = PhysicsEngine(
+        pm, SimParams(),
+        height_fn=lambda x, y: (torch.zeros_like(x), flat_n.expand(x.shape + (3,))))
+    by_plane = PhysicsEngine(
+        pm, SimParams(), plane_refresh=True,
+        contact_plane_fn=lambda p, r: (flat_n.expand(p.shape),
+                                       torch.zeros_like(p[..., 0])))
+    assert by_height.has_terrain and by_plane.has_terrain
+    # the refresh needs a contact_plane_fn: one launch per substep with it
+    assert (eng.k1_launches(2), by_height.k1_launches(2),
+            by_plane.k1_launches(2)) == (1, 1, 2)
     st = eng.init_state(pm.default_q[None], torch.zeros((1, pm.nv)))
     with pytest.raises(NotImplementedError, match="overlays"):
         eng.step_n(st, eng.default_control(1), 1,
                    overlay={"mass_scale": torch.ones(pm.nb)})
+    # a terrain that is the plane z = 0 steps as flat ground does (another
+    # friction formula: the general normal's, three tangential components)
+    a = eng.step_n(st, eng.default_control(1), 1)
+    for other in (by_height, by_plane):
+        b = other.step_n(st, other.default_control(1), 1)
+        torch.testing.assert_close(b.q, a.q, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(b.qd, a.qd, rtol=1e-4, atol=1e-5)
 
 
 def _oversized(what):
@@ -349,6 +366,6 @@ def test_task_registry_refuses_randomization_and_unported_tasks():
     with pytest.raises(NotImplementedError, match="randomization"):
         get_task("ShadowHand", {"domain_randomization": {"randomize": True}},
                  device="cpu")
-    for name in ("ShadowHandOpenAI_FF", "AllegroHand", "AnymalTerrain"):
+    for name in ("ShadowHandOpenAI_FF", "AllegroHand", "FrankaCabinet"):
         with pytest.raises(KeyError, match="ported so far"):
             get_task(name, device="cpu")

@@ -2,6 +2,7 @@
 JAX-model converter, and the copied task yamls."""
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -10,14 +11,15 @@ import torch
 import yaml
 
 from omniisaacgymenvs_torch import convert
-from omniisaacgymenvs_torch.models import (build_ant, build_balance_bot,
-                                           build_cartpole, build_humanoid,
-                                           build_shadow_hand)
+from omniisaacgymenvs_torch.models import (build_ant, build_anymal,
+                                           build_balance_bot, build_cartpole,
+                                           build_humanoid, build_shadow_hand)
 from omniisaacgymenvs_torch.physics import contacts as tcontacts
 from omniisaacgymenvs_torch.physics.model import Model
 from omniisaacgymenvs_torch.utils.config import CFG_DIR, load_config
 from omniisaacgymenvs_tpu.models import build_ant as jbuild_ant
 from omniisaacgymenvs_tpu.models import build_humanoid as jbuild_humanoid
+from omniisaacgymenvs_tpu.models.anymal import build_anymal as jbuild_anymal
 from omniisaacgymenvs_tpu.models.balance_bot import (
     build_balance_bot as jbuild_balance_bot)
 from omniisaacgymenvs_tpu.models.cartpole import build_cartpole as jbuild_cartpole
@@ -26,11 +28,18 @@ from omniisaacgymenvs_tpu.models.shadow_hand import (
 from omniisaacgymenvs_tpu.physics import contacts as jcontacts
 from torch_parity import jax_fields, np_
 
+_TERRAIN_KW = dict(drive=dict(stiffness=80.0, drive_damping=2.0, max_effort=80.0),
+                   dual_foot_contacts=True)
 BUILDERS = {"Humanoid": (build_humanoid, jbuild_humanoid),
             "Ant": (build_ant, jbuild_ant),
             "Cartpole": (build_cartpole, jbuild_cartpole),
             "BallBalance": (build_balance_bot, jbuild_balance_bot),
-            "ShadowHand": (build_shadow_hand, jbuild_shadow_hand)}
+            "ShadowHand": (build_shadow_hand, jbuild_shadow_hand),
+            "Anymal": (build_anymal, jbuild_anymal),
+            # AnymalTerrain's model: its drive gains and a second contact
+            # point per foot
+            "AnymalTerrain": (functools.partial(build_anymal, **_TERRAIN_KW),
+                              functools.partial(jbuild_anymal, **_TERRAIN_KW))}
 
 
 def _assert_model_equal(pm: Model, jf: dict):
