@@ -14,7 +14,14 @@ Phases (any failure exits non-zero):
      BallBalance, Cartpole, Anymal and the synthetic pair scene of
      ops/parity.py (sphere, capsule and box surfaces, a prismatic joint, a
      tendon), on check states that put contact points in the ground and
-     pairs in contact;
+     pairs in contact; then K1 and K3 under a domain-randomization overlay
+     (drawn with numpy over the ShadowHandOpenAI_FF yaml's ranges, on every
+     body, joint and tendon): ShadowHandOpenAI_FF at 8192 + 37 envs and 12
+     substeps (all ten keys), BallBalance (eight), the pair scene (every
+     surface type under geom_scale) and AnymalTerrain (planes and overlay
+     together), so all four variants of the step kernel are launched and
+     held; and K1 under an all-neutral overlay against K1 without one on
+     the Humanoid;
   3. the Humanoid main path: the random-policy entry point's VecEnv at
      32768 envs, reset and a 64-step rollout, with the launch counts read
      around it (K1 exactly once per control step, K2 at least as often);
@@ -25,10 +32,18 @@ Phases (any failure exits non-zero):
   5. the AnymalTerrain main path, the same at 2048 envs: K1 once per
      substep (four launches per control step), each on contact planes
      sampled from the launch before; the terrain level finite;
-  6. K1 / K2 / K3 against their plain versions again at the main paths'
+  6. the ShadowHandOpenAI_FF main path, the hand at 8192 envs under its
+     yaml's whole randomization block: K1 once per control step, 12
+     substeps, every launch with an overlay of all ten keys that differs
+     from env to env; the once-only keys of an env unchanged by its resets;
+     gravity_delta zero at the reset and drawn anew exactly where
+     progress % 720 == 0;
+  7. K1 / K2 / K3 against their plain versions again at the main paths'
      env counts, and their times there (CUDA events) beside the plain
      versions' and the roofline bound; AnymalTerrain's K1 also at 32768
-     envs, a width that fills the card.
+     envs, a width that fills the card, and under planes and an overlay
+     together; the hand's K1 with and without the overlay at 12 and at 8
+     substeps.
 Tolerances and check states come from omniisaacgymenvs_torch/ops/parity.py.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -53,7 +68,11 @@ STEPS = 64
 RATE_RUNS = 3  # untraced rollouts timed for the rate's spread
 # the main paths: task, env count (the task yaml's numEnvs for ShadowHand
 # and AnymalTerrain)
-MAIN = {"Humanoid": 32768, "ShadowHand": 8192, "AnymalTerrain": 2048}
+MAIN = {"Humanoid": 32768, "ShadowHand": 8192, "AnymalTerrain": 2048,
+        "ShadowHandOpenAI_FF": 8192}
+RANDOMIZED = "ShadowHandOpenAI_FF"  # the main path under domain randomization
+# scenes whose K1 and K3 are also held under an overlay
+OVERLAY_CHECKS = (RANDOMIZED, "BallBalance", "PairScene", "AnymalTerrain")
 # smaller scenes that hold a FIXED root, a prismatic joint, a forest and
 # every surface type on the card, and the flat-ground Anymal
 SIDE = {"BallBalance": 4096, "Cartpole": 512, "PairScene": 4096,
@@ -112,6 +131,7 @@ def main() -> int:
     from omniisaacgymenvs_torch.scripts import random_policy
     from omniisaacgymenvs_torch.tasks import get_task
     from omniisaacgymenvs_torch.utils.config import load_config
+    from omniisaacgymenvs_torch.utils.domain_randomization import combine_overlays
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -145,68 +165,116 @@ def main() -> int:
             n_sub[name] = (task.decimation * task.engine.params.substeps
                            // task.engine.k1_launches(task.decimation))
 
-    def check_states(name: str, n: int, seed: int):
-        """(q, qd, eff, {planes} on terrain) of `name`'s check states. Kernel
+    def check_states(name: str, n: int, seed: int, overlay=None):
+        """(q, qd, eff, {planes} on terrain) of `name`'s check states, moved
+        off the ties of two box faces under `overlay`'s geom_scale. Kernel
         and plain version get the same planes tensor, computed once here:
         which feature a point resolves to is a discontinuity of the plane
         function, not of the kernels."""
         eng = engines[name]
         if not eng.has_terrain:
-            return (*parity.check_inputs(eng.model, n, seed=seed, device=dev), {})
+            q, qd, eff = parity.check_inputs(eng.model, n, seed=seed, device=dev)
+            return parity.clear_box_ties(eng, q, qd, overlay), qd, eff, {}
         q, qd, eff = parity.terrain_check_inputs(tasks[name], n, seed, dev)
         return q, qd, eff, {"planes": eng._contact_planes(eng.init_state(q, qd))}
 
-    def check(name: str, n: int, seed: int) -> dict:
+    def check(name: str, n: int, seed: int, overlay: bool = False) -> dict:
         """K1, K2 and K3 of `name`'s engine against their plain versions on
-        n check states; the largest abs error per kernel."""
+        n check states; the largest abs error per kernel. With `overlay`,
+        K1 and K3 under a randomization overlay of every key the model has
+        a size for."""
         eng = engines[name]
         m = eng.model
-        q, qd, eff, pl = check_states(name, n, seed)
+        ov = parity.overlay_inputs(m, n, seed, dev) if overlay else None
+        q, qd, eff, pl = check_states(name, n, seed, ov)
+        if overlay:
+            pl = {**pl, "overlay": ov}
         ptg = parity.check_targets(m, q, seed)
         z = torch.zeros((n, m.njd), device=dev)
         gen = torch.Generator(device=dev).manual_seed(seed)
         fa = 0.05 * torch.randn((n, m.nb, 6), device=dev, generator=gen)
-        active = (parity.terrain_contacts(tasks[name], eng, q, qd) if pl
+        terrain = "planes" in pl
+        active = (parity.terrain_contacts(tasks[name], eng, q, qd) if terrain
                   else parity.active_contacts(eng, q, qd))
-        log(f"{name} check: {n} envs, {n_sub[name]} substeps, active contacts "
-            f"{active}")
+        log(f"{name} check{' under an overlay of ' + str(sorted(pl['overlay'])) if overlay else ''}: "
+            f"{n} envs, {n_sub[name]} substeps, active contacts {active}")
         if name == "Humanoid":
             assert active["ground"] > 0, "no contact point in the ground"
-        if pl:
+        if terrain:
             assert min(active.values()) > 0, f"a terrain feature is not hit: {active}"
         if len(m.pair_surf):
             assert active["pairs"] > 0, "no pair in contact"
         if name == "PairScene":
             assert min(active[k] for k in ("sphere", "capsule", "box")) > 0, active
 
+        tag = " overlay" if overlay else ""
+
         def k1(n_steps):
-            return ("step", f"K1 x{n_steps}", parity.STEP_NAMES, parity.step_tol(m),
+            return ("step", f"K1{tag} x{n_steps}", parity.STEP_NAMES, parity.step_tol(m),
                     lambda: fs.step(eng, q, qd, eff, ptg, z, fa, n_steps, **pl),
-                    lambda: fs.step_plain(eng, q, qd, eff, ptg, z, fa, n_steps, **pl))
+                    lambda q_=q, qd_=qd: fs.step_plain(eng, q_, qd_, eff, ptg, z, fa,
+                                                       n_steps, **pl))
 
         errs = {}
         # on terrain also four substeps on the same planes (the launch of an
         # engine without the plane refresh)
+        before = dict(eng.kernels.overlay_launches)
         for key, label, names, tol, run_k, run_p in (
-            *([k1(4)] if pl and n_sub[name] != 4 else []),
+            *([k1(4)] if terrain and n_sub[name] != 4 else []),
             k1(n_sub[name]),
-            ("fk", "K2", parity.FK_NAMES, parity.FK_TOL,
-             lambda: fs.fk(eng, q, qd), lambda: fs.fk_plain(m, q, qd)),
-            ("substep", "K3", parity.SUBSTEP_NAMES, parity.SUBSTEP_TOL,
+            # no overlay reaches the report FK
+            *([] if overlay else [
+                ("fk", "K2", parity.FK_NAMES, parity.FK_TOL,
+                 lambda: fs.fk(eng, q, qd), lambda: fs.fk_plain(m, q, qd))]),
+            ("substep", f"K3{tag}", parity.SUBSTEP_NAMES, parity.SUBSTEP_TOL,
              lambda: fs.substep(eng, q, qd, eff, ptg, z, fa, **pl),
-             lambda: fs.substep_plain(eng, q, qd, eff, ptg, z, fa, **pl)),
+             lambda q_=q, qd_=qd: fs.substep_plain(eng, q_, qd_, eff, ptg, z, fa,
+                                                   **pl)),
         ):
             out, ref = run_k(), run_p()
             torch.cuda.synchronize()
+            keep = None
+            if overlay:
+                # judged where the step is well conditioned (ops/parity.py)
+                keep = parity.well_conditioned(run_p, q, qd, ref, names, tol)
+                log(f"  {name} {label}: {int((~keep).sum())} of {n} envs left "
+                    f"out as ill conditioned")
             err = parity.assert_within(
-                f"{name} {label}", parity.compare(out, ref, names, tol), tol, log)
+                f"{name} {label}", parity.compare(out, ref, names, tol, keep),
+                tol, log)
             errs[key] = max(err, errs.get(key, 0.0))
+        # the counters tell the launches that read an overlay apart
+        grew = {k: v - before[k] for k, v in eng.kernels.overlay_launches.items()}
+        want = {"step": 2 if terrain and n_sub[name] != 4 else 1, "substep": 1}
+        assert grew == (want if overlay else {"step": 0, "substep": 0}), grew
         return errs
 
     # ---- 2. kernels against their plain versions ----
-    errs = {}
+    errs, overlay_errs = {}, {}
     for name, n in {**MAIN, **SIDE}.items():
         errs[name] = check(name, n + N_PAD, seed=0)
+    for name in OVERLAY_CHECKS:
+        n = {**MAIN, **SIDE}[name] + N_PAD
+        overlay_errs[name] = check(name, n, seed=0, overlay=True)
+    # an all-neutral overlay against no overlay: the overlay variant of the
+    # kernel computes x * 1 and x + 0 where the other computes x
+    eng = engines["Humanoid"]
+    m, n = eng.model, MAIN["Humanoid"] + N_PAD
+    q, qd, eff, _ = check_states("Humanoid", n, seed=0)
+    z = torch.zeros((n, m.njd), device=dev)
+    fa = torch.zeros((n, m.nb, 6), device=dev)
+    neutral = {k: torch.ones_like(v) if k.endswith("_scale")
+               else torch.zeros_like(v)
+               for k, v in parity.overlay_inputs(m, n, 0, dev).items()}
+    a = fs.step(eng, q, qd, eff, z, z, fa, n_sub["Humanoid"], overlay=neutral)
+    b = fs.step(eng, q, qd, eff, z, z, fa, n_sub["Humanoid"])
+    torch.cuda.synchronize()
+    diff = parity.assert_within(
+        "Humanoid K1 neutral overlay vs none",
+        parity.compare(a, b, parity.STEP_NAMES, parity.STEP_TOL),
+        parity.STEP_TOL, log)
+    log(f"Humanoid K1, all-neutral overlay against no overlay, {n} envs: "
+        f"largest difference {diff:.3e}")
 
     # ---- 3./4./5. the main paths ----
     launches = {}
@@ -219,6 +287,10 @@ def main() -> int:
         kern.reset_counts()
         stats = random_policy.drive(cfg, env)
         launches[name] = dict(kern.launches)
+        # under randomization every K1 launch reads an overlay, else none
+        assert kern.overlay_launches == {
+            "step": launches[name]["step"] if mtask._dr_on else 0,
+            "substep": 0}, kern.overlay_launches
         log(f"main path: {card} | {name} {n} envs x {STEPS} steps: "
             f"{stats['env_steps_per_s']:.1f} env-steps/s, "
             f"{stats['seconds'] * 1e3 / STEPS:.3f} ms per control step, "
@@ -246,6 +318,8 @@ def main() -> int:
             assert torch.isfinite(level).all(), "non-finite terrain level"
             log(f"  terrain level: mean {float(level.mean()):.4f}, max "
                 f"{float(level.max()):.0f}")
+        if mtask._dr_on:
+            randomization_checks(mtask, env, es)
         del es, obs, rew, done, stats
         rates = []
         for _ in range(RATE_RUNS):
@@ -260,8 +334,9 @@ def main() -> int:
         del env
 
         # a short rollout on the card vs the plain path on the CPU, same
-        # start and actions; envs that reset in either are left out (their
-        # noise is drawn from different generators)
+        # start and actions; envs that reset, or hit their goal and have it
+        # drawn anew, in either are left out (the two draw from different
+        # generators)
         task_cfg = cfg["task"] if e2e_cfg is None else e2e_cfg(cfg["task"])
         genv = VecEnv(get_task(name, task_cfg, device=dev), e2e_envs, seed=5)
         cenv = VecEnv(get_task(name, task_cfg, device="cpu"), e2e_envs, seed=5)
@@ -274,6 +349,8 @@ def main() -> int:
             ges = genv.step(ges, a.to(dev))
             ces = cenv.step(ces, a)
             ever_done |= ges.done.cpu() | ces.done
+            if "reset_goal" in ces.carry:
+                ever_done |= ges.carry["reset_goal"].cpu() | ces.carry["reset_goal"]
         keep = ~ever_done
         err = (ges.obs.cpu()[keep] - ces.obs[keep]).abs()
         rtol, atol = E2E_TOL
@@ -282,6 +359,64 @@ def main() -> int:
         log(f"end to end vs CPU plain path: {name} {int(keep.sum())} envs x 3 "
             f"steps, obs max abs err {float(err.max()):.3e} (rtol {rtol}, "
             f"atol {atol})")
+
+    def randomization_checks(task, env, es):
+        """On the randomized main path: the final state's overlay, then a
+        second rollout watched step by step."""
+        dr = es.carry["_dr"]
+        ov = combine_overlays(dr.get("startup"), dr.get("overlay"))
+        assert set(ov) == set(fs.OVERLAY_KEYS), sorted(ov)
+        for key, val in ov.items():
+            assert torch.isfinite(val).all(), key
+            assert bool((val != val[0]).any()), f"{key} is the same in every env"
+        held = (torch.linalg.norm(
+            es.phys.q[:, task._obj_q:task._obj_q + 3] - task.goal_pos, dim=-1)
+            < task.fall_dist).float().mean()
+        log(f"  overlay of {len(ov)} keys, each differing between envs; the "
+            f"cube within {task.fall_dist} m of the goal in {float(held):.4f} of "
+            f"the envs at the end")
+        assert float(held) > 0.9
+        assert torch.isfinite(es.states).all() and es.states.shape[1] == 187
+        n = env.num_envs
+        es = env.reset(seed=1)
+        startup = {k: v.clone() for k, v in es.carry["_dr"]["startup"].items()}
+        g = es.carry["_dr"]["overlay"]["gravity_delta"]
+        assert not bool(g.any()), "gravity_delta must be zero at the reset"
+        policy = random_policy.uniform_policy(env.num_actions)
+        ever_done = torch.zeros(n, dtype=torch.bool, device=dev)
+        redrawn = kept = 0
+        for _ in range(32):
+            # an env redraws its gravity where its progress is a multiple
+            # of 720 as the step begins: at its first step, and after a
+            # reset or a goal hit has zeroed its progress
+            due = es.done | (es.progress % 720 == 0)
+            ever_done |= es.done
+            es = env.step(es, policy(es.obs, env.generator))
+            g_new = es.carry["_dr"]["overlay"]["gravity_delta"]
+            assert torch.equal(g_new[~due], g[~due]), "gravity moved off its interval"
+            assert bool((g_new[due][:, 2] != g[due][:, 2]).all()), "gravity kept on its interval"
+            redrawn, kept, g = redrawn + int(due.sum()), kept + int((~due).sum()), g_new
+        for k, v in es.carry["_dr"]["startup"].items():
+            assert torch.equal(v, startup[k]), f"startup {k} changed"
+        assert int(ever_done.sum()) > 0, "no env was reset in the watched rollout"
+        log(f"  32 watched steps: {int(ever_done.sum())} envs were reset and kept "
+            f"their once-only geom_scale and mass_scale; gravity_delta redrawn in "
+            f"{redrawn} env-steps (progress % 720 == 0), unchanged in {kept}")
+
+    def quiet_randomization(task_cfg: dict) -> dict:
+        """The card and the CPU draw from different generators, so the
+        comparison runs without what a step draws: the per-step observation
+        and action noise, the interval gravity and the random forces on the
+        cube. The episode's overlays and correlated noise, drawn at the
+        reset on the card and copied to the CPU, stay."""
+        params = dict(task_cfg["domain_randomization"]["randomization_params"])
+        for grp in ("observations", "actions"):
+            params[grp] = {k: v for k, v in params[grp].items()
+                           if k != "on_interval"}
+        del params["simulation"]
+        return {**task_cfg, "env": {**task_cfg["env"], "forceScale": 0.0},
+                "domain_randomization": {**task_cfg["domain_randomization"],
+                                         "randomization_params": params}}
 
     def without_noise(task_cfg: dict) -> dict:
         """The card and the CPU draw the observation noise from different
@@ -293,37 +428,59 @@ def main() -> int:
     main_path("Humanoid", MAIN["Humanoid"], 256)
     main_path("ShadowHand", MAIN["ShadowHand"], 128)
     main_path("AnymalTerrain", MAIN["AnymalTerrain"], 128, without_noise)
+    assert n_sub[RANDOMIZED] == 12, n_sub
+    main_path(RANDOMIZED, MAIN[RANDOMIZED], 128, quiet_randomization)
 
-    # ---- 6. kernels against plain again, and times, at the main paths'
+    # ---- 7. kernels against plain again, and times, at the main paths'
     # shapes ----
     rows = []
+
+    def bound(n, n_bytes, n_ops):
+        """(ms, "bytes" | "operations"): the least time the card could take"""
+        t_bytes = n * n_bytes / PEAK_BYTES_S * 1e3
+        t_ops = n * n_ops / PEAK_FP32_S * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
     for name, n in MAIN.items():
+        # the randomized main path launches K1 (and K3 would be) under an
+        # overlay; K2 takes none
+        randomized = name == RANDOMIZED
         again = check(name, n, seed=1)
+        first = errs[name]
+        if randomized:
+            again = {**check(name, n, seed=1, overlay=True), "fk": again["fk"]}
+            first = {**overlay_errs[name], "fk": first["fk"]}
         eng = engines[name]
         m = eng.model
-        q, qd, eff, pl = check_states(name, n, seed=1)
+        ov = parity.overlay_inputs(m, n, 1, dev) if randomized else None
+        q, qd, eff, pl = check_states(name, n, seed=1, overlay=ov)
+        terrain = bool(pl)
+        if randomized:
+            pl = {"overlay": ov}
         ptg = parity.check_targets(m, q, 1)
         z = torch.zeros((n, m.njd), device=dev)
         fa = torch.zeros((n, m.nb, 6), device=dev)
-        ops = fs.op_count(m, n_sub[name], planes=bool(pl))
-        nbytes = fs.io_bytes(m, planes=bool(pl))
+        ops = fs.op_count(m, n_sub[name], planes=terrain, overlay=randomized)
+        nbytes = fs.io_bytes(m, planes=terrain, overlay=randomized)
         suffix = "" if name == "Humanoid" else "_" + name.lower()
+        k_tag = "_overlay" if randomized else ""
         for key, kname, line, run_k, run_p in (
-            ("step", "fused_step_k1", 1016,
+            ("step", "fused_step_k1" + k_tag, 1016,
              lambda: fs.step(eng, q, qd, eff, ptg, z, fa, n_sub[name], **pl),
              lambda: fs.step_plain(eng, q, qd, eff, ptg, z, fa, n_sub[name], **pl)),
             ("fk", "report_fk_k2", 943,
              lambda: fs.fk(eng, q, qd), lambda: fs.fk_plain(m, q, qd)),
-            ("substep", "substep_k3", 898,
+            ("substep", "substep_k3" + k_tag, 898,
              lambda: fs.substep(eng, q, qd, eff, ptg, z, fa, **pl),
              lambda: fs.substep_plain(eng, q, qd, eff, ptg, z, fa, **pl)),
         ):
             ms = time_ms(run_k, 20)
             plain_ms = time_ms(run_p, 2)
-            t_bytes = n * nbytes[key] / PEAK_BYTES_S * 1e3
-            t_ops = n * ops[key] / PEAK_FP32_S * 1e3
-            bound_ms = max(t_bytes, t_ops)
-            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            if key == "fk":
+                bound_ms, bound_by = bound(n, fs.io_bytes(m)[key],
+                                           fs.op_count(m, 1)[key])
+            else:
+                bound_ms, bound_by = bound(n, nbytes[key], ops[key])
             log(f"{kname} {name}: {card} | {n} envs: {ms:.4f} ms, plain "
                 f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
                 f"({ops[key]} FP32 ops and {nbytes[key]} bytes per env), "
@@ -332,16 +489,50 @@ def main() -> int:
             rows.append(dict(
                 name=kname + suffix, model=name, route="cuda", source=SOURCE,
                 replaces=f"{TPU_FILE}:{line}", launches=launches[name][key],
-                max_abs_err=max(errs[name][key], again[key]), ms=ms,
+                max_abs_err=max(first[key], again[key]), ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None,
             ))
-        if n_sub[name] != 4:
+        if n_sub[name] != 4 and not randomized:
             # beside the main path's depth, K1 at four substeps
             ms4 = time_ms(lambda: fs.step(eng, q, qd, eff, ptg, z, fa, 4, **pl), 20)
             log(f"fused_step_k1 {name}: {card} | {n} envs, 4 substeps "
                 f"instead of the main path's {n_sub[name]}: {ms4:.4f} ms")
-        if pl:
+        if randomized:
+            # the overlay's cost: K1 with and without it, at the main
+            # path's 12 substeps and at the unrandomized hand's 8
+            for depth in (n_sub[name], 8):
+                with_ov = time_ms(lambda: fs.step(eng, q, qd, eff, ptg, z, fa,
+                                                  depth, **pl), 20)
+                without = time_ms(lambda: fs.step(eng, q, qd, eff, ptg, z, fa,
+                                                  depth), 20)
+                b_ms, b_by = bound(n, nbytes["step"],
+                                   fs.op_count(m, depth, overlay=True)["step"])
+                log(f"fused_step_k1 {name}: {card} | {n} envs, {depth} substeps: "
+                    f"{with_ov:.4f} ms with the overlay of "
+                    f"{sum(fs.overlay_sizes(m).values())} floats per env (bound "
+                    f"{b_ms:.4f} ms by {b_by}), {without:.4f} ms without")
+        if terrain:
+            # the fourth variant of the step kernel, planes and an overlay
+            # together: held against its plain version above, on no main
+            # path (AnymalTerrain's yaml randomizes nothing)
+            ov = parity.overlay_inputs(m, n, 1, dev)
+            ms_po = time_ms(lambda: fs.step(eng, q, qd, eff, ptg, z, fa,
+                                            n_sub[name], overlay=ov, **pl), 20)
+            plain_po = time_ms(lambda: fs.step_plain(
+                eng, q, qd, eff, ptg, z, fa, n_sub[name], overlay=ov, **pl), 2)
+            b_ms, b_by = bound(
+                n, fs.io_bytes(m, planes=True, overlay=True)["step"],
+                fs.op_count(m, n_sub[name], planes=True, overlay=True)["step"])
+            log(f"fused_step_k1_overlay {name}: {card} | {n} envs, planes and "
+                f"overlay: {ms_po:.4f} ms, plain {plain_po:.3f} ms, bound "
+                f"{b_ms:.4f} ms by {b_by}; on no main path")
+            rows.append(dict(
+                name="fused_step_k1_overlay" + suffix, model=name, route="cuda",
+                source=SOURCE, replaces=f"{TPU_FILE}:1016", launches=0,
+                on_main_path=False, max_abs_err=overlay_errs[name]["step"],
+                ms=ms_po, plain_ms=plain_po, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None))
             # the main path's 2048 envs are 16 blocks on 132 SMs: the same
             # launch at a width that fills the card, and the sampling of
             # its planes (the task's plane function as PyTorch ops)
@@ -350,12 +541,10 @@ def main() -> int:
             wfa = torch.zeros((WIDE, m.nb, 6), device=dev)
             ms_w = time_ms(lambda: fs.step(eng, wq, wqd, weff, wz, wz, wfa,
                                            n_sub[name], **wpl), 20)
-            t_b = WIDE * nbytes["step"] / PEAK_BYTES_S * 1e3
-            t_o = WIDE * ops["step"] / PEAK_FP32_S * 1e3
+            b_ms, b_by = bound(WIDE, nbytes["step"], ops["step"])
             log(f"fused_step_k1 {name}: {card} | {WIDE} envs: {ms_w:.4f} ms, "
-                f"bound {max(t_b, t_o):.4f} ms by "
-                f"{'bytes' if t_b >= t_o else 'operations'}, "
-                f"{max(t_b, t_o) / ms_w * 100:.2f}% of roofline")
+                f"bound {b_ms:.4f} ms by {b_by}, "
+                f"{b_ms / ms_w * 100:.2f}% of roofline")
             for width, st in ((n, eng.init_state(q, qd)),
                               (WIDE, eng.init_state(wq, wqd))):
                 ms_p = time_ms(lambda: eng._contact_planes(st), 20)
@@ -366,7 +555,8 @@ def main() -> int:
     # K1 and K2 carry each main path; K3 is a launch mode no product path
     # takes, held against its plain version above
     for r in rows:
-        assert r["launches"] > 0 or r["name"].startswith("substep_k3"), r
+        assert (r["launches"] > 0 or r["name"].startswith("substep_k3")
+                or r.get("on_main_path") is False), r
 
     log(card)
     print(json.dumps({"kernels": rows}))

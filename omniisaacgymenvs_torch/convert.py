@@ -58,8 +58,10 @@ def _tensor_tree(v, device):
 def env_state_from_arrays(fields: dict, device="cpu") -> EnvState:
     """fields: the EnvState's fields as numpy arrays, with `phys` a dict of
     State fields and `carry` / `metrics` dicts of arrays, which may nest (an
-    empty carry of another type becomes an empty dict). Random keys do not
-    cross, the port draws from an explicit `torch.Generator`: a carry's
+    empty carry of another type becomes an empty dict; a carry's `_dr`, the
+    domain randomization's correlated noise and overlays, crosses as nested
+    tensors). Random keys still do not cross, the port draws from an
+    explicit `torch.Generator`: a carry's
     per-env `noise_key` (AnymalTerrain) becomes the port's `obs_noise`, the
     step's observation noise, at zero."""
     obs = _tensor(fields["obs"], device)

@@ -22,8 +22,15 @@
  *   the flat ground plane z = 0 or one terrain contact plane per contact
  *   point and env (the `planes` input, has_height in the JAX kernel), both
  *   with per-point gains, point-vs-surface pair contacts (sphere, capsule,
- *   box), gravity compensation, fixed tendons, force sensors. The engine
- *   refuses randomization overlays.
+ *   box), gravity compensation, fixed tendons, force sensors, and the ten
+ *   per-env domain-randomization overlay keys (the `dr` input, dr_keys in
+ *   the JAX kernel): mass, drive stiffness and damping, friction, collision
+ *   geometry and tendon scales, gravity and joint-limit deltas. The JAX
+ *   kernel is specialised per key set; this one has a single overlay
+ *   variant that reads all ten keys from one packed (n_env, n_dr) input in
+ *   a fixed order, with absent keys filled with their neutral value by the
+ *   wrapper (x * 1 and x + 0 are exact): its constants come from a table,
+ *   so no key set would fold anything away.
  *
  * What bounds it on this card
  *   Per env, K1 moves about 2.4 KB (250 input and 353 output floats for the
@@ -37,7 +44,11 @@
  *   one substep on terrain planes (231 input and 230 output floats, some
  *   2 x 10^4 operations per env): there the bytes bound it by the roofline,
  *   but at its 2048 envs (16 blocks on 132 SMs) the launch takes one
- *   thread's serial latency, 0.146 ms on the H100. The real limit of
+ *   thread's serial latency, 0.146 ms on the H100. Under an overlay the
+ *   hand reads 185 floats more per env (474 in all) and does some 2,400
+ *   operations more per substep (52,596): still bound by operations, and
+ *   15% slower than without one on the H100 (5.15 against 4.48 ms at 8192
+ *   envs and 12 substeps, 96 registers and a 14,368 B stack). The real limit of
  *   this first design is thread-local memory: the per-body articulated
  *   inertias (36 floats per body) and the other per-body arrays of one env
  *   (about 13.8 KB for the Humanoid) do not fit in registers and live in
@@ -98,7 +109,8 @@
 enum {
   B_AXIS = 0, B_ET = 3, B_JPOS = 12, B_I6 = 15, B_ARM = 51, B_DAMP = 52,
   B_FRIC = 53, B_KP = 54, B_KD = 55, B_EMAX = 56, B_VMAX = 57, B_LO = 58,
-  B_HI = 59, B_DIMPL = 60
+  B_HI = 59, B_DIMPL = 60,
+  B_DIMPL0 = 61  // the implicit diagonal without the tendons' share
 };
 enum { C_POS = 0, C_RAD = 3, C_MU = 4, C_KN = 5, C_KT = 6, C_FNM = 7 };
 enum { G_MASS = 0, G_COM = 1 };              // gravity_comp * mass, CoM
@@ -119,6 +131,31 @@ struct Tables {
   // section offsets into the float and the int table
   int f_cp, f_gc, f_pair, f_surf, f_tend;
   int i_cp, i_sens, i_pair, i_surf, i_tend;
+};
+
+// offsets of the keys in one env's packed overlay (must match
+// ops/fused_step.py OVERLAY_KEYS): damping_scale (njd) at 0, then
+// friction_scale (nb), geom_scale (nb), gravity_delta (3),
+// limit_lower_delta (njd), limit_upper_delta (njd), mass_scale (nb),
+// stiffness_scale (njd), tendon_damping_scale (nt),
+// tendon_stiffness_scale (nt); n_dr floats in all. Computed in the kernel:
+// as ten more ints of the Tables struct, which the kernels take by value,
+// they cost the variants without an overlay 17% of their K1 time on the
+// H100 (2.5% when nothing read them), with an unchanged ptxas report.
+struct DrOffsets {
+  int o_fric, o_geom, o_grav, o_lo, o_hi, o_mass, o_stiff, o_tdamp, o_tstiff, n_dr;
+  __device__ __forceinline__ explicit DrOffsets(const Tables& t) {
+    o_fric = t.njd;
+    o_geom = o_fric + t.nb;
+    o_grav = o_geom + t.nb;
+    o_lo = o_grav + 3;
+    o_hi = o_lo + t.njd;
+    o_mass = o_hi + t.njd;
+    o_stiff = o_mass + t.nb;
+    o_tdamp = o_stiff + t.njd;
+    o_tstiff = o_tdamp + t.nt;
+    n_dr = o_tstiff + t.nt;
+  }
 };
 
 __device__ __forceinline__ float tf(const Tables& t, int i) { return __ldg(t.f + i); }
@@ -397,15 +434,29 @@ __device__ __forceinline__ float sign0(float x) {
 // substep's contact wrenches in w.fx / w.tx. PLANES: the ground contacts
 // read this env's terrain planes `pl` (a compile-time variant, like the JAX
 // kernel's has_height: a run-time test of the pointer in the contact loop
-// cost the flat-ground Humanoid 17% of its K1 time on the H100)
-template <bool PLANES>
+// cost the flat-ground Humanoid 17% of its K1 time on the H100). DR: `dr`
+// is this env's packed randomization overlay (DrOffsets), a compile-time
+// variant for the same reason.
+template <bool PLANES, bool DR>
 __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
                                         const float* eff, const float* ptg,
                                         const float* vtg, const float* fapp,
-                                        const float* pl, Work& w) {
+                                        const float* pl, const float* dr, Work& w) {
   const int nb = t.nb;
   const float h = tf(t, 3);
   const float chi = tf(t, 4);
+  const DrOffsets o_(t);
+  // gravity, per env under gravity_delta, read where it is used
+  auto grav = [&](int c) {
+    float x = tf(t, c);
+    if constexpr (DR) x += __ldg(dr + (o_.o_grav + c));
+    return x;
+  };
+  // the tendons' share of each joint body's implicit diagonal, per env
+  // under the tendon scales (without an overlay it is part of B_DIMPL)
+  float dtend[DR ? OIGE_NB_MAX : 1];
+  if constexpr (DR)
+    for (int i = 0; i < nb; ++i) dtend[i] = 0.f;
   Frames& k = w.k;
   fk_full(t, q, qd, k);
 
@@ -421,6 +472,23 @@ __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
     float lp[3], rel[3], crs[3], vpt[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) lp[c] = tf(t, C + C_POS + c);
+    // geom_scale and friction_scale of the point's body
+    float gs = 1.f;
+    if constexpr (DR) {
+      gs = __ldg(dr + (o_.o_geom + b));
+#pragma unroll
+      for (int c = 0; c < 3; ++c) lp[c] *= gs;
+    }
+    auto rad = [&] {
+      float r = tf(t, C + C_RAD);
+      if constexpr (DR) r *= gs;
+      return r;
+    };
+    auto mu = [&] {
+      float m = tf(t, C + C_MU);
+      if constexpr (DR) m *= __ldg(dr + (o_.o_fric + b));
+      return m;
+    };
     mv3(k.Rw[b], lp, rel);
     cross3(k.wv[b], rel, crs);
 #pragma unroll
@@ -431,17 +499,17 @@ __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
       const float pn[3] = {P.x, P.y, P.z};
       const float dist = pn[0] * (k.pw[b][0] + rel[0]) + pn[1] * (k.pw[b][1] + rel[1]) +
                          pn[2] * (k.pw[b][2] + rel[2]) - P.w;
-      contact_force(tf(t, C + C_RAD) - dist, pn, vpt, tf(t, C + C_MU), tf(t, C + C_KN),
-                    tf(t, C + C_KT), tf(t, C + C_FNM), chi, f);
+      contact_force(rad() - dist, pn, vpt, mu(), tf(t, C + C_KN), tf(t, C + C_KT),
+                    tf(t, C + C_FNM), chi, f);
     } else {
-      const float pen = tf(t, C + C_RAD) - (k.pw[b][2] + rel[2]);
+      const float pen = rad() - (k.pw[b][2] + rel[2]);
       const float vn = vpt[2];
       const float fn = jmin(tf(t, C + C_KN) * jmax(pen, 0.f) *
                                 jclip(1.f - chi * vn, 0.f, 5.f),
                             tf(t, C + C_FNM));
       const float vt0 = vpt[0], vt1 = vpt[1];
       const float vt_norm = sqrtf(vt0 * vt0 + vt1 * vt1 + 1e-12f);
-      const float ft_mag = jmin(tf(t, C + C_MU) * fn, tf(t, C + C_KT) * vt_norm);
+      const float ft_mag = jmin(mu() * fn, tf(t, C + C_KT) * vt_norm);
       const float sc = ft_mag / (vt_norm + 1e-6f);
       f[0] = -sc * vt0;
       f[1] = -sc * vt1;
@@ -469,11 +537,22 @@ __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
     float lp[3], relp[3], rels[3], n[3], tmp[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) lp[c] = tf(t, C + C_POS + c);
+    // geom_scale: the point by its body, the surface's lengths by the
+    // surface's body (a box's rotation is not scaled); friction_scale by
+    // the point's body
+    float gp = 1.f, sgs = 1.f;
+    if constexpr (DR) {
+      gp = __ldg(dr + (o_.o_geom + pb));
+#pragma unroll
+      for (int c = 0; c < 3; ++c) lp[c] *= gp;
+      sgs = __ldg(dr + (o_.o_geom + sb));
+    }
     mv3(k.Rw[pb], lp, relp);
     // the point relative to the surface body's origin
 #pragma unroll
     for (int c = 0; c < 3; ++c) rels[c] = (k.pw[pb][c] + relp[c]) - k.pw[sb][c];
-    const float rad = tf(t, C + C_RAD);
+    float rad = tf(t, C + C_RAD);
+    if constexpr (DR) rad *= gp;
     float pen;
     float at[3] = {rels[0], rels[1], rels[2]};  // where the surface's velocity is taken
     if (st == ST_BOX) {
@@ -482,6 +561,10 @@ __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
       for (int c = 0; c < 3; ++c) {
         cl[c] = tf(t, S + c);
         hf[c] = tf(t, S + 3 + c);
+        if constexpr (DR) {
+          cl[c] *= sgs;
+          hf[c] *= sgs;
+        }
       }
 #pragma unroll
       for (int c = 0; c < 9; ++c) Rq[c] = tf(t, S + 6 + c);
@@ -523,6 +606,10 @@ __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
       for (int c = 0; c < 3; ++c) {
         e0[c] = tf(t, S + c);
         e1[c] = tf(t, S + 3 + c);
+        if constexpr (DR) {
+          e0[c] *= sgs;
+          e1[c] *= sgs;
+        }
       }
       mv3(Rs, e0, p0);
       mv3(Rs, e1, tmp);
@@ -539,22 +626,32 @@ __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
         at[c] = p0[c] + tt * seg[c];  // nearest point of the axis
         d[c] = rels[c] - at[c];
       }
-      pen = tf(t, S + 6) + rad - unit3(d, n);
+      float srad = tf(t, S + 6);
+      if constexpr (DR) srad *= sgs;
+      pen = srad + rad - unit3(d, n);
     } else {  // sphere
       float cs[3], d[3];
 #pragma unroll
       for (int c = 0; c < 3; ++c) cs[c] = tf(t, S + c);
+      float srad = tf(t, S + 3);
+      if constexpr (DR) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) cs[c] *= sgs;
+        srad *= sgs;
+      }
       mv3(Rs, cs, tmp);
 #pragma unroll
       for (int c = 0; c < 3; ++c) d[c] = rels[c] - tmp[c];
-      pen = tf(t, S + 3) + rad - unit3(d, n);
+      pen = srad + rad - unit3(d, n);
     }
     float c1[3], c2[3], vrel[3], f[3];
     cross3(k.wv[pb], relp, c1);
     cross3(k.wv[sb], at, c2);
 #pragma unroll
     for (int c = 0; c < 3; ++c) vrel[c] = (k.lv[pb][c] + c1[c]) - (k.lv[sb][c] + c2[c]);
-    contact_force(pen, n, vrel, tf(t, C + C_MU), tf(t, G + P_KN), tf(t, G + P_KT),
+    float mu = tf(t, C + C_MU);
+    if constexpr (DR) mu *= __ldg(dr + (o_.o_fric + pb));
+    contact_force(pen, n, vrel, mu, tf(t, G + P_KN), tf(t, G + P_KT),
                   tf(t, G + P_FNM), chi, f);
     cross3(relp, f, c1);
     cross3(rels, f, c2);
@@ -574,15 +671,28 @@ __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
     const int d = tb(t, i, IB_JDOF);
     const float qj = q[tb(t, i, IB_QADR)], qjd = qd[tb(t, i, IB_VADR)];
     const float emax = tf(t, B + B_EMAX);
-    const float drive = jclip(tf(t, B + B_KP) * (ptg[d] - qj - h * qjd) +
-                                  tf(t, B + B_KD) * (vtg[d] - qjd),
+    // stiffness_scale and damping_scale reach the drive's gains only: the
+    // implicit diagonal stays unscaled
+    auto kp = [&] {
+      float x = tf(t, B + B_KP);
+      if constexpr (DR) x *= __ldg(dr + (o_.o_stiff + d));
+      return x;
+    };
+    auto kd = [&] {
+      float x = tf(t, B + B_KD);
+      if constexpr (DR) x *= __ldg(dr + (d));
+      return x;
+    };
+    const float drive = jclip(kp() * (ptg[d] - qj - h * qjd) + kd() * (vtg[d] - qjd),
                               -emax, emax);
     const float passive = -tf(t, B + B_DAMP) * qjd - tf(t, B + B_FRIC) * tanhf(qjd * 10.f);
     w.tau[i] = drive + eff[d] + passive;
   }
 
   // ---- fixed tendons: Stable-PD coupling force on two joints (their
-  // implicit diagonal is part of the table's B_DIMPL) ----
+  // implicit diagonal is part of the table's B_DIMPL; under the tendon
+  // scales it is summed here per env: stiffness and limit stiffness times
+  // the first, damping times the second) ----
   for (int tn = 0; tn < t.nt; ++tn) {
     const int b0 = ti(t, t.i_tend + 2 * tn), b1 = ti(t, t.i_tend + 2 * tn + 1);
     const int T = t.f_tend + TEND_STRIDE * tn;
@@ -592,8 +702,19 @@ __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
     const float L = c0 * (q0 + h * qd0) + c1 * (q1 + h * qd1);
     const float Ldot = c0 * qd0 + c1 * qd1;
     const float excess = L - jclip(L, tf(t, T + T_LO), tf(t, T + T_HI));
-    const float F = tf(t, T + T_KLIM) * excess + tf(t, T + T_K) * (L - tf(t, T + T_REST)) +
-                    tf(t, T + T_C) * Ldot;
+    float klim = tf(t, T + T_KLIM), tk = tf(t, T + T_K);
+    const float rest = tf(t, T + T_REST);
+    float tc = tf(t, T + T_C);
+    if constexpr (DR) {
+      const float ts = __ldg(dr + (o_.o_tstiff + tn));
+      tk *= ts;
+      klim *= ts;
+      tc *= __ldg(dr + (o_.o_tdamp + tn));
+      const float per_t = h * (tc + h * (tk + klim));
+      dtend[b0] += per_t * c0 * c0;
+      dtend[b1] += per_t * c1 * c1;
+    }
+    const float F = klim * excess + tk * (L - rest) + tc * Ldot;
     w.tau[b0] -= c0 * F;
     w.tau[b1] -= c1 * F;
   }
@@ -621,6 +742,14 @@ __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
     cross3(k.w[i], Iv, n1);
     cross3(k.l[i], Iv + 3, n2);
     cross3(k.w[i], Iv + 3, f6);
+    float ms = 1.f;
+    if constexpr (DR) {
+      // mass_scale: the body's spatial inertia here, its bias force below,
+      // after the cross products (it is linear in I v)
+      ms = __ldg(dr + (o_.o_mass + i));
+#pragma unroll
+      for (int c = 0; c < 36; ++c) IA[c] *= ms;
+    }
     float tw[3], fw[3], tbd[3], fb[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -633,7 +762,11 @@ __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
     const float gcm = tf(t, G + G_MASS);
     if (gcm != 0.f) {
       const float com[3] = {tf(t, G + G_COM), tf(t, G + G_COM + 1), tf(t, G + G_COM + 2)};
-      const float fg[3] = {-gcm * tf(t, 0), -gcm * tf(t, 1), -gcm * tf(t, 2)};
+      float fg[3] = {-gcm * grav(0), -gcm * grav(1), -gcm * grav(2)};
+      if constexpr (DR) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) fg[c] *= ms;
+      }
       float cr[3], ng[3];
       mv3(k.Rw[i], com, cr);
       cross3(cr, fg, ng);
@@ -647,8 +780,13 @@ __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
     mtv3(k.Rw[i], fw, fb);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      w.pA[i][c] = n1[c] + n2[c] - tbd[c];
-      w.pA[i][3 + c] = f6[c] - fb[c];
+      if constexpr (DR) {
+        w.pA[i][c] = (n1[c] + n2[c]) * ms - tbd[c];
+        w.pA[i][3 + c] = f6[c] * ms - fb[c];
+      } else {
+        w.pA[i][c] = n1[c] + n2[c] - tbd[c];
+        w.pA[i][3 + c] = f6[c] - fb[c];
+      }
     }
   }
 
@@ -665,8 +803,14 @@ __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
 #pragma unroll
     for (int r = 0; r < 6; ++r)
       U[r] = IA[6 * r + o] * a[0] + IA[6 * r + o + 1] * a[1] + IA[6 * r + o + 2] * a[2];
+    auto dimpl = [&] {
+      if constexpr (DR)
+        return tf(t, B + B_DIMPL0) + dtend[i];
+      else
+        return tf(t, B + B_DIMPL);
+    };
     const float D = a[0] * U[o] + a[1] * U[o + 1] + a[2] * U[o + 2] + tf(t, B + B_ARM) +
-                    tf(t, B + B_DIMPL);
+                    dimpl();
     const float uu = w.tau[i] - (a[0] * w.pA[i][o] + a[1] * w.pA[i][o + 1] +
                                  a[2] * w.pA[i][o + 2]);
     w.D[i] = D;
@@ -739,7 +883,7 @@ __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
   // IA qdd = -(pA + IA a0), a FIXED root only hands gravity on ----
   for (int i = 0; i < nb; ++i) {
     if (tb(t, i, IB_PARENT) >= 0) continue;
-    const float mg[3] = {-tf(t, 0), -tf(t, 1), -tf(t, 2)};
+    const float mg[3] = {-grav(0), -grav(1), -grav(2)};
     float al[3];
     mtv3(k.Rw[i], mg, al);
     const float a0[6] = {0.f, 0.f, 0.f, al[0], al[1], al[2]};
@@ -812,7 +956,14 @@ __device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
     if (tb(t, i, IB_PARENT) >= 0) {
       const int B = F_BODY + BODY_STRIDE * i;
       const float vmax = tf(t, B + B_VMAX);
-      const float lo = tf(t, B + B_LO), hi = tf(t, B + B_HI);
+      // limit + delta, rounded once before the comparison, as the plain
+      // version's tensor sum is
+      auto limit = [&](int field, int off) {
+        float x = tf(t, B + field);
+        if constexpr (DR) x = __fadd_rn(x, __ldg(dr + (off + tb(t, i, IB_JDOF))));
+        return x;
+      };
+      const float lo = limit(B_LO, o_.o_lo), hi = limit(B_HI, o_.o_hi);
       float qjd = jclip(w.qdn[va], -vmax, vmax);
       float qj = __fadd_rn(q[qa], __fmul_rn(h, qjd));
       const bool hit_lb = qj < lo;
@@ -876,13 +1027,16 @@ __device__ __forceinline__ void write_report(const Tables& t, const Frames& k, l
 
 // n_steps substeps of one env, then the report FK unless `pos` is null
 // (the single-substep launch mode writes no report); with PLANES, `planes`
-// is (n_env, ncp, 4)
-template <bool PLANES>
+// is (n_env, ncp, 4); with DR, `dr` is (n_env, n_dr): every substep reads
+// the env's overlay from device memory through the read-only path (a copy
+// in the thread's stack, 1,104 B more of it, measured 13% slower on the
+// H100 at the hand's 12 substeps)
+template <bool PLANES, bool DR>
 __device__ __forceinline__ void step_env(const Tables t, long e, const float* q_in,
                                          const float* qd_in, const float* eff,
                                          const float* ptg, const float* vtg,
                                          const float* fapp, const float* planes,
-                                         float* q_out,
+                                         const float* dr, float* q_out,
                                          float* qd_out, float* sf_out, float* pos,
                                          float* quat, float* avel, float* lvel,
                                          int n_steps) {
@@ -896,8 +1050,9 @@ __device__ __forceinline__ void step_env(const Tables t, long e, const float* q_
   const float* vtg_e = vtg + e * njd;
   const float* fapp_e = fapp + e * 6 * nb;
   const float* pl_e = PLANES ? planes + e * 4 * t.ncp : nullptr;
+  const float* dr_e = DR ? dr + e * DrOffsets(t).n_dr : nullptr;
   for (int s = 0; s < n_steps; ++s)
-    substep<PLANES>(t, q, qd, eff_e, ptg_e, vtg_e, fapp_e, pl_e, w);
+    substep<PLANES, DR>(t, q, qd, eff_e, ptg_e, vtg_e, fapp_e, pl_e, dr_e, w);
   for (int c = 0; c < nq; ++c) q_out[e * nq + c] = q[c];
   for (int c = 0; c < nv; ++c) qd_out[e * nv + c] = qd[c];
   // sensors read the last substep's contact wrench [force, torque]: ground
@@ -928,19 +1083,20 @@ __device__ __forceinline__ void fk_env(const Tables t, long e, const float* q_in
   write_report(t, k, e, pos, quat, avel, lvel);
 }
 
-template <bool PLANES>
+template <bool PLANES, bool DR>
 __global__ void __launch_bounds__(128) step_kernel(
     const Tables t, const float* __restrict__ q_in, const float* __restrict__ qd_in,
     const float* __restrict__ eff, const float* __restrict__ ptg,
     const float* __restrict__ vtg, const float* __restrict__ fapp,
-    const float* __restrict__ planes, float* __restrict__ q_out,
+    const float* __restrict__ planes, const float* __restrict__ dr,
+    float* __restrict__ q_out,
     float* __restrict__ qd_out, float* __restrict__ sf_out,
     float* __restrict__ pos, float* __restrict__ quat, float* __restrict__ avel,
     float* __restrict__ lvel, int n_env, int n_steps) {
   const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n_env) return;
-  step_env<PLANES>(t, e, q_in, qd_in, eff, ptg, vtg, fapp, planes, q_out, qd_out, sf_out,
-                   pos, quat, avel, lvel, n_steps);
+  step_env<PLANES, DR>(t, e, q_in, qd_in, eff, ptg, vtg, fapp, planes, dr, q_out, qd_out,
+                       sf_out, pos, quat, avel, lvel, n_steps);
 }
 
 __global__ void __launch_bounds__(128) fk_kernel(
@@ -995,24 +1151,41 @@ extern "C" int oige_limits(int* out) {
   return 0;
 }
 
-// planes: (n_env, ncp, 4) contiguous terrain planes, or null for flat ground
+template <bool PLANES, bool DR>
+static void launch_step(const Tables& t, const float* q, const float* qd, const float* eff,
+                        const float* ptg, const float* vtg, const float* fapp,
+                        const float* planes, const float* dr, float* q_out, float* qd_out,
+                        float* sf_out, float* pos, float* quat, float* avel, float* lvel,
+                        int n_env, int n_steps, void* stream) {
+  const int blocks = (n_env + OIGE_THREADS - 1) / OIGE_THREADS;
+  step_kernel<PLANES, DR><<<blocks, OIGE_THREADS, 0, (cudaStream_t)stream>>>(
+      t, q, qd, eff, ptg, vtg, fapp, planes, dr, q_out, qd_out, sf_out, pos, quat, avel,
+      lvel, n_env, n_steps);
+}
+
+// planes: (n_env, ncp, 4) contiguous terrain planes, or null for flat
+// ground; dr: (n_env, n_dr) contiguous packed overlays, or null for none.
+// Which of the two are given picks one of the kernel's four variants.
 extern "C" int oige_step(const float* ftab, const int* itab, const int* dims,
                          const float* q, const float* qd, const float* eff,
                          const float* ptg, const float* vtg, const float* fapp,
-                         const float* planes, float* q_out, float* qd_out,
-                         float* sf_out, float* pos,
+                         const float* planes, const float* dr, float* q_out,
+                         float* qd_out, float* sf_out, float* pos,
                          float* quat, float* avel, float* lvel, int n_env, int n_steps,
                          void* stream) {
   const Tables t = make_tables(ftab, itab, dims);
-  const int blocks = (n_env + OIGE_THREADS - 1) / OIGE_THREADS;
-  if (planes != nullptr)
-    step_kernel<true><<<blocks, OIGE_THREADS, 0, (cudaStream_t)stream>>>(
-        t, q, qd, eff, ptg, vtg, fapp, planes, q_out, qd_out, sf_out, pos, quat, avel,
-        lvel, n_env, n_steps);
+#define OIGE_STEP_ARGS                                                                  \
+  t, q, qd, eff, ptg, vtg, fapp, planes, dr, q_out, qd_out, sf_out, pos, quat, avel, lvel, \
+      n_env, n_steps, stream
+  if (planes != nullptr && dr != nullptr)
+    launch_step<true, true>(OIGE_STEP_ARGS);
+  else if (planes != nullptr)
+    launch_step<true, false>(OIGE_STEP_ARGS);
+  else if (dr != nullptr)
+    launch_step<false, true>(OIGE_STEP_ARGS);
   else
-    step_kernel<false><<<blocks, OIGE_THREADS, 0, (cudaStream_t)stream>>>(
-        t, q, qd, eff, ptg, vtg, fapp, planes, q_out, qd_out, sf_out, pos, quat, avel,
-        lvel, n_env, n_steps);
+    launch_step<false, false>(OIGE_STEP_ARGS);
+#undef OIGE_STEP_ARGS
   return (int)cudaGetLastError();
 }
 
@@ -1020,9 +1193,9 @@ extern "C" int oige_step(const float* ftab, const int* itab, const int* dims,
 extern "C" int oige_substep(const float* ftab, const int* itab, const int* dims,
                             const float* q, const float* qd, const float* eff,
                             const float* ptg, const float* vtg, const float* fapp,
-                            const float* planes, float* q_out, float* qd_out,
-                            float* sf_out, int n_env, void* stream) {
-  return oige_step(ftab, itab, dims, q, qd, eff, ptg, vtg, fapp, planes, q_out, qd_out,
+                            const float* planes, const float* dr, float* q_out,
+                            float* qd_out, float* sf_out, int n_env, void* stream) {
+  return oige_step(ftab, itab, dims, q, qd, eff, ptg, vtg, fapp, planes, dr, q_out, qd_out,
                    sf_out, nullptr, nullptr, nullptr, nullptr, n_env, 1, stream);
 }
 

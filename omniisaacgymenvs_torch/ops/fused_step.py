@@ -15,8 +15,10 @@ A wrapper given CPU tensors runs the plain version (`step_plain`,
 raises. The kernels cover forests of FREE and FIXED roots, revolute and
 prismatic joints, the flat ground plane or one terrain contact plane per
 contact point and env (`planes`, frozen over the substeps of a launch), pair
-contacts against sphere, capsule and box surfaces, gravity compensation and
-fixed tendons;
+contacts against sphere, capsule and box surfaces, gravity compensation,
+fixed tendons and per-env domain-randomization overlays (`overlay`, a dict
+of (N, size) tensors under `OVERLAY_KEYS`, packed here into the one
+(N, n_dr) input the kernel reads);
 `scope_errors` lists what a model has beyond the kernels' compile-time
 maxima, and the engine's `check_scope` refuses such a model on CUDA.
 """
@@ -48,13 +50,24 @@ NVCC_FLAGS = (
 _F_BODY, _BODY_STRIDE, _CP_STRIDE = 8, 64, 8
 _GC_STRIDE, _PAIR_STRIDE, _SURF_STRIDE, _TEND_STRIDE, _IB_STRIDE = 4, 4, 16, 8, 5
 (_B_AXIS, _B_ET, _B_JPOS, _B_I6, _B_ARM, _B_DAMP, _B_FRIC, _B_KP, _B_KD,
- _B_EMAX, _B_VMAX, _B_LO, _B_HI, _B_DIMPL) = (
-    0, 3, 12, 15, 51, 52, 53, 54, 55, 56, 57, 58, 59, 60)
+ _B_EMAX, _B_VMAX, _B_LO, _B_HI, _B_DIMPL, _B_DIMPL0) = (
+    0, 3, 12, 15, 51, 52, 53, 54, 55, 56, 57, 58, 59, 60, 61)
 # compile-time maxima of the kernel (csrc/fused_step.cu OIGE_*_MAX): bodies,
 # ground contact points, sensors, pairs, surfaces, tendons, FREE roots
 NB_MAX, NCP_MAX, NS_MAX = 32, 128, 8
 NPAIR_MAX, NSURF_MAX, NT_MAX, NFREE_MAX = 1024, 32, 8, 4
 LIMITS = (NB_MAX, NCP_MAX, NS_MAX, NPAIR_MAX, NSURF_MAX, NT_MAX, NFREE_MAX)
+
+# The domain-randomization overlay keys in the order of the packed overlay
+# the kernel reads (csrc/fused_step.cu DrOffsets), each with the Model
+# attribute that gives its size per env (gravity_delta: 3). `*_scale` keys
+# multiply a model constant (neutral 1), `*_delta` keys add to one (0).
+OVERLAY_KEYS = {
+    "damping_scale": "njd", "friction_scale": "nb", "geom_scale": "nb",
+    "gravity_delta": 3, "limit_lower_delta": "njd",
+    "limit_upper_delta": "njd", "mass_scale": "nb", "stiffness_scale": "njd",
+    "tendon_damping_scale": "nt", "tendon_stiffness_scale": "nt",
+}
 
 
 # ---------------------------------------------------------------------------
@@ -81,6 +94,43 @@ def scope_errors(model: Model) -> List[str]:
         if n > cap:
             errs.append(f"{n} {what} > kernel maximum {cap}")
     return errs
+
+
+def overlay_sizes(model: Model) -> dict:
+    """Floats per env of every overlay key, in the packed order."""
+    return {k: a if isinstance(a, int) else getattr(model, a)
+            for k, a in OVERLAY_KEYS.items()}
+
+
+def check_overlay(model: Model, overlay, n: int, device: torch.device):
+    """The overlay as a dict of its keys, or None for an empty one. Raises
+    on a key outside OVERLAY_KEYS and on a value that is not a contiguous
+    (n, size) float32 tensor on `device`."""
+    if not overlay:
+        return None
+    sizes = overlay_sizes(model)
+    for key, val in overlay.items():
+        if key not in sizes:
+            raise KeyError(f"unknown overlay key {key!r}; the engine takes "
+                           f"{sorted(sizes)}")
+        _check(val, (n, sizes[key]), f"overlay[{key!r}]", torch.device(device))
+    return dict(overlay)
+
+
+def pack_overlay(model: Model, overlay: dict, n: int,
+                 device: torch.device) -> torch.Tensor:
+    """(n, n_dr) float32: the overlay's keys side by side in the order of
+    OVERLAY_KEYS, absent keys at their neutral value (x * 1 and x + 0 are
+    exact, so the kernel computes under a neutral key what it computes
+    without it)."""
+    parts = []
+    for key, size in overlay_sizes(model).items():
+        if key in overlay:
+            parts.append(overlay[key])
+        else:
+            fill = torch.ones if key.endswith("_scale") else torch.zeros
+            parts.append(fill((n, size), device=device))
+    return torch.cat(parts, dim=1)
 
 
 def _np64(x) -> np.ndarray:
@@ -141,9 +191,11 @@ def pack_tables(model: Model, h: float, gravity, contact, gains: np.ndarray,
     dof = {k: _np64(getattr(model, "dof_" + k)) for k in (
         "armature", "damping", "friction", "stiffness", "drive_damping",
         "max_effort", "max_velocity", "limit_lower", "limit_upper")}
-    d_impl = h * (dof["drive_damping"] + dof["damping"] + h * dof["stiffness"])
+    d_impl0 = h * (dof["drive_damping"] + dof["damping"] + h * dof["stiffness"])
+    d_impl = d_impl0.copy()
     # fixed tendons add h (c + h (k + k_lim)) coef^2 to their two joints'
-    # implicit diagonal
+    # implicit diagonal; with an overlay the kernel adds that share per env
+    # to the diagonal without it (B_DIMPL0)
     tend = {k: _np64(getattr(model, "tendon_" + k)) for k in (
         "coef", "rest", "stiffness", "damping", "limit_lower", "limit_upper",
         "limit_stiffness")}
@@ -179,6 +231,7 @@ def pack_tables(model: Model, h: float, gravity, contact, gains: np.ndarray,
         f[B + _B_LO] = dof["limit_lower"][d]
         f[B + _B_HI] = dof["limit_upper"][d]
         f[B + _B_DIMPL] = d_impl[d]
+        f[B + _B_DIMPL0] = d_impl0[d]
     cp_pos, cp_rad, cp_mu = (_np64(model.cp_pos), _np64(model.cp_radius),
                              _np64(model.cp_friction))
     for k in range(ncp):
@@ -232,10 +285,13 @@ class FusedKernels:
         self.itab = torch.as_tensor(itab, device=model.device)
         self.dims = (ctypes.c_int * 9)(*table_dims(model))
         self.launches = {"step": 0, "fk": 0, "substep": 0}
+        # how many of those launches read an overlay
+        self.overlay_launches = {"step": 0, "substep": 0}
 
     def reset_counts(self):
-        for k in self.launches:
-            self.launches[k] = 0
+        for counts in (self.launches, self.overlay_launches):
+            for k in counts:
+                counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -243,36 +299,42 @@ class FusedKernels:
 # ---------------------------------------------------------------------------
 
 def step_plain(engine, q, qd, effort, pos_target, vel_target, f_applied,
-               n_steps: int, planes=None):
+               n_steps: int, planes=None, overlay=None):
     """n_steps plain substeps (`engine._substep`), then the report FK.
     Returns (q, qd, sensor_forces, body_pos, body_quat, body_avel,
     body_lvel); sensor forces are those of the last substep. `planes`
     (N, ncp, 4): the terrain contact planes of an engine with terrain, the
-    same for all n_steps substeps, as in the kernel."""
+    same for all n_steps substeps, as in the kernel. `overlay`: a dict of
+    (N, size) randomization tensors under OVERLAY_KEYS, the same for all
+    substeps."""
     from omniisaacgymenvs_torch.physics.state import Control
 
     m = engine.model
     N = q.shape[0]
     _check_planes(engine, planes, N, q.device)
+    overlay = check_overlay(m, overlay, N, q.device)
     ctrl = Control(effort=effort, pos_target=pos_target,
                    vel_target=vel_target, body_force=None, body_torque=None)
     sf = q.new_zeros((N, m.num_sensors, 6))
     for _ in range(n_steps):
-        q, qd, sf = engine._substep(q, qd, ctrl, f_applied, engine.h, planes)
+        q, qd, sf = engine._substep(q, qd, ctrl, f_applied, engine.h, planes,
+                                    overlay)
     pos, quat, avel, lvel = fk_plain(m, q, qd)
     return q, qd, sf, pos, quat, avel, lvel
 
 
 def substep_plain(engine, q, qd, effort, pos_target, vel_target, f_applied,
-                  planes=None):
+                  planes=None, overlay=None):
     """One plain substep (`engine._substep`): (q, qd, sensor_forces);
-    `planes` as in `step_plain`."""
+    `planes` and `overlay` as in `step_plain`."""
     from omniisaacgymenvs_torch.physics.state import Control
 
-    _check_planes(engine, planes, q.shape[0], q.device)
+    N = q.shape[0]
+    _check_planes(engine, planes, N, q.device)
+    overlay = check_overlay(engine.model, overlay, N, q.device)
     ctrl = Control(effort=effort, pos_target=pos_target,
                    vel_target=vel_target, body_force=None, body_torque=None)
-    return engine._substep(q, qd, ctrl, f_applied, engine.h, planes)
+    return engine._substep(q, qd, ctrl, f_applied, engine.h, planes, overlay)
 
 
 def fk_plain(model: Model, q, qd):
@@ -333,17 +395,25 @@ def _check_step_inputs(k, m, q, qd, effort, pos_target, vel_target, f_applied):
     return N, dev
 
 
-def _planes_ptr(planes):
-    return None if planes is None else planes.data_ptr()
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _packed_overlay(model, overlay, n, device):
+    """The kernel's overlay input, or None: presence picks the kernel
+    variant, so an engine without randomization runs the code it ran
+    before there were overlays."""
+    overlay = check_overlay(model, overlay, n, device)
+    return None if overlay is None else pack_overlay(model, overlay, n, device)
 
 
 def step(engine, q, qd, effort, pos_target, vel_target, f_applied,
-         n_steps: int, planes=None):
+         n_steps: int, planes=None, overlay=None):
     """K1: n_steps substeps + report FK in one launch. Same arguments and
     returns as `step_plain`, which it runs for CPU tensors."""
     if not q.is_cuda:
         return step_plain(engine, q, qd, effort, pos_target, vel_target,
-                          f_applied, n_steps, planes)
+                          f_applied, n_steps, planes, overlay)
     k = _kernels(engine)
     m = engine.model
     if n_steps < 1:
@@ -351,6 +421,7 @@ def step(engine, q, qd, effort, pos_target, vel_target, f_applied,
     ins = (q, qd, effort, pos_target, vel_target, f_applied)
     N, dev = _check_step_inputs(k, m, *ins)
     _check_planes(engine, planes, N, dev)
+    dr = _packed_overlay(m, overlay, N, dev)
     e = torch.empty
     outs = (e((N, m.nq), device=dev), e((N, m.nv), device=dev),
             e((N, m.num_sensors, 6), device=dev), e((N, m.nb, 3), device=dev),
@@ -358,40 +429,45 @@ def step(engine, q, qd, effort, pos_target, vel_target, f_applied,
             e((N, m.nb, 3), device=dev))
     err = library().lib.oige_step(
         k.ftab.data_ptr(), k.itab.data_ptr(), k.dims,
-        *[x.data_ptr() for x in ins], _planes_ptr(planes),
+        *[x.data_ptr() for x in ins], _ptr(planes), _ptr(dr),
         *[x.data_ptr() for x in outs], N, int(n_steps),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
         raise RuntimeError(f"oige_step launch failed: cudaError {err}")
     k.launches["step"] += 1
+    if dr is not None:
+        k.overlay_launches["step"] += 1
     return outs
 
 
 def substep(engine, q, qd, effort, pos_target, vel_target, f_applied,
-            planes=None):
+            planes=None, overlay=None):
     """K3: one substep in one launch, without the report FK: (q, qd,
     sensor_forces). Runs `substep_plain` for CPU tensors."""
     if not q.is_cuda:
         return substep_plain(engine, q, qd, effort, pos_target, vel_target,
-                             f_applied, planes)
+                             f_applied, planes, overlay)
     k = _kernels(engine)
     m = engine.model
     ins = (q, qd, effort, pos_target, vel_target, f_applied)
     N, dev = _check_step_inputs(k, m, *ins)
     _check_planes(engine, planes, N, dev)
+    dr = _packed_overlay(m, overlay, N, dev)
     e = torch.empty
     outs = (e((N, m.nq), device=dev), e((N, m.nv), device=dev),
             e((N, m.num_sensors, 6), device=dev))
     err = library().lib.oige_substep(
         k.ftab.data_ptr(), k.itab.data_ptr(), k.dims,
-        *[x.data_ptr() for x in ins], _planes_ptr(planes),
+        *[x.data_ptr() for x in ins], _ptr(planes), _ptr(dr),
         *[x.data_ptr() for x in outs], N,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
         raise RuntimeError(f"oige_substep launch failed: cudaError {err}")
     k.launches["substep"] += 1
+    if dr is not None:
+        k.overlay_launches["substep"] += 1
     return outs
 
 
@@ -430,12 +506,14 @@ def _dot(k: int) -> int:
     return 2 * k - 1
 
 
-def op_count(model: Model, n_steps: int, planes: bool = False) -> dict:
+def op_count(model: Model, n_steps: int, planes: bool = False,
+             overlay: bool = False) -> dict:
     """FP32 operations per env that K1 (`step`, n_steps substeps + FK), K2
     (`fk`) and K3 (`substep`, one substep) need, counted over the steps of
     csrc/fused_step.cu for this model's bodies, joints, roots, contact
     points (against terrain `planes`, or flat ground), pairs by surface
-    type, compensated bodies and tendons. An add,
+    type, compensated bodies and tendons, and with `overlay` the products
+    and sums that the ten randomization keys add to a substep. An add,
     multiply, compare, min/max, division, sqrt, sin, cos or tanh is 1 (a
     fused multiply-add is a multiply and an add); a product that is zero by
     the structure of its operands is not counted, nor is a value that equals
@@ -538,21 +616,38 @@ def op_count(model: Model, n_steps: int, planes: bool = False) -> dict:
            + tendon * model.nt + bias * nb
            + inward * (nj - n_under_fixed) + inward_head * n_under_fixed
            + root * n_free + mv3 * n_fixed + outward * nj + integ)
+    if overlay:
+        # mass_scale: the 6x6 inertia 36 and the bias force 6 per body, the
+        # compensation force 3 per compensated body; stiffness_scale and
+        # damping_scale 2 per joint; friction_scale 1 per ground point and
+        # pair; geom_scale: a point's offset and radius 4 per ground point
+        # and pair, a sphere's centre and radius 4, a capsule's ends and
+        # radius 7, a box's centre and half extents 6; gravity_delta 3;
+        # the limit deltas 2 per joint; the tendon scales 3 per tendon, and
+        # their share of the implicit diagonal 7 per tendon, 3 per coupled
+        # joint and 1 per joint for the sum
+        sub += (42 * nb + 3 * n_gc + 2 * nj + 5 * ncp
+                + 5 * len(model.pair_surf) + 4 * n_surf[SurfaceType.SPHERE]
+                + 7 * n_surf[SurfaceType.CAPSULE] + 6 * n_surf[SurfaceType.BOX]
+                + 3 + 2 * nj + (3 + 7 + 2 * 3) * model.nt + nj)
     # Shepperd quaternion 43 per body that moves
     report = fk + 43 * (nb - n_fixed)
     return {"step": n_steps * sub + report, "fk": report, "substep": sub}
 
 
-def io_bytes(model: Model, planes: bool = False) -> dict:
+def io_bytes(model: Model, planes: bool = False,
+             overlay: bool = False) -> dict:
     """Bytes per env that K1, K2 and K3 must move: each input read once
-    (with `planes`, four more floats per contact point), each output
-    written once (float32)."""
+    (with `planes`, four more floats per contact point; with `overlay`, the
+    packed overlay's n_dr floats), each output written once (float32)."""
     nq, nv, njd, nb, ns = (model.nq, model.nv, model.njd, model.nb,
                            model.num_sensors)
     report = 13 * nb
     sub = nq + nv + 3 * njd + 6 * nb + nq + nv + 6 * ns
     if planes:
         sub += 4 * model.ncp
+    if overlay:
+        sub += sum(overlay_sizes(model).values())
     return {"step": 4 * (sub + report), "fk": 4 * (nq + nv + report),
             "substep": 4 * sub}
 
@@ -609,9 +704,9 @@ def build(flags=NVCC_FLAGS) -> _Library:
     lib.oige_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.oige_limits.restype = ci
     dims = ctypes.POINTER(ctypes.c_int)
-    lib.oige_step.argtypes = [vp, vp, dims] + [vp] * 14 + [ci, ci, vp]
+    lib.oige_step.argtypes = [vp, vp, dims] + [vp] * 15 + [ci, ci, vp]
     lib.oige_step.restype = ci
-    lib.oige_substep.argtypes = [vp, vp, dims] + [vp] * 10 + [ci, vp]
+    lib.oige_substep.argtypes = [vp, vp, dims] + [vp] * 11 + [ci, vp]
     lib.oige_substep.restype = ci
     lib.oige_fk.argtypes = [vp, vp, dims] + [vp] * 6 + [ci, vp]
     lib.oige_fk.restype = ci

@@ -214,6 +214,84 @@ def terrain_contacts(task, engine, q, qd) -> dict:
                 edge=count(at.EDGES), wedge=count([at.WEDGE_ON]))
 
 
+# How the check overlays are drawn (`overlay_inputs`), per key: the
+# distribution and range of the ShadowHandOpenAI_FF yaml's randomization
+# block (log-uniform drive and tendon scales, uniform friction, geometry and
+# mass scales, gaussian limit and gravity deltas), here on every body,
+# joint and tendon of the model, not only on a view's.
+OVERLAY_DRAWS = {
+    "damping_scale": ("loguniform", 0.3, 3.0),
+    "friction_scale": ("uniform", 0.7, 1.3),
+    "geom_scale": ("uniform", 0.95, 1.05),
+    "gravity_delta": ("gaussian", 0.0, (0.0, 0.0, 0.4)),
+    "limit_lower_delta": ("gaussian", 0.0, 0.01),
+    "limit_upper_delta": ("gaussian", 0.0, 0.01),
+    "mass_scale": ("uniform", 0.5, 1.5),
+    "stiffness_scale": ("loguniform", 0.75, 1.5),
+    "tendon_damping_scale": ("loguniform", 0.3, 3.0),
+    "tendon_stiffness_scale": ("loguniform", 0.75, 1.5),
+}
+
+
+def overlay_inputs(model, n: int, seed: int, device) -> dict:
+    """A randomization overlay for the checks: every key that the model has
+    a size for, as an (n, size) float32 tensor on `device`, drawn with numpy
+    from `seed` as OVERLAY_DRAWS says. Every env differs from every other in
+    every key."""
+    from omniisaacgymenvs_torch.ops.fused_step import overlay_sizes
+
+    rng = np.random.default_rng(seed + 15485863)
+    out = {}
+    for key, size in overlay_sizes(model).items():
+        dist, a, b = OVERLAY_DRAWS[key]
+        if dist == "gaussian":
+            x = a + np.asarray(b) * rng.standard_normal((n, size))
+        elif dist == "uniform":
+            x = rng.uniform(a, b, (n, size))
+        else:
+            x = np.exp(rng.uniform(np.log(a), np.log(b), (n, size)))
+        if size:
+            out[key] = torch.as_tensor(x.astype(np.float32), device=device)
+    return out
+
+
+# check states keep every point that lies inside a box at least this far
+# (m) from a tie of the box's two nearest faces: some 2,000 float32 ulps of
+# a 5 cm coordinate
+TIE_MARGIN = 1e-5
+# a state too close to a tie has its FREE roots moved by this much (m): a
+# direction that is no box's axis, so the two face distances part
+TIE_NUDGE = (5e-5, 1.15e-4, 3e-5)
+
+
+def clear_box_ties(engine, q: torch.Tensor, qd: torch.Tensor,
+                   overlay=None) -> torch.Tensor:
+    """`q` with the envs moved off the ties of two box faces: where a contact
+    point inside a box surface (under the overlay's `geom_scale`) lies
+    within TIE_MARGIN of having two nearest faces, every FREE root of that
+    env is moved by TIE_NUDGE, up to eight times. On such a tie the contact
+    normal is discontinuous: kernel and plain version, which round the
+    point's box coordinates differently, would push it out through
+    different faces. A model without box pairs comes back as it is."""
+    from omniisaacgymenvs_torch.physics import contacts, dynamics
+
+    m = engine.model
+    if not len(engine.pair_groups.box["pt"]):
+        return q
+    gs = (overlay or {}).get("geom_scale")
+    nudge = q.new_tensor(TIE_NUDGE)
+    q = q.clone()
+    for _ in range(8):
+        kin = dynamics.kinematics(m, q, qd)
+        near = contacts.box_face_ties(m, engine.pair_groups, kin.pw, kin.Rw,
+                                      gs) < TIE_MARGIN
+        if not bool(near.any()):
+            return q
+        for qa in _free_q(m):
+            q[near, qa:qa + 3] += nudge
+    raise RuntimeError(f"{m.name}: check states stay on a box-face tie")
+
+
 def check_targets(model, q: torch.Tensor, seed: int) -> torch.Tensor:
     """Position targets for the check: the joint coordinates of `q` plus
     the profile's jitter, within the joint limits."""
@@ -298,31 +376,79 @@ def sign_align(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a * torch.where(s == 0, torch.ones_like(s), s)
 
 
-def tolerance_use(a: torch.Tensor, b: torch.Tensor, rtol: float,
-                  scale: float, atol: float) -> float:
-    """Largest |a - b| / (atol + rtol |b| + scale max_env |b|); inf where a
-    is not finite or an error meets a zero limit; 0 for an empty output."""
+def env_tolerance_use(a: torch.Tensor, b: torch.Tensor, rtol: float,
+                      scale: float, atol: float) -> torch.Tensor:
+    """(N,) float64: per env the largest |a - b| / (atol + rtol |b| + scale
+    max_env |b|); inf where a is not finite or an error meets a zero limit;
+    0 for an empty output."""
     if a.numel() == 0:
-        return 0.0
-    if not bool(torch.isfinite(a).all()):
-        return float("inf")
+        return torch.zeros(a.shape[0], dtype=torch.float64, device=a.device)
     a64, b64 = a.double().reshape(a.shape[0], -1), b.double().reshape(b.shape[0], -1)
     err = (a64 - b64).abs()
     lim = atol + rtol * b64.abs() + scale * b64.abs().amax(dim=1, keepdim=True)
     use = torch.where(err == 0, torch.zeros_like(err), err / lim)
-    return float(use.max())
+    use = torch.where(torch.isfinite(a64), use, torch.full_like(use, float("inf")))
+    return use.amax(dim=1)
 
 
-def compare(outs, refs, names, tol) -> dict:
+def tolerance_use(a: torch.Tensor, b: torch.Tensor, rtol: float,
+                  scale: float, atol: float) -> float:
+    """The largest `env_tolerance_use` over the envs."""
+    if a.numel() == 0:
+        return 0.0
+    return float(env_tolerance_use(a, b, rtol, scale, atol).max())
+
+
+def compare(outs, refs, names, tol, keep=None) -> dict:
     """{name: (max abs err, tolerance use)} of kernel outputs against plain
-    ones; quaternions are sign-aligned first."""
+    ones, over the envs of the bool mask `keep` (default all); quaternions
+    are sign-aligned first."""
     res = {}
     for n, a, b in zip(names, outs, refs):
+        if keep is not None:
+            a, b = a[keep], b[keep]
         if n == "body_quat":
             a = sign_align(a, b)
         err = float((a - b).abs().max()) if a.numel() else 0.0
         res[n] = (err, tolerance_use(a, b, *tol[n]))
     return res
+
+
+# Under a randomization overlay the step of some envs is ill conditioned: a
+# cube of half its mass on the model's contact gains chatters, and a
+# rounding difference grows some threefold per substep over the 12 substeps
+# of a control step (seen: 5e-5 rad/s after one substep, 0.55 after twelve,
+# in one env of 8229). No two implementations agree there to any fixed
+# limit. Such an env shows itself without the kernel: the plain version, run
+# again on a state changed by COND_EPS of its size (two float32 ulps; a
+# coordinate larger than 1, a base some 80 m out on the terrain, by at most
+# COND_EPS in all, which rounds away), moves its own result by more than
+# COND_SHARE of the limit. The overlay checks
+# judge the kernel on the other envs and fail if more than COND_MAX_EXCLUDED
+# of the envs are left out (seen: 15 to 25 of 8229).
+COND_EPS = 2.0 ** -22
+COND_SHARE = 0.5
+COND_MAX_EXCLUDED = 0.01
+
+
+def well_conditioned(run_plain, q, qd, refs, names, tol,
+                     max_excluded: float = COND_MAX_EXCLUDED) -> torch.Tensor:
+    """(N,) bool: the envs whose plain result `refs` = run_plain(q, qd) moves
+    by less than COND_SHARE of its limits when the state is changed by
+    COND_EPS of its size (of 1 for a larger entry). Raises if more than
+    `max_excluded` of the envs fall out."""
+    again = run_plain(q + COND_EPS * q.clamp(-1.0, 1.0),
+                      qd + COND_EPS * qd.clamp(-1.0, 1.0))
+    use = torch.zeros(q.shape[0], dtype=torch.float64, device=q.device)
+    for n, a, b in zip(names, again, refs):
+        if n == "body_quat":
+            a = sign_align(a, b)
+        use = torch.maximum(use, env_tolerance_use(a, b, *tol[n]))
+    keep = use < COND_SHARE
+    if float((~keep).float().mean()) > max_excluded:
+        raise AssertionError(f"{int((~keep).sum())} of {q.shape[0]} envs are "
+                             "ill conditioned: the check states are too harsh")
+    return keep
 
 
 def assert_within(label: str, res: dict, tol: dict, log=print) -> float:

@@ -197,6 +197,8 @@ def plane_contacts(
     height_fn: Optional[Callable] = None,
     plane_fn: Optional[Callable] = None,
     planes: Optional[torch.Tensor] = None,
+    mu_scale: Optional[torch.Tensor] = None,
+    geom_scale: Optional[torch.Tensor] = None,
 ) -> ContactResult:
     """Contact forces against the ground plane z = 0, or against terrain in
     one of three forms (the first given wins): `planes` (N, ncp, 4), one
@@ -205,7 +207,10 @@ def plane_contacts(
     computed from the points (N, ncp, 3); `height_fn(x, y) -> (h, n)`, a
     height field with penetration radius - (z - h) n_z. `gains`: per-point
     (kn, kt, fn_max) tensors; computed from `params` when not given (the
-    engine passes them precomputed on its device)."""
+    engine passes them precomputed on its device). `mu_scale`, `geom_scale`:
+    (N, nb) per-env and per-body randomization multipliers of the friction
+    coefficient and of the collision geometry (a point's offset and radius
+    scale with its body)."""
     N, nb = body_pos.shape[0], model.nb
     zeros3 = body_pos.new_zeros((N, nb, 3))
     if model.ncp == 0:
@@ -218,20 +223,25 @@ def plane_contacts(
 
     cb = torch.as_tensor(model.cp_body, dtype=torch.long, device=body_pos.device)
     pos_b = body_pos[:, cb]
-    pt = pos_b + (body_rot[:, cb] @ model.cp_pos[..., None])[..., 0]
+    cp_pos, cp_radius = model.cp_pos, model.cp_radius
+    if geom_scale is not None:
+        gs = geom_scale[:, cb]
+        cp_pos = cp_pos * gs[..., None]
+        cp_radius = cp_radius * gs
+    pt = pos_b + (body_rot[:, cb] @ cp_pos[..., None])[..., 0]
     n = None  # flat ground: n = +z
     if planes is not None:
         n, d = planes[..., 0:3], planes[..., 3]
-        pen = model.cp_radius - ((pt * n).sum(-1) - d)
+        pen = cp_radius - ((pt * n).sum(-1) - d)
     elif plane_fn is not None:
-        n, d = plane_fn(pt, model.cp_radius)
-        pen = model.cp_radius - ((pt * n).sum(-1) - d)
+        n, d = plane_fn(pt, cp_radius)
+        pen = cp_radius - ((pt * n).sum(-1) - d)
     elif height_fn is not None:
         # normal (not vertical) distance to the plane through (x, y, h)
         h, n = height_fn(pt[..., 0], pt[..., 1])
-        pen = model.cp_radius - (pt[..., 2] - h) * n[..., 2]
+        pen = cp_radius - (pt[..., 2] - h) * n[..., 2]
     else:
-        pen = model.cp_radius - pt[..., 2]
+        pen = cp_radius - pt[..., 2]
     active = pen > 0.0
 
     rel = pt - pos_b
@@ -254,6 +264,8 @@ def plane_contacts(
     fn = torch.minimum(fn, fnm)
     vt_norm = torch.linalg.norm(vt, dim=-1)
     mu = params.mu * model.cp_friction
+    if mu_scale is not None:
+        mu = mu * mu_scale[:, cb]
     ft_mag = torch.minimum(mu * fn, kt * vt_norm)
     ft = -ft_mag[..., None] * vt / (vt_norm[..., None] + 1e-6)
 
@@ -359,13 +371,17 @@ def _unit(d):
     return d / (dist[..., None] + 1e-9), dist
 
 
-def _pair_geometry(model: Model, groups: PairGroups, body_pos, body_rot):
+def _pair_geometry(model: Model, groups: PairGroups, body_pos, body_rot,
+                   geom_scale=None):
     """Per non-empty surface-type group: (group, point body, surface body,
     world point, world point where the surface's velocity is taken,
     penetration (N,P), unit normal (N,P,3) from the surface to the point).
     A box classifies a point as outside on the squared distance to the box
     (d2 > 1e-14), so a point resting inside (d2 = 0 exactly) never flips on
-    the rounding of a square root."""
+    the rounding of a square root. `geom_scale` (N, nb): a point's offset
+    and radius scale with the point's body; a surface's centre, half
+    extents, capsule ends and radii with the surface's body (a box's
+    rotation does not scale)."""
     dev = body_pos.device
 
     def mv(R, x):
@@ -379,26 +395,36 @@ def _pair_geometry(model: Model, groups: PairGroups, body_pos, body_rot):
         pi, sb = idx(g["pt"]), idx(g["sbody"])
         prm = torch.as_tensor(g["params"], dtype=body_pos.dtype, device=dev)
         pb = idx(model.cp_body[g["pt"]])
-        pt_w = body_pos[:, pb] + mv(body_rot[:, pb], model.cp_pos[pi])
-        r_pt = model.cp_radius[pi]
+        lp, r_pt = model.cp_pos[pi], model.cp_radius[pi]
+        if geom_scale is not None:
+            gp = geom_scale[:, pb]
+            lp, r_pt = lp * gp[..., None], r_pt * gp
+            ss = geom_scale[:, sb]
+            # lengths scale with the surface's body: every parameter but a
+            # box's rotation quaternion
+            n_len = 6 if stype == SurfaceType.BOX else prm.shape[1]
+            prm = torch.cat([prm[:, :n_len] * ss[..., None],
+                             prm[:, n_len:].expand(ss.shape[0], -1, -1)],
+                            dim=-1)
+        pt_w = body_pos[:, pb] + mv(body_rot[:, pb], lp)
         Rs, ps = body_rot[:, sb], body_pos[:, sb]
         v_at = pt_w
         if stype == SurfaceType.SPHERE:
-            n, dist = _unit(pt_w - (ps + mv(Rs, prm[:, 0:3])))
-            pen = prm[:, 3] + r_pt - dist
+            n, dist = _unit(pt_w - (ps + mv(Rs, prm[..., 0:3])))
+            pen = prm[..., 3] + r_pt - dist
         elif stype == SurfaceType.CAPSULE:
-            p0 = ps + mv(Rs, prm[:, 0:3])
-            seg = ps + mv(Rs, prm[:, 3:6]) - p0
+            p0 = ps + mv(Rs, prm[..., 0:3])
+            seg = ps + mv(Rs, prm[..., 3:6]) - p0
             t = torch.clamp(
                 torch.sum((pt_w - p0) * seg, dim=-1)
                 / (torch.sum(seg * seg, dim=-1) + 1e-9), 0.0, 1.0)
             v_at = p0 + t[..., None] * seg
             n, dist = _unit(pt_w - v_at)
-            pen = prm[:, 6] + r_pt - dist
+            pen = prm[..., 6] + r_pt - dist
         else:  # BOX
-            half = prm[:, 3:6]
-            R_box = Rs @ rot.quat_to_rotmat(prm[:, 6:10])   # box -> world
-            c_w = ps + mv(Rs, prm[:, 0:3])
+            half = prm[..., 3:6]
+            R_box = Rs @ rot.quat_to_rotmat(prm[..., 6:10])  # box -> world
+            c_w = ps + mv(Rs, prm[..., 0:3])
             p_l = mv(R_box.transpose(-1, -2), pt_w - c_w)    # world -> box
             d_out = p_l - torch.minimum(torch.maximum(p_l, -half), half)
             d2 = torch.sum(d_out * d_out, dim=-1)
@@ -416,6 +442,33 @@ def _pair_geometry(model: Model, groups: PairGroups, body_pos, body_rot):
             pen = torch.where(outside, r_pt - dist_out, r_pt + min_d)
             n = mv(R_box, n_l)
         yield g, pb, sb, pt_w, v_at, pen, n
+
+
+def box_face_ties(model: Model, groups: PairGroups, body_pos, body_rot,
+                  geom_scale=None) -> torch.Tensor:
+    """(N,) how close each env comes to a tie of a box's two nearest faces:
+    over its candidate points that lie inside a box surface, the smallest
+    difference (m) between the two smallest face distances; inf where no
+    point is inside a box. At a tie the contact normal jumps from one face
+    to the other, so one ulp decides the direction of the force."""
+    out = body_pos.new_full((body_pos.shape[0],), float("inf"))
+    for g, pb, sb, pt_w, _, _, _ in _pair_geometry(model, groups, body_pos,
+                                                   body_rot, geom_scale):
+        if g is not groups.box:
+            continue
+        prm = torch.as_tensor(g["params"], dtype=body_pos.dtype,
+                              device=body_pos.device)
+        ss = 1.0 if geom_scale is None else geom_scale[:, sb][..., None]
+        centre, half = prm[:, 0:3] * ss, prm[:, 3:6] * ss
+        Rs = body_rot[:, sb]
+        R_box = Rs @ rot.quat_to_rotmat(prm[:, 6:10])
+        c_w = body_pos[:, sb] + (Rs @ centre[..., None])[..., 0]
+        p_l = (R_box.transpose(-1, -2) @ (pt_w - c_w)[..., None])[..., 0]
+        f = (half - torch.abs(p_l)).sort(dim=-1).values
+        gap = torch.where(f[..., 0] > 0, f[..., 1] - f[..., 0],
+                          torch.full_like(f[..., 0], float("inf")))
+        out = torch.minimum(out, gap.amin(dim=1))
+    return out
 
 
 def pair_penetrations(model: Model, groups: PairGroups, body_pos,
@@ -439,11 +492,14 @@ def pair_contacts(
     body_lvel: torch.Tensor,    # (N, nb, 3)
     params: ContactParams,
     gains: Optional[np.ndarray] = None,
+    mu_scale: Optional[torch.Tensor] = None,
+    geom_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Point-vs-surface contact wrenches -> (N, nb, 6) [torque; force] per
     body in world coordinates, equal and opposite on the point's and the
     surface's body. `gains`: `pair_gains` of the model, computed from
-    `params` when not given."""
+    `params` when not given. `mu_scale` (N, nb): friction multiplier, taken
+    at the point's body; `geom_scale` (N, nb): as in `_pair_geometry`."""
     N, nb = body_pos.shape[0], model.nb
     f_ext = body_pos.new_zeros((N, nb, 6))
     dev = body_pos.device
@@ -455,12 +511,14 @@ def pair_contacts(
             body_avel[:, b], x - body_pos[:, b], dim=-1)
 
     for g, pb, sb, pt_w, v_at, pen, n in _pair_geometry(
-            model, groups, body_pos, body_rot):
+            model, groups, body_pos, body_rot, geom_scale):
         kn, kt, fnm = torch.as_tensor(gains[:, g["idx"]],
                                       dtype=body_pos.dtype, device=dev)
         pi = torch.as_tensor(g["pt"].astype(np.int64), device=dev)
         vrel = vel_at(pb, pt_w) - vel_at(sb, v_at)
         mu = params.mu * model.cp_friction[pi]
+        if mu_scale is not None:
+            mu = mu * mu_scale[:, pb]
         f = _contact_force(pen, n, vrel, mu, params.kd, kn, kt, fnm)
         n_pt = torch.linalg.cross(pt_w - body_pos[:, pb], f, dim=-1)
         n_sf = torch.linalg.cross(pt_w - body_pos[:, sb], -f, dim=-1)

@@ -12,7 +12,7 @@ the hand-written kernels (`ops/fused_step.py`) are held against.
 from __future__ import annotations
 
 import weakref
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -189,14 +189,21 @@ def aba(
     kin: Kinematics,
     gravity: torch.Tensor,
     h: float = 0.0,
+    mass_scale: Optional[torch.Tensor] = None,
+    tendon_stiffness_scale: Optional[torch.Tensor] = None,
+    tendon_damping_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Articulated-body algorithm -> qdd (N, nv).
 
     tau_joint: (N, njd) total active torque per joint dof. f_ext_world:
     (N, nb, 6) external wrench [torque; force] about each body origin, in
-    world coordinates. h: integrator substep; adds h*(drive + passive
-    damping + h*stiffness) to the joint diagonal (implicit damping /
-    Stable-PD, see drive_torques).
+    world coordinates. gravity: (3,), or (N, 3) per env. h: integrator
+    substep; adds h*(drive + passive damping + h*stiffness) to the joint
+    diagonal (implicit damping / Stable-PD, see drive_torques); the drive's
+    randomization scales do not reach this diagonal. mass_scale (N, nb):
+    per-env multiplier of each body's spatial inertia and of its
+    velocity-product bias force (scaled after the cross products).
+    tendon_*_scale (N, nt): the tendons' share of the diagonal per env.
     """
     N, nb = q.shape[0], model.nb
     tr = _tree(model)
@@ -207,12 +214,20 @@ def aba(
         # fixed-tendon implicit diagonal: h*(c + h*(k + k_lim))*coef^2 per
         # coupled dof, the diagonal part of the implicit tendon Jacobian
         # (the off-diagonal coupling is dropped; errs on the damped side)
-        per_t = h * (model.tendon_damping + h * (
-            model.tendon_stiffness + model.tendon_limit_stiffness))
-        d_implicit = d_implicit.index_add(
-            0, tr.td.reshape(-1),
-            (per_t[:, None] * model.tendon_coef ** 2).reshape(-1),
-        )
+        tk, klim, tc = (model.tendon_stiffness, model.tendon_limit_stiffness,
+                        model.tendon_damping)
+        if tendon_stiffness_scale is not None:
+            tk, klim = tk * tendon_stiffness_scale, klim * tendon_stiffness_scale
+        if tendon_damping_scale is not None:
+            tc = tc * tendon_damping_scale
+        per_t = h * (tc + h * (tk + klim))           # (nt,) or (N, nt)
+        contrib = per_t[..., None] * model.tendon_coef ** 2
+        if contrib.ndim == 3:
+            d_implicit = d_implicit.expand(N, -1).index_add(
+                1, tr.td.reshape(-1), contrib.reshape(N, -1))
+        else:
+            d_implicit = d_implicit.index_add(
+                0, tr.td.reshape(-1), contrib.reshape(-1))
 
     IA0 = spatial.spatial_inertia(
         model.body_mass, model.body_com, model.body_inertia
@@ -220,6 +235,9 @@ def aba(
     IA = IA0.expand(N, nb, 6, 6).clone()
     v = kin.v
     pA = spatial.cross_force(v, torch.einsum("kij,nkj->nki", IA0, v))
+    if mass_scale is not None:
+        IA = IA * mass_scale[..., None, None]
+        pA = pA * mass_scale[..., None]
     ERw = kin.Rw.transpose(-1, -2)
     f_b = torch.cat(
         [_mv(ERw, f_ext_world[..., 0:3]), _mv(ERw, f_ext_world[..., 3:6])],
@@ -239,7 +257,7 @@ def aba(
         Sb = kin.S[:, b]
         IAb = IA[:, b]
         U = _mv(IAb, Sb)
-        D = torch.sum(Sb * U, dim=-1) + model.dof_armature[jd] + d_implicit[jd]
+        D = torch.sum(Sb * U, dim=-1) + model.dof_armature[jd] + d_implicit[..., jd]
         uu = tau_joint[:, jd] - torch.sum(Sb * pA[:, b], dim=-1)
         Ia = IAb - U[..., :, None] * U[..., None, :] / D[..., None, None]
         pa = pA[:, b] + _mv(Ia, c[:, b]) + U * (uu / D)[..., None]
@@ -252,7 +270,7 @@ def aba(
         u_all[:, b] = uu
 
     # ---- outward accelerations ----
-    a_world = torch.cat([torch.zeros_like(gravity), -gravity])
+    a_world = torch.cat([torch.zeros_like(gravity), -gravity], dim=-1)
     a = torch.zeros_like(v)
     qdd = torch.zeros_like(qd)
     for i in model.roots:
@@ -273,12 +291,14 @@ def aba(
 
 
 def integrate(model: Model, q: torch.Tensor, qd: torch.Tensor,
-              qdd: torch.Tensor, dt):
+              qdd: torch.Tensor, dt, limit_lower=None, limit_upper=None):
     """Semi-implicit Euler with joint velocity clamp and hard limit
     projection; FREE roots get the 64 rad/s and 1000 m/s velocity caps and
-    the quaternion exponential."""
+    the quaternion exponential. limit_lower / limit_upper (njd,) or
+    (N, njd) take the place of the model's joint limits."""
     tr = _tree(model)
-    lim_lo, lim_hi = model.dof_limit_lower, model.dof_limit_upper
+    lim_lo = model.dof_limit_lower if limit_lower is None else limit_lower
+    lim_hi = model.dof_limit_upper if limit_upper is None else limit_upper
     qd_new = qd + dt * qdd
     vmax = model.dof_max_velocity
     qj_d = torch.minimum(torch.maximum(qd_new[:, tr.jv], -vmax), vmax)
@@ -313,16 +333,25 @@ def integrate(model: Model, q: torch.Tensor, qd: torch.Tensor,
 
 
 def drive_torques(model: Model, q: torch.Tensor, qd: torch.Tensor, control,
-                  h: float = 0.0) -> torch.Tensor:
+                  h: float = 0.0, stiffness_scale=None, damping_scale=None,
+                  tendon_stiffness_scale=None,
+                  tendon_damping_scale=None) -> torch.Tensor:
     """Total active joint torque: PD drive (clamped) + direct effort +
     passive damping/friction. Stable-PD: the spring acts on the
     velocity-predicted position q + h*qd, and the damping is made implicit
-    by the matching h*Kd on the ABA diagonal (see aba)."""
+    by the matching h*Kd on the ABA diagonal (see aba). stiffness_scale,
+    damping_scale (N, njd): per-env multipliers of the drive's kp and kd;
+    tendon_stiffness_scale (N, nt) of a tendon's stiffness and limit
+    stiffness, tendon_damping_scale (N, nt) of its damping."""
     tr = _tree(model)
     qj = q[:, tr.jq]
     qjd = qd[:, tr.jv]
     kp = model.dof_stiffness
     kd = model.dof_drive_damping
+    if stiffness_scale is not None:
+        kp = kp * stiffness_scale
+    if damping_scale is not None:
+        kd = kd * damping_scale
     drive = (
         kp * (control.pos_target - qj - h * qjd)
         + kd * (control.vel_target - qjd)
@@ -340,9 +369,13 @@ def drive_torques(model: Model, q: torch.Tensor, qd: torch.Tensor, control,
         excess = L - torch.minimum(
             torch.maximum(L, model.tendon_limit_lower),
             model.tendon_limit_upper)
-        F = (model.tendon_limit_stiffness * excess
-             + model.tendon_stiffness * (L - model.tendon_rest)
-             + model.tendon_damping * Ldot)
+        tk, klim, tc = (model.tendon_stiffness, model.tendon_limit_stiffness,
+                        model.tendon_damping)
+        if tendon_stiffness_scale is not None:
+            tk, klim = tk * tendon_stiffness_scale, klim * tendon_stiffness_scale
+        if tendon_damping_scale is not None:
+            tc = tc * tendon_damping_scale
+        F = klim * excess + tk * (L - model.tendon_rest) + tc * Ldot
         tau = tau.index_add(
             1, tr.td.reshape(-1),
             (-co * F[..., None]).reshape(q.shape[0], -1),

@@ -1,8 +1,8 @@
 """Physics engine: stepping functions bound to a (model, params) pair,
 batched over a leading env axis (PyTorch port of the JAX package's
 `physics/engine.py`: flat ground or terrain contact planes, pair contacts,
-gravity compensation and fixed tendons; randomization overlays are not
-ported and raise).
+gravity compensation, fixed tendons and per-env domain-randomization
+overlays).
 
 The device of the model's tensors picks the path. On CUDA, `step_n` is
 one launch of the whole-control-step kernel K1 (with `plane_refresh`, one
@@ -13,6 +13,11 @@ kernel K3 that no engine path launches); a model beyond the kernels' maxima
 raises `NotImplementedError` there (`check_scope`). On the CPU both run the
 plain versions, with the same plane semantics: terrain planes are sampled
 from the reported state and stay frozen over the substeps of one launch.
+
+An overlay is a dict of per-env tensors, (N, size) float32 on the engine's
+device, under the keys of `fused_step.OVERLAY_KEYS`: `*_scale` keys
+multiply a model constant (neutral 1), `*_delta` keys add to one (neutral
+0). Every launch of one `step_n` gets the same overlay.
 """
 
 from __future__ import annotations
@@ -121,12 +126,10 @@ class PhysicsEngine:
         self.pair_gains = pair_gains(model, self.pair_groups,
                                      self.contact_params)
         self._has_pairs = len(model.pair_surf) > 0
-        # counter-gravity force per body, (nb, 3); None without compensation
-        self._gravcomp_force = None
+        # gravity_comp * mass per body, (nb,); None without compensation
+        self._gravcomp_mass = None
         if bool(torch.any(model.gravity_comp != 0)):
-            self._gravcomp_force = (
-                -(model.gravity_comp * model.body_mass)[:, None] * self._gravity
-            )
+            self._gravcomp_mass = model.gravity_comp * model.body_mass
         self.kernels = None
         if self.device.type == "cuda":
             # physics runs in full f32: no TF32 in any matmul
@@ -187,34 +190,64 @@ class PhysicsEngine:
             d = (n * anchor).sum(-1)
         return torch.cat([n, d[..., None]], dim=-1).contiguous()
 
-    def _substep(self, q, qd, control: Control, f_applied, h, planes=None):
+    def _substep(self, q, qd, control: Control, f_applied, h, planes=None,
+                 overlay=None):
         """One plain substep: FK -> contacts -> drives -> ABA -> integrate.
         Returns (q, qd, sensor_forces); sensors read the contact wrench
         [force, torque] of their bodies: ground and pair contacts, without
         applied forces and gravity compensation. `planes` (N, ncp, 4): the
         ground contacts' terrain planes (`_contact_planes`), flat ground
-        when None."""
+        when None. `overlay`: the per-env randomization overlay (module
+        docstring), already checked. Contact gains stay the model's under
+        `mass_scale`, and the drive's implicit diagonal stays unscaled under
+        `stiffness_scale` / `damping_scale`, as in the kernel."""
         m = self.model
+        ov = overlay or {}
+        mu_scale, geom_scale = ov.get("friction_scale"), ov.get("geom_scale")
+        gravity = self._gravity
+        if "gravity_delta" in ov:
+            gravity = gravity + ov["gravity_delta"]              # (N, 3)
         kin = dynamics.kinematics(m, q, qd)
         avel, lvel = dynamics.world_velocities(m, kin)
         cres = plane_contacts(m, kin.pw, kin.Rw, avel, lvel,
                               self.contact_params, self.contact_gains,
-                              planes=planes)
+                              planes=planes, mu_scale=mu_scale,
+                              geom_scale=geom_scale)
         f_contact = cres.f_ext
         if self._has_pairs:
             f_contact = f_contact + pair_contacts(
                 m, self.pair_groups, kin.pw, kin.Rw, avel, lvel,
-                self.contact_params, self.pair_gains)
+                self.contact_params, self.pair_gains, mu_scale=mu_scale,
+                geom_scale=geom_scale)
         f_ext = f_contact + f_applied
-        if self._gravcomp_force is not None:
-            # counter-gravity at each compensated body's CoM
-            fg = self._gravcomp_force
+        if self._gravcomp_mass is not None:
+            # counter-gravity at each compensated body's CoM; the product
+            # with the folded gravity_comp * mass comes first, the mass
+            # scale last, as in the kernel
+            fg = -self._gravcomp_mass[:, None] * gravity[..., None, :]
+            if "mass_scale" in ov:
+                fg = fg * ov["mass_scale"][..., None]
             com_rel = (kin.Rw @ m.body_com[..., None])[..., 0]
-            ng = torch.linalg.cross(com_rel, fg.expand_as(com_rel), dim=-1)
-            f_ext = f_ext + torch.cat([ng, fg.expand_as(ng)], dim=-1)
-        tau = dynamics.drive_torques(m, q, qd, control, h)
-        qdd = dynamics.aba(m, q, qd, tau, f_ext, kin, self._gravity, h)
-        q, qd = dynamics.integrate(m, q, qd, qdd, h)
+            fg = fg.expand_as(com_rel)
+            ng = torch.linalg.cross(com_rel, fg, dim=-1)
+            f_ext = f_ext + torch.cat([ng, fg], dim=-1)
+        tendon = dict(
+            tendon_stiffness_scale=ov.get("tendon_stiffness_scale"),
+            tendon_damping_scale=ov.get("tendon_damping_scale"))
+        tau = dynamics.drive_torques(
+            m, q, qd, control, h, stiffness_scale=ov.get("stiffness_scale"),
+            damping_scale=ov.get("damping_scale"), **tendon)
+        qdd = dynamics.aba(m, q, qd, tau, f_ext, kin, gravity, h,
+                           mass_scale=ov.get("mass_scale"), **tendon)
+        # limit + delta is rounded once, before the comparison, as the
+        # kernel's __fadd_rn does
+        lim_lo = lim_hi = None
+        if "limit_lower_delta" in ov:
+            lim_lo = m.dof_limit_lower + ov["limit_lower_delta"]
+        if "limit_upper_delta" in ov:
+            lim_hi = m.dof_limit_upper + ov["limit_upper_delta"]
+        q, qd = dynamics.integrate(m, q, qd, qdd, h, limit_lower=lim_lo,
+                                   limit_upper=lim_hi)
         sb = list(m.sensor_body)
         sensor_forces = torch.cat(
             [f_contact[:, sb, 3:6], f_contact[:, sb, 0:3]], dim=-1
@@ -229,10 +262,11 @@ class PhysicsEngine:
         contact_plane_fn: one K1 launch of a single substep per substep,
         each on planes sampled from the state the launch before reported (a
         foot that crosses a stair edge within the control step meets the
-        new feature at once)."""
-        if overlay is not None:
-            raise NotImplementedError(
-                "domain-randomization overlays are not ported yet")
+        new feature at once). `overlay`: the per-env randomization overlay
+        of this step (module docstring), the same for every launch; an
+        unknown key, a wrong shape, dtype or device raises."""
+        overlay = fused_step.check_overlay(self.model, overlay,
+                                           state.q.shape[0], self.device)
         f_applied = torch.cat([control.body_torque, control.body_force], dim=-1)
         ctrl = (control.effort.contiguous(), control.pos_target.contiguous(),
                 control.vel_target.contiguous(), f_applied)
@@ -243,6 +277,7 @@ class PhysicsEngine:
                 self, state.q.contiguous(), state.qd.contiguous(), *ctrl,
                 n_steps,
                 planes=self._contact_planes(state) if self.has_terrain else None,
+                overlay=overlay,
             )
             state = State(q=q, qd=qd, body_pos=pos, body_quat=quat,
                           body_lvel=lvel, body_avel=avel, sensor_forces=sf)

@@ -6,12 +6,16 @@
         task=ShadowHand num_envs=8192 max_iterations=8
     python -m omniisaacgymenvs_torch.scripts.profile_rollout \
         task=AnymalTerrain num_envs=2048 max_iterations=8
+    python -m omniisaacgymenvs_torch.scripts.profile_rollout \
+        task=ShadowHandOpenAI_FF num_envs=8192 max_iterations=8
 
 Builds the same VecEnv as `random_policy`, resets and warms up for two
 steps, then traces `max_iterations` steps with `torch.profiler`. Prints
 the wall time per control step, the device-busy share of the window
 (kernel time summed over one stream, over wall time), and the kernels by
-device time. For a task on terrain it then traces the sampling of the
+device time. A task under domain randomization (ShadowHandOpenAI_FF, or
+ShadowHand with `task.domain_randomization.randomize=True`) is traced with
+its sampling and merging of the overlays in the step. For a task on terrain it then traces the sampling of the
 contact planes alone (`engine._contact_planes`, the task's plane function
 as small PyTorch ops) and prints its share of the step. Needs a CUDA
 device.

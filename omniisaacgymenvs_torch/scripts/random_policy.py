@@ -5,7 +5,10 @@ learning in the loop, and print reward statistics and throughput.
         task=Humanoid num_envs=32768 max_iterations=64 [device=cpu]
 
 Tasks: Humanoid, Ant, Cartpole, BallBalance, ShadowHand, Anymal,
-AnymalTerrain. Runs on CUDA unless `device=cpu` is given.
+AnymalTerrain, ShadowHandOpenAI_FF and ShadowHandOpenAI_LSTM (the hand under
+its yaml's domain randomization; ShadowHand takes
+`task.domain_randomization.randomize=True`). Runs on CUDA unless
+`device=cpu` is given.
 """
 
 from __future__ import annotations

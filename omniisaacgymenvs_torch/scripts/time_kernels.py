@@ -2,7 +2,7 @@
 of the port within one call on one card.
 
     python omniisaacgymenvs_torch/scripts/time_kernels.py \
-        [task=Humanoid] [num_envs=32768] [label=change]
+        [task=Humanoid] [num_envs=32768] [label=change] [substeps=N]
 
 Imports whichever `omniisaacgymenvs_torch` comes first on `sys.path`, so
 the same file times another tree of the port: unpack the parent commit
@@ -10,8 +10,12 @@ with `git archive` into a git-ignored directory and run this file with
 `PYTHONPATH` set to it, in turns (parent, change, change, parent). Prints
 three readings of K1 (the launch the task's control step makes: all its
 substeps at once, or, on terrain with the plane refresh, one substep on
-terrain planes), K2 and, where the tree has it, K3, each over 20 launches
-with CUDA events, then the ptxas lines of the build. Needs a CUDA card.
+terrain planes; `substeps=N` overrides the depth), K2 and, where the tree
+has it, K3, each over 20 launches with CUDA events, then the ptxas lines of
+the build. For a task under domain randomization (`task=ShadowHandOpenAI_FF`,
+or `task=ShadowHand task.domain_randomization.randomize=True`) K1 and K3
+are timed with an overlay of all ten keys (`parity.overlay_inputs`) and,
+beside it, without one. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 from omniisaacgymenvs_torch.ops import fused_step as fs
 from omniisaacgymenvs_torch.ops import parity
 from omniisaacgymenvs_torch.tasks import get_task
-from omniisaacgymenvs_torch.utils.config import load_config
+from omniisaacgymenvs_torch.utils.config import load_config, parse_cli
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -41,10 +45,12 @@ def time_ms(fn, reps: int = 20) -> float:
 
 
 def main(argv=None) -> int:
-    args = dict(a.split("=", 1) for a in (sys.argv[1:] if argv is None else argv))
-    name = args.get("task", "Humanoid")
-    n = int(args.get("num_envs", 32768))
-    label = args.get("label", "change")
+    args = parse_cli(sys.argv[1:] if argv is None else argv)
+    label = args.pop("label", "change")
+    substeps = args.pop("substeps", None)
+    n = int(args.setdefault("num_envs", 32768))
+    cfg = load_config(args)
+    name = cfg["task_name"]
     if not torch.cuda.is_available():
         print("time_kernels: no CUDA device", file=sys.stderr)
         return 1
@@ -53,7 +59,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
-    task = get_task(name, load_config({"task": name})["task"], device=dev)
+    task = get_task(name, cfg["task"], device=dev)
     eng = task.engine
     m = eng.model
     n_sub = task.decimation * eng.params.substeps
@@ -64,12 +70,20 @@ def main(argv=None) -> int:
         kw["planes"] = eng._contact_planes(eng.init_state(q, qd))
     else:
         q, qd, eff = parity.check_inputs(m, n, seed=1, device=dev)
+    if substeps is not None:
+        n_sub = int(substeps)
     z = torch.zeros((n, m.njd), device=dev)
     fa = torch.zeros((n, m.nb, 6), device=dev)
     runs = {"K1": lambda: fs.step(eng, q, qd, eff, z, z, fa, n_sub, **kw),
             "K2": lambda: fs.fk(eng, q, qd)}
     if hasattr(fs, "substep"):
         runs["K3"] = lambda: fs.substep(eng, q, qd, eff, z, z, fa, **kw)
+    if getattr(task, "_dr_on", False):
+        ov = parity.overlay_inputs(m, n, seed=1, device=dev)
+        runs["K1+overlay"] = lambda: fs.step(eng, q, qd, eff, z, z, fa, n_sub,
+                                             overlay=ov, **kw)
+        runs["K3+overlay"] = lambda: fs.substep(eng, q, qd, eff, z, z, fa,
+                                                overlay=ov, **kw)
     for rep in range(3):
         print(f"{label} {card} | {name} {n} envs, {n_sub} substeps a launch"
               f"{', terrain planes' if kw else ''}, reading "

@@ -3,7 +3,8 @@ sound build against the plain version, and broken controls that the
 tolerances must refuse.
 
     python -m omniisaacgymenvs_torch.scripts.tolerance_controls \
-        [task=Humanoid|ShadowHand|AnymalTerrain] [num_envs=N]
+        [task=Humanoid|ShadowHand|AnymalTerrain|ShadowHandOpenAI_FF] \
+        [num_envs=N]
 
 Needs a CUDA card. Runs on the task's states from `parity.check_inputs`
 (32805 Humanoid envs, 8229 ShadowHand envs, 2085 AnymalTerrain envs from
@@ -29,8 +30,20 @@ ShadowHand:
   pair drop   K1 and K3 without the candidate pair most often in contact;
   box +1mm    K1 and K3 with every box surface's half extents 1 mm larger;
   tendon x1.001  K1 and K3 with every tendon's stiffnesses 0.1% high;
-both:
+ShadowHandOpenAI_FF (the hand under randomization: 12 substeps a K1 launch,
+every run under an overlay of all ten keys from `parity.overlay_inputs`; the
+kernel gets the broken overlay, the plain version the sound one):
+  ov shift    K1 and K3 with env i's overlay fed to env i + 1;
+  mass off    the same with mass_scale ignored (set to 1);
+  geom x1.01  the same with every geom_scale 1% high;
+  klim fixed  the same with the tendons' limit stiffness left unscaled:
+              both sides get a tendon_stiffness_scale of 1.3 in every env
+              and the kernel's table holds the limit stiffness over 1.3;
+all:
   jpos +0.1mm K2 with every joint 0.1 mm off along x.
+Under an overlay the readings are taken over the envs whose step is well
+conditioned (`parity.well_conditioned`; the line says how many were left
+out), as the checks take them.
 Each line gives, per output, the max abs error and the tolerance use (the
 largest error over its limit; below 1 passes). A control is caught when
 some output's use exceeds 1. The last line is all readings as JSON.
@@ -100,17 +113,28 @@ def main(argv=None) -> int:
 
     readings = []
 
-    def inputs(seed, drop=None):
-        """(q, qd, eff, planes or None) of the check states of `seed`."""
+    def inputs(seed, drop=None, overlay=None):
+        """(q, qd, eff, planes or None) of the check states of `seed`, moved
+        off the ties of two box faces under `overlay`'s geom_scale."""
         if not terrain:
-            return (*parity.check_inputs(m, n, seed, dev, drop=drop), None)
+            q, qd, eff = parity.check_inputs(m, n, seed, dev, drop=drop)
+            return parity.clear_box_ties(eng, q, qd, overlay), qd, eff, None
         depth = parity.TERRAIN_DEPTH if drop is None else drop
         q, qd, eff = parity.terrain_check_inputs(task, n, seed, dev, depth)
         return q, qd, eff, eng._contact_planes(eng.init_state(q, qd))
 
+    randomized = task._dr_on
+
     def run(label, kernel, seed=0, drop=None, lib=sound, tab=None,
-            n_steps=None, break_planes=None):
-        q, qd, eff, planes = inputs(seed, drop)
+            n_steps=None, break_planes=None, break_overlay=None,
+            both_overlay=None):
+        ov = ov_k = None
+        if randomized:
+            ov = parity.overlay_inputs(m, n, seed, dev)
+            if both_overlay is not None:
+                ov = both_overlay(ov)
+            ov_k = ov if break_overlay is None else break_overlay(ov)
+        q, qd, eff, planes = inputs(seed, drop, ov)
         ptg = parity.check_targets(m, q, seed)
         z = torch.zeros((n, m.njd), device=dev)
         fa = torch.zeros((n, m.nb, 6), device=dev)
@@ -121,34 +145,51 @@ def main(argv=None) -> int:
         try:
             if kernel in ("K1", "K1x4"):
                 out = fs.step(eng, q, qd, eff, ptg, z, fa, n_steps,
-                              planes=planes_k)
-                ref = fs.step_plain(eng, q, qd, eff, ptg, z, fa, n_ref,
-                                    planes=planes)
+                              planes=planes_k, overlay=ov_k)
+
+                def plain(q_, qd_):
+                    return fs.step_plain(eng, q_, qd_, eff, ptg, z, fa, n_ref,
+                                         planes=planes, overlay=ov)
                 names, tol = parity.STEP_NAMES, parity.step_tol(m)
             elif kernel == "K3":
-                out = fs.substep(eng, q, qd, eff, ptg, z, fa, planes=planes_k)
-                ref = fs.substep_plain(eng, q, qd, eff, ptg, z, fa,
-                                       planes=planes)
+                out = fs.substep(eng, q, qd, eff, ptg, z, fa, planes=planes_k,
+                                 overlay=ov_k)
+
+                def plain(q_, qd_):
+                    return fs.substep_plain(eng, q_, qd_, eff, ptg, z, fa,
+                                            planes=planes, overlay=ov)
                 names, tol = parity.SUBSTEP_NAMES, parity.SUBSTEP_TOL
             else:
                 out = fs.fk(eng, q, qd)
-                ref = fs.fk_plain(m, q, qd)
+
+                def plain(q_, qd_):
+                    return fs.fk_plain(m, q_, qd_)
                 names, tol = parity.FK_NAMES, parity.FK_TOL
+            ref = plain(q, qd)
             torch.cuda.synchronize()
         finally:
             fs._LIBRARY, k.ftab = sound, ftab
-        res = parity.compare(out, ref, names, tol)
+        keep, left_out = None, 0
+        if ov is not None and kernel != "K2":
+            # a reading, not a check: however many envs fall out
+            keep = parity.well_conditioned(plain, q, qd, ref, names, tol,
+                                           max_excluded=1.0)
+            left_out = int((~keep).sum())
+        res = parity.compare(out, ref, names, tol, keep)
         worst = max(use for _, use in res.values())
         readings.append(dict(label=label, kernel=kernel, seed=seed, drop=drop,
-                             worst_use=worst, fields=res))
+                             worst_use=worst, left_out=left_out, fields=res))
         print(f"{kernel} {label:13s} worst use {worst:.4g} | " + "  ".join(
-            f"{f} {e:.3e}/{u:.3g}" for f, (e, u) in res.items()), flush=True)
+            f"{f} {e:.3e}/{u:.3g}" for f, (e, u) in res.items())
+            + (f" | {left_out} envs left out" if keep is not None else ""),
+            flush=True)
 
     q0, qd0, _, planes0 = inputs(0)
     active = (parity.terrain_contacts(task, eng, q0, qd0) if terrain
               else parity.active_contacts(eng, q0, qd0))
     print(f"card: {card} | {n} envs, {task_name}, {n_sub} substeps a K1 "
-          f"launch, active contacts {active}")
+          f"launch{', under an overlay of all ten keys' if randomized else ''}, "
+          f"active contacts {active}")
     deep = {"Humanoid": 0.5, "AnymalTerrain": (0.02, 0.05)}.get(task_name, 0.02)
     step_kernels = ("K1", "K1x4") if terrain else ("K1",)
     for kern in (*step_kernels, "K3", "K2"):
@@ -198,6 +239,22 @@ def main(argv=None) -> int:
             run("pair drop", kern, tab=table(pair_gain, mul=0.0))
             run("box +1mm", kern, tab=table(box_half, add=1e-3))
             run("tendon x1.001", kern, tab=table(tend_k, mul=1.001))
+        if randomized:
+            tend_klim = off["f_tend"] + fs._TEND_STRIDE * ar(m.nt) + 7
+
+            def change(key, fn):
+                return lambda ov: {**ov, key: fn(ov[key]).contiguous()}
+
+            for kern in ("K1", "K3"):
+                run("ov shift", kern, break_overlay=lambda ov: {
+                    k: v.roll(1, 0).contiguous() for k, v in ov.items()})
+                run("mass off", kern,
+                    break_overlay=change("mass_scale", torch.ones_like))
+                run("geom x1.01", kern,
+                    break_overlay=change("geom_scale", lambda v: v * 1.01))
+                run("klim fixed", kern, tab=table(tend_klim, mul=1.0 / 1.3),
+                    both_overlay=change("tendon_stiffness_scale",
+                                        lambda v: torch.full_like(v, 1.3)))
     run("jpos +0.1mm", "K2", tab=table(jpos_x, add=1e-4))
     print(card)
     print(json.dumps({"card": card, "task": task_name, "num_envs": n,

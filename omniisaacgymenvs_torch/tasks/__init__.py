@@ -13,11 +13,24 @@ def _registry():
     from omniisaacgymenvs_torch.tasks.humanoid import HumanoidLocomotionTask
     from omniisaacgymenvs_torch.tasks.shadow_hand import ShadowHandTask
 
+    def openai_variant(cfg, device=None):
+        """ShadowHand with openai observations and asymmetric states, the
+        defaults of the two OpenAI configurations (feed-forward and LSTM
+        build the same task: they differ in the train config)."""
+        cfg = dict(cfg or {})
+        env = dict(cfg.get("env", {}))
+        env.setdefault("observationType", "openai")
+        env.setdefault("asymmetric_observations", True)
+        cfg["env"] = env
+        return ShadowHandTask(cfg, device=device)
+
     return {"Ant": AntLocomotionTask, "Anymal": AnymalTask,
             "AnymalTerrain": AnymalTerrainTask,
             "BallBalance": BallBalanceTask,
             "Cartpole": CartpoleTask, "Humanoid": HumanoidLocomotionTask,
-            "ShadowHand": ShadowHandTask}
+            "ShadowHand": ShadowHandTask,
+            "ShadowHandOpenAI_FF": openai_variant,
+            "ShadowHandOpenAI_LSTM": openai_variant}
 
 
 def get_task(name: str, cfg: dict | None = None, device=None) -> RLTask:
@@ -27,9 +40,12 @@ def get_task(name: str, cfg: dict | None = None, device=None) -> RLTask:
         raise KeyError(
             f"unknown task {name!r}; ported so far: {sorted(task_map)}"
         )
-    if (cfg or {}).get("domain_randomization", {}).get("randomize"):
-        raise NotImplementedError("domain randomization is not ported yet")
-    return task_map[name](cfg, device=device)
+    from omniisaacgymenvs_torch.utils.domain_randomization import Randomizer
+
+    task = task_map[name](cfg, device=device)
+    # the randomization block stands at the root of the task yaml
+    task.randomizer = Randomizer((cfg or {}).get("domain_randomization"))
+    return task
 
 
 __all__ = ["EnvState", "RLTask", "get_task"]

@@ -456,7 +456,7 @@ class AnymalTerrainTask(RLTask):
                 distance > self.terrain.env_length / 2).to(torch.int32)
             level = torch.clamp(level, min=0) % self.terrain.env_rows
         return self.fresh_state(*self._reset_at(generator, level,
-                                                carry["ttype"]))
+                                                carry["ttype"]), generator)
 
     def pre_physics(self, es: EnvState, generator) -> EnvState:
         """Random pushes of the base every push_interval steps, and this

@@ -1,11 +1,17 @@
 """Task base: the RLTask contract over batched tensors (PyTorch port of the
-JAX package's `tasks/base.py`, without randomization).
+JAX package's `tasks/base.py`).
 
 A task is a set of batched hooks (sample_reset, control, observe,
 reward_done) over an `EnvState` whose fields carry a leading env axis.
 `step` auto-resets on entry: it computes a fresh reset for every env and
 merges it with `torch.where` on the previous step's done flag, so no env
 index ever reaches the host.
+
+With a `Randomizer` attached and switched on, a task whose carry is a dict
+keeps its domain randomization there under `_dr`: the episode's correlated
+observation and action noise, the episode's physics overlay (`overlay`,
+with the on_interval keys updated in place) and the env's once-only
+overlay (`startup`), which survives the auto-reset merge.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch
 
 from omniisaacgymenvs_torch.physics.engine import PhysicsEngine
 from omniisaacgymenvs_torch.physics.state import Control, State
+from omniisaacgymenvs_torch.utils.domain_randomization import combine_overlays
 
 
 @dataclasses.dataclass
@@ -76,8 +83,18 @@ class RLTask:
     clip_obs: float = math.inf
     clip_actions: float = math.inf
     decimation: int = 1
+    # utils/domain_randomization.Randomizer, attached by the registry from
+    # the task yaml's domain_randomization block
+    randomizer = None
+    # view name of the yaml -> {dofs, bodies, tendons} index sets of the
+    # model, so that a view's block randomizes its own part of the scene
+    dr_views = None
 
     engine: PhysicsEngine
+
+    @property
+    def _dr_on(self) -> bool:
+        return self.randomizer is not None and self.randomizer.randomize
 
     @property
     def device(self) -> torch.device:
@@ -137,11 +154,28 @@ class RLTask:
     # ------------------------------------------------------------------
     def reset(self, n: int, generator: torch.Generator) -> EnvState:
         """Fresh state of n envs."""
-        return self.fresh_state(*self.sample_reset(n, generator))
+        return self.fresh_state(*self.sample_reset(n, generator), generator)
 
-    def fresh_state(self, q, qd, carry) -> EnvState:
-        """The EnvState of an episode that starts at (q, qd, carry)."""
+    def fresh_state(self, q, qd, carry,
+                    generator: torch.Generator) -> EnvState:
+        """The EnvState of an episode that starts at (q, qd, carry); with
+        randomization on, the episode's draws go into the carry's `_dr`."""
         n = q.shape[0]
+        if self._dr_on and isinstance(carry, dict):
+            rz = self.randomizer
+            dr = rz.sample_correlated(generator, n, self.num_obs,
+                                      self.num_actions, self.device)
+            overlay = rz.sample_overlay(generator, n, self.model,
+                                        self.dr_views)
+            if overlay is not None:
+                dr["overlay"] = overlay
+            # drawn at every reset, kept only from an env's first: `step`
+            # puts the old values back after the auto-reset merge
+            startup = rz.sample_startup_overlay(generator, n, self.model,
+                                                self.dr_views)
+            if startup is not None:
+                dr["startup"] = startup
+            carry["_dr"] = dr
         phys = self.engine.init_state(q, qd)
         zero_action = torch.zeros((n, self.num_actions), device=self.device)
         obs, states, carry = self.observe(phys, carry, zero_action)
@@ -158,9 +192,11 @@ class RLTask:
             metrics=self.initial_metrics(n),
         )
 
-    def physics_steps(self, phys: State, ctrl: Control) -> State:
-        """decimation x engine.step: one K1 launch on CUDA."""
-        return self.engine.step_n(phys, ctrl, self.decimation)
+    def physics_steps(self, phys: State, ctrl: Control,
+                      overlay=None) -> State:
+        """decimation x engine.step under the step's randomization overlay:
+        one K1 launch on CUDA."""
+        return self.engine.step_n(phys, ctrl, self.decimation, overlay)
 
     def step(self, es: EnvState, action: torch.Tensor,
              generator: torch.Generator) -> EnvState:
@@ -169,19 +205,41 @@ class RLTask:
         (`resample_reset`, which sees the ending state) is merged with
         `where` on the done flag, then `pre_physics` runs on the merged
         state."""
+        carry_is_dict = isinstance(es.carry, dict)
+        old_startup = (es.carry.get("_dr", {}).get("startup")
+                       if carry_is_dict else None)
         fresh = self.resample_reset(es, generator)
         es = tree_where(es.done, fresh, es)
         es = self.pre_physics(es, generator)
+        if old_startup is not None:
+            # an on_startup draw holds for the env's whole run: undo the
+            # merge's fresh sample
+            es.carry["_dr"] = dict(es.carry["_dr"], startup=old_startup)
 
         action = torch.clamp(action, -self.clip_actions, self.clip_actions)
+        dr = es.carry.get("_dr", {}) if carry_is_dict else {}
+        if self._dr_on:
+            if carry_is_dict and self.randomizer.has_interval_overlays():
+                dr = dict(dr, overlay=self.randomizer.update_interval_overlay(
+                    dr.get("overlay"), generator, self.model, es.progress,
+                    self.dr_views))
+                es.carry["_dr"] = dr
+            # actions are randomized after the clamp, before the control
+            action = self.randomizer.randomize_actions(
+                action, generator, dr, es.progress)
         ctrl = self.control(action, es, generator)
-        phys = self.physics_steps(es.phys, ctrl)
+        overlay = combine_overlays(dr.get("startup"), dr.get("overlay"))
+        phys = self.physics_steps(es.phys, ctrl, overlay)
         progress = es.progress + 1
         obs, states, carry = self.observe(phys, es.carry, action)
         reward, done, carry, metrics = self.reward_done(
             obs, action, phys, carry, progress
         )
         progress = self.adjust_progress(carry, progress)
+        if self._dr_on:
+            # observations are randomized before the clip
+            obs = self.randomizer.randomize_observations(
+                obs, generator, dr, progress)
         # physics-explosion guard: a non-finite state ends the episode with
         # zero reward instead of poisoning the batch
         finite = torch.isfinite(

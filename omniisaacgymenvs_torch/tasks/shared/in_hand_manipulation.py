@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from omniisaacgymenvs_torch.envs.views import RigidPrimView
@@ -37,6 +38,8 @@ class InHandManipulationTask(RLTask):
     coupled_pairs: tuple = ()              # ((follower_dof, leader_dof), ...)
     fingertip_bodies: tuple = ()
     goal_pos: torch.Tensor
+    # the yaml's name of the hand's articulation view
+    dr_view_name: str = "shadow_hand_view"
 
     def __init__(self, cfg: dict | None = None):
         cfg = cfg or {}
@@ -84,6 +87,17 @@ class InHandManipulationTask(RLTask):
         idx = lambda x: torch.as_tensor(  # noqa: E731
             x, dtype=torch.long, device=self.device)
         self._jq, self._jv = idx(m.jq_idx), idx(m.jv_idx)
+        # randomization views: the hand's view covers all dofs, the hand's
+        # bodies and all tendons, the object's view the cube's body
+        self.dr_views = {
+            self.dr_view_name: dict(
+                dofs=np.arange(m.njd),
+                bodies=np.array([i for i in range(m.nb)
+                                 if i != self._obj_body]),
+                tendons=np.arange(m.nt),
+            ),
+            "object_view": dict(bodies=np.array([self._obj_body])),
+        }
 
     def initial_carry(self, n: int):
         dev = self.device

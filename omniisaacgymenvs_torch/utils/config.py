@@ -21,6 +21,32 @@ def _load_yaml(path: str) -> dict:
         return yaml.safe_load(f) or {}
 
 
+def _deep_merge(base: dict, over: dict) -> dict:
+    out = dict(base)
+    for k, v in over.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = _deep_merge(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def _load_yaml_with_defaults(path: str) -> dict:
+    """A yaml with `defaults: [Parent, _self_]` inheritance: the parents
+    (files beside it) merged in order, then the file's own keys
+    (ShadowHandOpenAI_LSTM inherits ShadowHandOpenAI_FF)."""
+    d = _load_yaml(path)
+    bases = d.pop("defaults", None)
+    if not bases:
+        return d
+    merged: dict = {}
+    for b in bases:
+        if b != "_self_":
+            merged = _deep_merge(merged, _load_yaml_with_defaults(
+                os.path.join(os.path.dirname(path), f"{b}.yaml")))
+    return _deep_merge(merged, d)
+
+
 def _parse_value(v: str) -> Any:
     try:
         return ast.literal_eval(v)
@@ -63,7 +89,8 @@ def load_config(overrides: Optional[Dict[str, Any]] = None) -> dict:
     )
     task_path = os.path.join(CFG_DIR, "task", f"{root['task_name']}.yaml")
     cfg = dict(root)
-    cfg["task"] = _load_yaml(task_path) if os.path.exists(task_path) else {}
+    cfg["task"] = (_load_yaml_with_defaults(task_path)
+                   if os.path.exists(task_path) else {})
     if root["num_envs"]:
         _set_dotted(cfg, "task.env.numEnvs", root["num_envs"])
     for k, v in overrides.items():

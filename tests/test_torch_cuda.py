@@ -1,9 +1,10 @@
 """Card tests of the PyTorch port: each kernel (K1 whole control step, K2
 report FK, K3 single substep) against its plain version on the card, on
 the Humanoid, BallBalance, ShadowHand, Anymal and the synthetic pair scene,
-K1 and K3 on AnymalTerrain's contact planes, the engine's launches with and
-without the plane refresh, and its refusal of scenes beyond the kernels'
-maxima.
+K1 and K3 on AnymalTerrain's contact planes, K1 and K3 under a
+domain-randomization overlay (all four kernel variants), the engine's
+launches with and without the plane refresh, and its refusal of scenes
+beyond the kernels' maxima.
 They skip without a CUDA device. This file imports no JAX, so it also runs
 where JAX is not installed:
 
@@ -206,6 +207,112 @@ def test_terrain_engine_launches_once_per_substep_with_refresh(refresh, cuda_dev
            out.body_avel, out.body_lvel)
     parity.assert_within("AnymalTerrain step_n", parity.compare(
         got, ref, parity.STEP_NAMES, tol), tol)
+
+
+def _scene_engine(name, device):
+    if name == "PairScene":
+        return PhysicsEngine(parity.build_pair_scene(device),
+                             SimParams(dt=1.0 / 120.0, substeps=2))
+    return get_task(name, device=device).engine
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ShadowHand", "BallBalance", "PairScene",
+                                  "Humanoid"])
+def test_kernels_match_plain_on_card_with_overlay(name, cuda_device):
+    """K1 and K3 under an overlay of every key the model has a size for
+    (drawn over the ShadowHandOpenAI_FF yaml's ranges, on every body, joint
+    and tendon) against their plain versions; every key moves the result;
+    an all-neutral overlay gives what no overlay gives, to rounding; the
+    counters tell the overlay launches apart."""
+    eng = _scene_engine(name, cuda_device)
+    m = eng.model
+    n = 1061
+    q, qd, eff = parity.check_inputs(m, n, seed=3, device=cuda_device)
+    ptg = parity.check_targets(m, q, 3)
+    z = torch.zeros((n, m.njd), device=cuda_device)
+    fa = torch.zeros((n, m.nb, 6), device=cuda_device)
+    ins = (q, qd, eff, ptg, z, fa)
+    ov = parity.overlay_inputs(m, n, seed=3, device=cuda_device)
+    assert set(ov) == {k for k, s in fs.overlay_sizes(m).items() if s}
+    q = parity.clear_box_ties(eng, q, qd, ov)
+    ins = (q, *ins[1:])
+    tol = parity.step_tol(m)
+    out = fs.step(eng, *ins, N_STEPS, overlay=ov)
+    ref = fs.step_plain(eng, *ins, N_STEPS, overlay=ov)
+    # judged on the envs whose step is well conditioned (ops/parity.py)
+    keep = parity.well_conditioned(
+        lambda q_, qd_: fs.step_plain(eng, q_, qd_, *ins[2:], N_STEPS, overlay=ov),
+        q, qd, ref, parity.STEP_NAMES, tol)
+    parity.assert_within(f"{name} K1 overlay", parity.compare(
+        out, ref, parity.STEP_NAMES, tol, keep), tol)
+    out3 = fs.substep(eng, *ins, overlay=ov)
+    ref3 = fs.substep_plain(eng, *ins, overlay=ov)
+    keep3 = parity.well_conditioned(
+        lambda q_, qd_: fs.substep_plain(eng, q_, qd_, *ins[2:], overlay=ov),
+        q, qd, ref3, parity.SUBSTEP_NAMES, parity.SUBSTEP_TOL)
+    parity.assert_within(f"{name} K3 overlay", parity.compare(
+        out3, ref3, parity.SUBSTEP_NAMES, parity.SUBSTEP_TOL, keep3),
+        parity.SUBSTEP_TOL)
+    assert eng.kernels.launches == {"step": 1, "fk": 0, "substep": 1}
+    assert eng.kernels.overlay_launches == {"step": 1, "substep": 1}
+    bare = fs.step(eng, *ins, N_STEPS)
+    assert eng.kernels.overlay_launches["step"] == 1
+    for key, val in ov.items():
+        one = fs.step(eng, *ins, N_STEPS, overlay={key: val})
+        if name not in ("ShadowHand", "BallBalance") or (
+                key.startswith("limit_") and name != "ShadowHand"):
+            # the Humanoid has no drive gains to scale, and only the hand's
+            # check states hold joints on a limit
+            continue
+        assert (one[1] - bare[1]).abs().max() > 1e-6, key
+    neutral = {k: torch.ones_like(v) if k.endswith("_scale")
+               else torch.zeros_like(v) for k, v in ov.items()}
+    same = fs.step(eng, *ins, N_STEPS, overlay=neutral)
+    parity.assert_within(f"{name} K1 neutral overlay vs none", parity.compare(
+        same, bare, parity.STEP_NAMES, tol), tol)
+    # a wrong shape, dtype, device or key raises before any launch
+    eng.kernels.reset_counts()
+    key = next(iter(ov))
+    with pytest.raises(ValueError, match="shape"):
+        fs.step(eng, *ins, 1, overlay={key: ov[key][:-1]})
+    with pytest.raises(TypeError):
+        fs.substep(eng, *ins, overlay={key: ov[key].double()})
+    with pytest.raises(ValueError):
+        fs.step(eng, *ins, 1, overlay={key: ov[key].cpu()})
+    with pytest.raises(KeyError, match="unknown overlay key"):
+        fs.step(eng, *ins, 1, overlay={"inertia_scale": ov[key]})
+    assert eng.kernels.launches == {"step": 0, "fk": 0, "substep": 0}
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card_with_planes_and_overlay(cuda_device):
+    """The fourth kernel variant: terrain planes and an overlay together,
+    K1 at one and at four substeps and K3; through the engine the plane
+    refresh hands every launch the same overlay."""
+    n = 1061
+    task, ins, planes = _terrain_case(cuda_device, n, seed=3)
+    eng, m = task.engine, task.model
+    ov = parity.overlay_inputs(m, n, seed=3, device=cuda_device)
+    tol = parity.step_tol(m)
+    for n_steps in (1, 4):
+        out = fs.step(eng, *ins, n_steps, planes=planes, overlay=ov)
+        ref = fs.step_plain(eng, *ins, n_steps, planes=planes, overlay=ov)
+        parity.assert_within(f"AnymalTerrain K1 x{n_steps} overlay",
+                             parity.compare(out, ref, parity.STEP_NAMES, tol),
+                             tol)
+    out = fs.substep(eng, *ins, planes=planes, overlay=ov)
+    ref = fs.substep_plain(eng, *ins, planes=planes, overlay=ov)
+    parity.assert_within("AnymalTerrain K3 overlay", parity.compare(
+        out, ref, parity.SUBSTEP_NAMES, parity.SUBSTEP_TOL), parity.SUBSTEP_TOL)
+    q, qd, eff, ptg, z, fa = ins
+    st = eng.init_state(q, qd)
+    ctrl = eng.default_control(n)
+    ctrl.effort, ctrl.pos_target = eff, ptg
+    eng.kernels.reset_counts()
+    eng.step_n(st, ctrl, task.decimation, overlay=ov)
+    assert eng.kernels.launches["step"] == eng.k1_launches(task.decimation) == 4
+    assert eng.kernels.overlay_launches == {"step": 4, "substep": 0}
 
 
 @pytest.mark.cuda

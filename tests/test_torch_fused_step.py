@@ -288,8 +288,8 @@ def test_scope_accepts_slice_models():
 def test_engine_refuses_unported_features(kind):
     """The engine steps tendons, gravity compensation and pair contacts on
     every device (a second seed of the scene against the JAX engine), and
-    takes terrain functions; what it still refuses is a randomization
-    overlay."""
+    takes terrain functions and randomization overlays; what it refuses is
+    an overlay of the wrong shape."""
     pm = one_feature_scene(kind)
     _compare_one_step(pm, seed=12)
     eng = PhysicsEngine(pm, SimParams())
@@ -307,9 +307,12 @@ def test_engine_refuses_unported_features(kind):
     assert (eng.k1_launches(2), by_height.k1_launches(2),
             by_plane.k1_launches(2)) == (1, 1, 2)
     st = eng.init_state(pm.default_q[None], torch.zeros((1, pm.nv)))
-    with pytest.raises(NotImplementedError, match="overlays"):
+    with pytest.raises(ValueError, match="shape"):
         eng.step_n(st, eng.default_control(1), 1,
                    overlay={"mass_scale": torch.ones(pm.nb)})
+    heavy = eng.step_n(st, eng.default_control(1), 1,
+                       overlay={"mass_scale": torch.full((1, pm.nb), 1.5)})
+    assert torch.isfinite(heavy.qd).all()
     # a terrain that is the plane z = 0 steps as flat ground does (another
     # friction formula: the general normal's, three tangential components)
     a = eng.step_n(st, eng.default_control(1), 1)
@@ -361,11 +364,14 @@ def test_scope_rejects_beyond_kernel_maxima(what):
 
 
 def test_task_registry_refuses_randomization_and_unported_tasks():
+    """Randomization and the OpenAI names are ported; the registry refuses
+    the tasks that are not."""
     from omniisaacgymenvs_torch.tasks import get_task
 
-    with pytest.raises(NotImplementedError, match="randomization"):
-        get_task("ShadowHand", {"domain_randomization": {"randomize": True}},
-                 device="cpu")
-    for name in ("ShadowHandOpenAI_FF", "AllegroHand", "FrankaCabinet"):
+    task = get_task("ShadowHand", {"domain_randomization": {"randomize": True}},
+                    device="cpu")
+    assert task._dr_on
+    assert get_task("ShadowHandOpenAI_FF", device="cpu").num_obs == 42
+    for name in ("AllegroHand", "FrankaCabinet"):
         with pytest.raises(KeyError, match="ported so far"):
             get_task(name, device="cpu")

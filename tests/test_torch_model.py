@@ -84,7 +84,19 @@ def test_task_yaml_copy_equal(name):
         assert f.read() == ref
     cfg = load_config({"task": name, "num_envs": 16})
     assert cfg["task"]["env"]["numEnvs"] == 16
-    assert cfg["task"]["sim"] == yaml.safe_load(ref)["sim"]
+    # a yaml that inherits another (`defaults`) resolves as in the JAX package
+    from omniisaacgymenvs_tpu.utils.config import load_config as jload_config
+    own = yaml.safe_load(ref)
+    assert cfg["task"]["sim"] == own.get(
+        "sim", jload_config({"task": name})["task"]["sim"])
+    assert "defaults" not in cfg["task"]
+
+
+@pytest.mark.parametrize("name", ["ShadowHandOpenAI_FF", "ShadowHandOpenAI_LSTM"])
+def test_openai_task_yaml_copy_equal(name):
+    """The two OpenAI yamls, which share the hand's model: byte copies too
+    (the LSTM one inherits the FF one through `defaults`)."""
+    test_task_yaml_copy_equal(name)
 
 
 @pytest.mark.parametrize("helper", [
