@@ -3,11 +3,17 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. the card's name and power limit, and the nvcc build of the kernels
-     (registers and spills as ptxas reports them);
+  1. the card's name and power limit, and the nvcc build of the kernels,
+     both sources at once (registers and spills as ptxas reports them);
+     K1 and K3 come in two forms, a group of lanes per env
+     (ops/csrc/fused_step.cu, which also holds K2) and one thread per env
+     (ops/csrc/fused_step_thread.cu), and `fused_step.launch_config` picks
+     one by the envs per SM: the Humanoid's 32768 envs take the thread
+     form, the other main paths and checks below it the group form;
   2. K1 (whole control step), K2 (report FK) and K3 (single substep)
      against their plain versions on the card: Humanoid at 32768 + 37 envs
-     (the last block partly masked), ShadowHand at 8192 + 37, AnymalTerrain
+     (the thread form's masked tail; K2's ragged last round of the
+     persistent grid), ShadowHand at 8192 + 37, AnymalTerrain
      at 2048 + 37 (K1 and K3 on terrain planes: K1 as the main path
      launches it, one substep, and over four substeps on the same planes;
      treads, riser walls, step edges and wedge points all in contact),
@@ -24,7 +30,8 @@ Phases (any failure exits non-zero):
      the Humanoid;
   3. the Humanoid main path: the random-policy entry point's VecEnv at
      32768 envs, reset and a 64-step rollout, with the launch counts read
-     around it (K1 exactly once per control step, K2 at least as often);
+     around it (K1 exactly once per control step, in the form
+     `launch_config` picks, K2 at least as often);
      the rollout's rate over repeated runs; a short rollout on the card
      against the plain path on the CPU;
   4. the ShadowHand main path, the same at 8192 envs, with the cube still
@@ -39,7 +46,8 @@ Phases (any failure exits non-zero):
      gravity_delta zero at the reset and drawn anew exactly where
      progress % 720 == 0;
   7. K1 / K2 / K3 against their plain versions again at the main paths'
-     env counts, and their times there (CUDA events) beside the plain
+     env counts, two launches of each bitwise equal, and their times there
+     (CUDA events) with their launch configurations, beside the plain
      versions' and the roofline bound; AnymalTerrain's K1 also at 32768
      envs, a width that fills the card, and under planes and an overlay
      together; the hand's K1 with and without the overlay at 12 and at 8
@@ -78,10 +86,12 @@ OVERLAY_CHECKS = (RANDOMIZED, "BallBalance", "PairScene", "AnymalTerrain")
 SIDE = {"BallBalance": 4096, "Cartpole": 512, "PairScene": 4096,
         "Anymal": 4096}
 WIDE = 32768  # AnymalTerrain's K1 is also timed at a width that fills the card
-N_PAD = 37  # the checks' env counts are not a multiple of the 128-thread block
+N_PAD = 37  # the checks' env counts are not a multiple of a block's envs
 # end to end, kernel path on the card vs plain path on the CPU, 3 steps
 E2E_TOL = (5e-3, 5e-3)
-SOURCE = "omniisaacgymenvs_torch/ops/csrc/fused_step.cu"
+# the source of each form of the kernels
+SOURCES = {"group": "omniisaacgymenvs_torch/ops/csrc/fused_step.cu",
+           "thread": "omniisaacgymenvs_torch/ops/csrc/fused_step_thread.cu"}
 TPU_FILE = "omniisaacgymenvs_tpu/ops/fused_substep.py"
 
 
@@ -129,6 +139,7 @@ def main() -> int:
     from omniisaacgymenvs_torch.ops import parity
     from omniisaacgymenvs_torch.physics.engine import PhysicsEngine, SimParams
     from omniisaacgymenvs_torch.scripts import random_policy
+    from omniisaacgymenvs_torch.scripts.time_kernels import kernel_device_ms
     from omniisaacgymenvs_torch.tasks import get_task
     from omniisaacgymenvs_torch.utils.config import load_config
     from omniisaacgymenvs_torch.utils.domain_randomization import combine_overlays
@@ -143,7 +154,8 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = fs.library()
     log(f"kernel build + load: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {lib.build_s:.2f} s) -> {lib.path.name}")
+        f"(both nvcc at once {lib.build_s:.2f} s) -> {lib.path.name}, "
+        f"{lib.thread_path.name}")
     for line in lib.ptxas_log.splitlines():
         if any(k in line for k in ("registers", "spill", "stack frame",
                                    "Compiling entry")):
@@ -284,18 +296,24 @@ def main() -> int:
                 "seed=0", "device=cuda"]
         cfg, mtask, env = random_policy.build_env(argv)
         kern = mtask.engine.kernels
+        form = kern.config(n, mtask.engine.has_terrain, mtask._dr_on)[0]["design"]
         kern.reset_counts()
         stats = random_policy.drive(cfg, env)
         launches[name] = dict(kern.launches)
-        # under randomization every K1 launch reads an overlay, else none
+        # under randomization every K1 launch reads an overlay, else none;
+        # every K1 launch takes the form launch_config picks for the path
         assert kern.overlay_launches == {
             "step": launches[name]["step"] if mtask._dr_on else 0,
             "substep": 0}, kern.overlay_launches
+        assert kern.thread_launches == {
+            "step": launches[name]["step"] if form == "thread" else 0,
+            "substep": 0}, kern.thread_launches
         log(f"main path: {card} | {name} {n} envs x {STEPS} steps: "
             f"{stats['env_steps_per_s']:.1f} env-steps/s, "
             f"{stats['seconds'] * 1e3 / STEPS:.3f} ms per control step, "
             f"mean reward {stats['mean_reward']:.4f}, done rate "
-            f"{stats['done_rate']:.4f}, launches {launches[name]}")
+            f"{stats['done_rate']:.4f}, launches {launches[name]}, K1 in the "
+            f"{form} form")
         # K1 once per control step, or once per substep with the plane
         # refresh; K2 at every reset (each step computes one for the merge)
         per_step = mtask.engine.k1_launches(mtask.decimation)
@@ -441,6 +459,19 @@ def main() -> int:
         t_ops = n * n_ops / PEAK_FP32_S * 1e3
         return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
+    def deterministic(name, ins, kw):
+        """Two launches of K1, K3 and K2 on the same inputs give
+        bitwise-equal outputs."""
+        eng = engines[name]
+        runs = {"K1": lambda: fs.step(eng, *ins, n_sub[name], **kw),
+                "K3": lambda: fs.substep(eng, *ins, **kw),
+                "K2": lambda: fs.fk(eng, ins[0], ins[1])}
+        for kname, run in runs.items():
+            ref = run()
+            for a, b in zip(run(), ref):
+                assert torch.equal(a, b), (name, kname)
+        log(f"{name}: K1, K3 and K2 bitwise equal over two launches")
+
     for name, n in MAIN.items():
         # the randomized main path launches K1 (and K3 would be) under an
         # overlay; K2 takes none
@@ -460,6 +491,7 @@ def main() -> int:
         ptg = parity.check_targets(m, q, 1)
         z = torch.zeros((n, m.njd), device=dev)
         fa = torch.zeros((n, m.nb, 6), device=dev)
+        deterministic(name, (q, qd, eff, ptg, z, fa), pl)
         ops = fs.op_count(m, n_sub[name], planes=terrain, overlay=randomized)
         nbytes = fs.io_bytes(m, planes=terrain, overlay=randomized)
         suffix = "" if name == "Humanoid" else "_" + name.lower()
@@ -475,23 +507,31 @@ def main() -> int:
              lambda: fs.substep_plain(eng, q, qd, eff, ptg, z, fa, **pl)),
         ):
             ms = time_ms(run_k, 20)
+            device_ms = kernel_device_ms(run_k, 20)
             plain_ms = time_ms(run_p, 2)
+            lc = eng.kernels.config(n, terrain and key != "fk",
+                                    randomized and key != "fk", key == "fk")[0]
             if key == "fk":
                 bound_ms, bound_by = bound(n, fs.io_bytes(m)[key],
                                            fs.op_count(m, 1)[key])
             else:
                 bound_ms, bound_by = bound(n, nbytes[key], ops[key])
-            log(f"{kname} {name}: {card} | {n} envs: {ms:.4f} ms, plain "
+            log(f"{kname} {name}: {card} | {n} envs: {ms:.4f} ms ({device_ms:.4f} "
+                f"ms of device time per launch, profiler), plain "
                 f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
                 f"({ops[key]} FP32 ops and {nbytes[key]} bytes per env), "
                 f"{bound_ms / ms * 100:.2f}% of roofline, "
-                f"{launches[name][key]} launches on the main path")
+                f"{launches[name][key]} launches on the main path; launch "
+                f"{fs.describe_config(lc)}")
             rows.append(dict(
-                name=kname + suffix, model=name, route="cuda", source=SOURCE,
+                name=kname + suffix, model=name, route="cuda",
+                source=SOURCES[lc["design"]],
                 replaces=f"{TPU_FILE}:{line}", launches=launches[name][key],
                 max_abs_err=max(first[key], again[key]), ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None,
+                library_ms=None, device_ms=device_ms, launch={k: lc[k] for k in (
+                    "design", "group", "envs_per_block", "blocks", "smem_bytes",
+                    "env_bytes")},
             ))
         if n_sub[name] != 4 and not randomized:
             # beside the main path's depth, K1 at four substeps
@@ -529,7 +569,8 @@ def main() -> int:
                 f"{b_ms:.4f} ms by {b_by}; on no main path")
             rows.append(dict(
                 name="fused_step_k1_overlay" + suffix, model=name, route="cuda",
-                source=SOURCE, replaces=f"{TPU_FILE}:1016", launches=0,
+                source=SOURCES[eng.kernels.config(n, True, True)[0]["design"]],
+                replaces=f"{TPU_FILE}:1016", launches=0,
                 on_main_path=False, max_abs_err=overlay_errs[name]["step"],
                 ms=ms_po, plain_ms=plain_po, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None))
@@ -542,8 +583,9 @@ def main() -> int:
             ms_w = time_ms(lambda: fs.step(eng, wq, wqd, weff, wz, wz, wfa,
                                            n_sub[name], **wpl), 20)
             b_ms, b_by = bound(WIDE, nbytes["step"], ops["step"])
-            log(f"fused_step_k1 {name}: {card} | {WIDE} envs: {ms_w:.4f} ms, "
-                f"bound {b_ms:.4f} ms by {b_by}, "
+            wide_form = eng.kernels.config(WIDE, True, False)[0]["design"]
+            log(f"fused_step_k1 {name}: {card} | {WIDE} envs ({wide_form} "
+                f"form): {ms_w:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
                 f"{b_ms / ms_w * 100:.2f}% of roofline")
             for width, st in ((n, eng.init_state(q, qd)),
                               (WIDE, eng.init_state(wq, wqd))):

@@ -24,47 +24,54 @@
  *   with per-point gains, point-vs-surface pair contacts (sphere, capsule,
  *   box), gravity compensation, fixed tendons, force sensors, and the ten
  *   per-env domain-randomization overlay keys (the `dr` input, dr_keys in
- *   the JAX kernel): mass, drive stiffness and damping, friction, collision
- *   geometry and tendon scales, gravity and joint-limit deltas. The JAX
- *   kernel is specialised per key set; this one has a single overlay
- *   variant that reads all ten keys from one packed (n_env, n_dr) input in
- *   a fixed order, with absent keys filled with their neutral value by the
- *   wrapper (x * 1 and x + 0 are exact): its constants come from a table,
- *   so no key set would fold anything away.
+ *   the JAX kernel), read from one packed (n_env, n_dr) input in a fixed
+ *   order, absent keys filled with their neutral value by the wrapper
+ *   (x * 1 and x + 0 are exact).
  *
  * What bounds it on this card
  *   Per env, K1 moves about 2.4 KB (250 input and 353 output floats for the
- *   Humanoid, 289 and 429 for the ShadowHand scene) and does of order 10^5
- *   FP32 operations over 4 substeps, so by
- *   the roofline it is bound by FP32 issue, not by device-memory bytes
- *   (ops/fused_step.py op_count counts what the function needs: it skips
- *   X's zero block and uses the symmetry of X^T Ia X, which this kernel
- *   does not; layouts of the inward pass that skip them measured slower on
- *   the H100, as they cost registers and spill). AnymalTerrain's launch is
- *   one substep on terrain planes (231 input and 230 output floats, some
- *   2 x 10^4 operations per env): there the bytes bound it by the roofline,
- *   but at its 2048 envs (16 blocks on 132 SMs) the launch takes one
- *   thread's serial latency, 0.146 ms on the H100. Under an overlay the
- *   hand reads 185 floats more per env (474 in all) and does some 2,400
- *   operations more per substep (52,596): still bound by operations, and
- *   15% slower than without one on the H100 (5.15 against 4.48 ms at 8192
- *   envs and 12 substeps, 96 registers and a 14,368 B stack). The real limit of
- *   this first design is thread-local memory: the per-body articulated
- *   inertias (36 floats per body) and the other per-body arrays of one env
- *   (about 13.8 KB for the Humanoid) do not fit in registers and live in
- *   the thread's stack frame in local memory, served by L1/L2.
+ *   Humanoid) and does of order 10^5 FP32 operations over 4 substeps, so by
+ *   the roofline it is bound by FP32 issue (ops/fused_step.py op_count);
+ *   AnymalTerrain's one substep on planes and K2 are bound by bytes. The
+ *   first design ran one thread per env with its per-body arrays in a
+ *   14 KB local-memory stack frame: at 32768 envs some 467 MB of stack went
+ *   through the 50 MB L2 every substep, and at the hands' 8192 and
+ *   AnymalTerrain's 2048 envs half or more of the 132 SMs had no block.
  *
  * What the design does about it
- *   One thread per env with the tail masked; the substep loop runs inside
- *   the thread, so the state never returns to device memory between
- *   substeps, and every input is read once and every output written once
- *   per launch. Model constants sit in one packed device table built once
- *   per engine and read with __ldg: all threads of a warp read the same
- *   address, so each read is a broadcast, and every branch on a joint, root
- *   or surface type is taken by the whole warp alike. Bodies are walked in
- *   index order (parent < child): forward for kinematics and the outward
- *   pass, backward for the inward pass. Local-memory scratch is accepted in
- *   this first version.
+ *   A group of G lanes (a compile-time parameter, G = 32 on the card: one
+ *   warp; the host-C++ test builds G = 1) works on one env at a time. The env's working set lives in
+ *   dynamic shared memory, sized to the model by the wrapper (the layout's
+ *   offsets sit in the schedule table), and the model tables are staged
+ *   into shared memory once per block. The grid is persistent: each group
+ *   walks over envs with the stride of all groups, so every SM holds work
+ *   at any env count. The work of an env is written as phases; a phase is
+ *   a strided list of items (`for (j = lane; j < n; j += G)`) read from and
+ *   written to shared memory, and __syncwarp over the group's lanes
+ *   separates phases. Items: per body, per level of the tree (FK outward
+ *   and the ABA inward pass, deepest level first, with the 36 entries of
+ *   X^T Ia X and the 36 of Ia X as items), per contact point,
+ *   per pair, per dof. A FREE root's 6x6 Cholesky runs on one lane. Inputs
+ *   and outputs are copied between device memory and shared memory by
+ *   consecutive lanes over an env's contiguous rows, so the accesses are
+ *   coalesced. Sums are deterministic: no atomics; a body's contact
+ *   wrench, a parent's articulated inertia and bias force and a sensor's
+ *   wrench are summed by one lane in a fixed order of points, pairs and
+ *   children from per-item staging, so results do not depend on G and two
+ *   launches on the same inputs are bitwise equal. No tensor cores, on
+ *   purpose: the physics runs in full float32 (bf16 made qd errors 100x
+ *   worse, TF32 stays off), and the 6x6 products of one env are far below
+ *   wgmma's 64-row tiles. The kernels take the schedule's header (sizes,
+ *   section and layout offsets) by value and read it with constant
+ *   indices; its sections (levels, slots, children, contact lists) are
+ *   staged in shared memory with the model's int table.
+ *
+ * Where it loses
+ *   Per env the group issues several times the instructions of one thread
+ *   per env (a phase with few items leaves most lanes idle), so once a
+ *   batch fills the card (the Humanoid's 32768 envs) the one-thread-per-env
+ *   form of fused_step_thread.cu is faster on the H100; launch_config in
+ *   ops/fused_step.py picks the form by the envs per SM.
  *
  * Precision: built without fast math. sqrtf, divisions, sincosf and tanhf
  * are the precise functions, and the floors are those of the JAX kernel:
@@ -74,11 +81,19 @@
  * box takes a point for outside on the squared distance (d2 > 1e-14).
  * min, max and clamp propagate NaN like jnp.minimum/maximum, so a state
  * that blows up stays non-finite and the task's finite guard sees it.
+ *
+ * The device functions also build as host C++ with a prelude that maps
+ * __device__, __forceinline__, __syncwarp, __ldg and __fmul_rn/__fadd_rn
+ * (tests/test_torch_kernel_host.py, G = 1: lane 0, stride 1); the kernels
+ * and the C entry points stand under __CUDACC__.
  */
 
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#endif
 #include <math.h>
 
+// scope of the kernels (ops/fused_step.py LIMITS)
 #define OIGE_NB_MAX 32                  // bodies per model
 #define OIGE_NCP_MAX 128                // ground contact points
 #define OIGE_NS_MAX 8                   // force sensors
@@ -86,8 +101,8 @@
 #define OIGE_NSURF_MAX 32               // receiver surfaces
 #define OIGE_NT_MAX 8                   // fixed tendons
 #define OIGE_NFREE_MAX 4                // FREE roots
-#define OIGE_NQ_MAX (7 * OIGE_NFREE_MAX + OIGE_NB_MAX)
-#define OIGE_NV_MAX (6 * OIGE_NFREE_MAX + OIGE_NB_MAX)
+#define OIGE_MAX_THREADS 512            // envs per block x lanes per env
+#define OIGE_G 32                       // lanes per env on the card
 
 // ---- packed model table (must match ops/fused_step.py pack_tables) ----
 // float table: [0..2] gravity, [3] substep h, [4] Hunt-Crossley chi,
@@ -106,6 +121,16 @@
 #define SURF_STRIDE 16
 #define TEND_STRIDE 8
 #define IB_STRIDE 5
+// In shared memory every record takes one float more than in the packed
+// table: an odd stride, so that the lanes of a phase that read one field
+// of different bodies, points or pairs hit different banks (at 64 floats a
+// body, 22 bodies read the same bank one after the other).
+#define S_BODY (BODY_STRIDE + 1)
+#define S_CP (CP_STRIDE + 1)
+#define S_GC (GC_STRIDE + 1)
+#define S_PAIR (PAIR_STRIDE + 1)
+#define S_SURF (SURF_STRIDE + 1)
+#define S_TEND (TEND_STRIDE + 1)
 enum {
   B_AXIS = 0, B_ET = 3, B_JPOS = 12, B_I6 = 15, B_ARM = 51, B_DAMP = 52,
   B_FRIC = 53, B_KP = 54, B_KD = 55, B_EMAX = 56, B_VMAX = 57, B_LO = 58,
@@ -122,46 +147,178 @@ enum { IB_PARENT = 0, IB_JTYPE = 1, IB_QADR = 2, IB_VADR = 3, IB_JDOF = 4 };
 enum { JT_FREE = 0, JT_REVOLUTE = 1, JT_PRISMATIC = 2, JT_FIXED = 3 };
 enum { ST_SPHERE = 0, ST_CAPSULE = 1, ST_BOX = 2 };
 
+// ---- schedule table (must match ops/fused_step.py SCHEDULE_HEADER) ----
+// The kernels take the schedule's header by value and stage the int table
+// [schedule sections | model int table]; the header's section offsets
+// count from the start of that table. The schedule's header holds the model's sizes, the sections of the packed
+// float table (H_P*) and of its copy in shared memory (H_F*), those of the
+// model int table,
+// the tree's levels and the offsets of one env's working set (floats from
+// the env's base; L_STAGE aliases L_IA). Its sections: level starts
+// (nlev + 1) and the bodies by level (nb); each body's slot within its
+// level, plus SLOT_UNDER_FIXED where its parent is a FIXED root; children per body (nb + 1 starts, then children by descending
+// index); contact contributions per body (nb + 1 starts, then codes: a
+// ground point c as c, pair k as ncp + 2k on the point's body and
+// ncp + 2k + 1 on the surface's body).
+enum {
+  H_NB, H_NCP, H_NS, H_NPAIR, H_NSURF, H_NT, H_NQ, H_NV, H_NJD,
+  H_PCP, H_PGC, H_PPAIR, H_PSURF, H_PTEND, H_PEND,
+  H_FCP, H_FGC, H_FPAIR, H_FSURF, H_FTEND, H_FEND,
+  H_ICP, H_ISENS, H_IPAIR, H_ISURF, H_ITEND,
+  H_IMODEL, H_NLEV, H_LEV, H_LBODY, H_SLOT, H_CH, H_CHL, H_CC, H_CCL,
+  L_Q, L_QD, L_RW, L_PW, L_E, L_RJ, L_W, L_L, L_CW, L_CL, L_WV, L_LV, L_QUAT,
+  L_QDD, L_EFF, L_PTG, L_VTG, L_FAPP, L_FX, L_TX, L_TAU, L_DT,
+  L_IA, L_PA, L_U, L_D, L_UU, L_IDV, L_ACC, L_TMP, L_PLANES,
+  H_LEN
+};
+#define L_STAGE L_IA
+// per-slot scratch of the inward pass: Q = E rtil (9), pa (6), T = Ia X
+// (36); an odd stride
+enum { TM_Q = 0, TM_PA = 9, TM_T = 15, TM_STRIDE = 51 };
+
 namespace {
 
-struct Tables {
-  const float* __restrict__ f;
-  const int* __restrict__ it;
-  int nb, ncp, ns, npair, nsurf, nt, nq, nv, njd;
-  // section offsets into the float and the int table
-  int f_cp, f_gc, f_pair, f_surf, f_tend;
-  int i_cp, i_sens, i_pair, i_surf, i_tend;
+// one env's view of the staged tables and its working set
+struct Ctx {
+  const float* F;  // model float table
+  const int* S;    // schedule table, header first
+  const int* I;    // model int table
+  float* s;        // this env's working set
+  int lane;        // lane within the group
+  unsigned mask;   // the group's lanes within the warp
+  // the schedule's header, handed to the kernel by value: read with
+  // constant indices only, so it stays in the constant bank and registers
+  // (a read from shared memory would be repeated after every __syncwarp)
+  int h[H_LEN];
 };
+
+// phases are separated by a barrier over the group's lanes (one over the
+// whole block measured no faster on the H100)
+template <int G>
+__device__ __forceinline__ void gsync(const Ctx& c) {
+  __syncwarp(c.mask);
+}
+
+// the items of a phase whose values depend on nothing the phase writes,
+// two per lane and round: both are computed before either is stored, so
+// their shared-memory reads overlap. item(j, dst) returns item j's value
+// and sets dst to where it goes (null: nothing to store).
+template <int G, class Item>
+__device__ __forceinline__ void two_per_round(const Ctx& c, int n, Item item) {
+  for (int j = c.lane; j < n; j += 2 * G) {
+    float* d0 = nullptr;
+    float* d1 = nullptr;
+    const float v0 = item(j, d0);
+    const float v1 = j + G < n ? item(j + G, d1) : 0.f;
+    if (d0 != nullptr) *d0 = v0;
+    if (d1 != nullptr) *d1 = v1;
+  }
+}
+
+// Built with -DOIGE_PROFILE (scripts/profile_kernel.py), lane 0 of each
+// group adds the clock cycles since its previous mark to the phase's
+// counter; otherwise a mark is nothing.
+enum {
+  PF_LOAD, PF_FK_LOCAL, PF_FK_CHAIN, PF_FK_WORLD, PF_CONTACT, PF_SUM_DRIVE, PF_BIAS,
+  PF_ACC, PF_HEAD, PF_T, PF_ROOT, PF_OUTWARD, PF_INTEGRATE, PF_STORE, PF_REPORT,
+  PF_N
+};
+#if defined(OIGE_PROFILE) && defined(__CUDACC__)
+// counters spread over PF_SLOTS copies (by block and group), so that the
+// groups' atomics seldom meet at one address
+#define PF_SLOTS 1024
+__device__ unsigned long long g_prof[PF_SLOTS * 2 * PF_N];
+struct Prof {
+  long long t = 0;
+  bool on = true;
+  __device__ __forceinline__ void start() {
+#ifdef __CUDA_ARCH__
+    t = clock64();
+#endif
+  }
+  __device__ __forceinline__ void mark(const Ctx& c, int k) {
+#ifdef __CUDA_ARCH__
+    if (on && c.lane == 0) {
+      const long long now = clock64();
+      unsigned long long* slot =
+          g_prof + ((blockIdx.x * 64 + threadIdx.x / 8) % PF_SLOTS) * 2 * PF_N;
+      atomicAdd(slot + 2 * k, (unsigned long long)(now - t));
+      atomicAdd(slot + 2 * k + 1, 1ull);
+      t = now;
+    }
+#endif
+  }
+};
+#else
+struct Prof {
+  bool on = true;
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(const Ctx&, int) {}
+};
+#endif
+
+__device__ __forceinline__ float* at(const Ctx& c, int field) { return c.s + c.h[field]; }
+__device__ __forceinline__ int bi(const Ctx& c, int body, int field) {
+  return c.I[IB_STRIDE * body + field];
+}
+__device__ __forceinline__ const float* brec(const Ctx& c, int body) {
+  return c.F + F_BODY + S_BODY * body;
+}
+// where entry j of the packed float table sits in its shared-memory copy
+// (h: the schedule's header)
+__device__ __forceinline__ int staged_index(const int* h, int j) {
+  int p0 = h[H_PTEND], s0 = h[H_FTEND], sp = TEND_STRIDE;
+  if (j < F_BODY) return j;
+  if (j < h[H_PCP]) {
+    p0 = F_BODY, s0 = F_BODY, sp = BODY_STRIDE;
+  } else if (j < h[H_PGC]) {
+    p0 = h[H_PCP], s0 = h[H_FCP], sp = CP_STRIDE;
+  } else if (j < h[H_PPAIR]) {
+    p0 = h[H_PGC], s0 = h[H_FGC], sp = GC_STRIDE;
+  } else if (j < h[H_PSURF]) {
+    p0 = h[H_PPAIR], s0 = h[H_FPAIR], sp = PAIR_STRIDE;
+  } else if (j < h[H_PTEND]) {
+    p0 = h[H_PSURF], s0 = h[H_FSURF], sp = SURF_STRIDE;
+  }
+  const int r = (j - p0) / sp;
+  return s0 + r * (sp + 1) + (j - p0 - r * sp);
+}
+
+// a body's slot entry in the schedule: its slot within its level, plus
+// SLOT_UNDER_FIXED for a joint body whose parent is a FIXED root (its
+// articulated inertia is not needed: a FIXED root solves nothing)
+#define SLOT_UNDER_FIXED 0x10000
+__device__ __forceinline__ int slot_entry(const Ctx& c, int i) {
+  return c.S[c.h[H_SLOT] + i];
+}
 
 // offsets of the keys in one env's packed overlay (must match
 // ops/fused_step.py OVERLAY_KEYS): damping_scale (njd) at 0, then
 // friction_scale (nb), geom_scale (nb), gravity_delta (3),
 // limit_lower_delta (njd), limit_upper_delta (njd), mass_scale (nb),
 // stiffness_scale (njd), tendon_damping_scale (nt),
-// tendon_stiffness_scale (nt); n_dr floats in all. Computed in the kernel:
-// as ten more ints of the Tables struct, which the kernels take by value,
-// they cost the variants without an overlay 17% of their K1 time on the
-// H100 (2.5% when nothing read them), with an unchanged ptxas report.
+// tendon_stiffness_scale (nt); n_dr floats in all
 struct DrOffsets {
   int o_fric, o_geom, o_grav, o_lo, o_hi, o_mass, o_stiff, o_tdamp, o_tstiff, n_dr;
-  __device__ __forceinline__ explicit DrOffsets(const Tables& t) {
-    o_fric = t.njd;
-    o_geom = o_fric + t.nb;
-    o_grav = o_geom + t.nb;
+  __device__ __forceinline__ explicit DrOffsets(const int* h) {
+    const int nb = h[H_NB], njd = h[H_NJD], nt = h[H_NT];
+    o_fric = njd;
+    o_geom = o_fric + nb;
+    o_grav = o_geom + nb;
     o_lo = o_grav + 3;
-    o_hi = o_lo + t.njd;
-    o_mass = o_hi + t.njd;
-    o_stiff = o_mass + t.nb;
-    o_tdamp = o_stiff + t.njd;
-    o_tstiff = o_tdamp + t.nt;
-    n_dr = o_tstiff + t.nt;
+    o_hi = o_lo + njd;
+    o_mass = o_hi + njd;
+    o_stiff = o_mass + nb;
+    o_tdamp = o_stiff + njd;
+    o_tstiff = o_tdamp + nt;
+    n_dr = o_tstiff + nt;
   }
 };
 
-__device__ __forceinline__ float tf(const Tables& t, int i) { return __ldg(t.f + i); }
-__device__ __forceinline__ int ti(const Tables& t, int i) { return __ldg(t.it + i); }
-__device__ __forceinline__ int tb(const Tables& t, int body, int field) {
-  return __ldg(t.it + IB_STRIDE * body + field);
+// this env's staged overlay: after the planes, where there are planes
+template <bool PLANES>
+__device__ __forceinline__ const float* overlay(const Ctx& c) {
+  return c.s + c.h[L_PLANES] + (PLANES ? 4 * c.h[H_NCP] : 0);
 }
 
 // NaN-propagating min / max / clamp (jnp.minimum, jnp.maximum, jnp.clip)
@@ -186,11 +343,20 @@ __device__ __forceinline__ void mtv3(const float* A, const float* x, float* y) {
   y[1] = A[1] * x[0] + A[4] * x[1] + A[7] * x[2];
   y[2] = A[2] * x[0] + A[5] * x[1] + A[8] * x[2];
 }
+// row k of A x
+__device__ __forceinline__ float rowdot(const float* A, int k, const float* x) {
+  return A[3 * k] * x[0] + A[3 * k + 1] * x[1] + A[3 * k + 2] * x[2];
+}
 // c = a x b (c must not alias a or b)
 __device__ __forceinline__ void cross3(const float* a, const float* b, float* c) {
   c[0] = a[1] * b[2] - a[2] * b[1];
   c[1] = a[2] * b[0] - a[0] * b[2];
   c[2] = a[0] * b[1] - a[1] * b[0];
+}
+// component k of a x b, as cross3 computes it
+__device__ __forceinline__ float crossk(const float* a, const float* b, int k) {
+  const int k1 = k == 2 ? 0 : k + 1, k2 = k == 0 ? 2 : k - 1;
+  return a[k1] * b[k2] - a[k2] * b[k1];
 }
 
 // world rotation matrix of a wxyz quaternion (not renormalized, as in JAX)
@@ -223,7 +389,8 @@ __device__ __forceinline__ void mat_quat(const float* R, float* out) {
   out[3] = qz / n;
 }
 
-// Cholesky solve of the 6x6 SPD system A x = b (row-major A)
+// Cholesky solve of the 6x6 SPD system A x = b (row-major A, its lower
+// triangle read)
 __device__ __forceinline__ void chol_solve6(const float* A, const float* b, float* x) {
   float L[36];
 #pragma unroll
@@ -253,154 +420,165 @@ __device__ __forceinline__ void chol_solve6(const float* A, const float* b, floa
   }
 }
 
-// per-body kinematics of one env
-struct Frames {
-  float Rw[OIGE_NB_MAX][9];  // world rotation (x_world = Rw x_body)
-  float pw[OIGE_NB_MAX][3];  // world position of the body origin
-  float E[OIGE_NB_MAX][9];   // parent -> body rotation (joints)
-  float w[OIGE_NB_MAX][3];   // body-frame angular velocity
-  float l[OIGE_NB_MAX][3];   // body-frame linear velocity of the origin
-  float cw[OIGE_NB_MAX][3];  // velocity-product bias v x vJ, angular part
-  float cl[OIGE_NB_MAX][3];  // velocity-product bias, linear part
-  float wv[OIGE_NB_MAX][3];  // world angular velocity
-  float lv[OIGE_NB_MAX][3];  // world linear velocity of the origin
-};
-
 // origin of joint body i in its parent's frame: the joint frame's origin,
 // moved along the axis by th for a prismatic joint (r = jpos + Et^T a th)
-__device__ __forceinline__ void joint_r(const Tables& t, int B, bool prismatic, float th,
-                                        float* r) {
+__device__ __forceinline__ void joint_r(const float* Bf, bool prismatic, float th, float* r) {
 #pragma unroll
-  for (int c = 0; c < 3; ++c) r[c] = tf(t, B + B_JPOS + c);
+  for (int c = 0; c < 3; ++c) r[c] = Bf[B_JPOS + c];
   if (prismatic) {
-    const float s0 = tf(t, B + B_AXIS) * th, s1 = tf(t, B + B_AXIS + 1) * th,
-                s2 = tf(t, B + B_AXIS + 2) * th;
+    const float s0 = Bf[B_AXIS] * th, s1 = Bf[B_AXIS + 1] * th, s2 = Bf[B_AXIS + 2] * th;
 #pragma unroll
     for (int c = 0; c < 3; ++c)
-      r[c] += tf(t, B + B_ET + c) * s0 + tf(t, B + B_ET + 3 + c) * s1 +
-              tf(t, B + B_ET + 6 + c) * s2;
+      r[c] += Bf[B_ET + c] * s0 + Bf[B_ET + 3 + c] * s1 + Bf[B_ET + 6 + c] * s2;
   }
 }
 
-// forward kinematics of a forest: FREE roots read their pose and velocity
-// from q / qd, FIXED roots sit at the table's constant pose, joint bodies
-// follow their parent through a revolute or prismatic joint
-__device__ __forceinline__ void fk_full(const Tables& t, const float* q,
-                                        const float* qd, Frames& k) {
-  for (int i = 0; i < t.nb; ++i) {
-    const int p = tb(t, i, IB_PARENT);
-    const int jt = tb(t, i, IB_JTYPE);
-    const int qa = tb(t, i, IB_QADR), va = tb(t, i, IB_VADR);
-    const int B = F_BODY + BODY_STRIDE * i;
-    if (p < 0) {
-      if (jt == JT_FREE) {
-        quat_mat(q[qa + 3], q[qa + 4], q[qa + 5], q[qa + 6], k.Rw[i]);
+// ---- forward kinematics of a forest: FREE roots read their pose and
+// velocity from q / qd, FIXED roots sit at the table's constant pose, joint
+// bodies follow their parent through a revolute or prismatic joint ----
+
+// what body i needs of no other body: a root's frame, a joint's rotation
+// E (parent -> body; E = R^T Et) and origin r in the parent's frame
+__device__ __forceinline__ void fk_local(const Ctx& c, int i) {
+  const int p = bi(c, i, IB_PARENT), jt = bi(c, i, IB_JTYPE);
+  const int qa = bi(c, i, IB_QADR), va = bi(c, i, IB_VADR);
+  const float* Bf = brec(c, i);
+  const float* q = at(c, L_Q);
+  const float* qd = at(c, L_QD);
+  if (p < 0) {
+    float* Rw = at(c, L_RW) + 9 * i;
+    float* pw = at(c, L_PW) + 3 * i;
+    float* w = at(c, L_W) + 3 * i;
+    float* l = at(c, L_L) + 3 * i;
+    if (jt == JT_FREE) {
+      quat_mat(q[qa + 3], q[qa + 4], q[qa + 5], q[qa + 6], Rw);
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          k.pw[i][c] = q[qa + c];
-          k.w[i][c] = qd[va + c];
-          k.l[i][c] = qd[va + 3 + c];
-        }
-      } else {  // FIXED: Rw = Et^T, at the joint frame's origin, at rest
-#pragma unroll
-        for (int rr = 0; rr < 3; ++rr)
-#pragma unroll
-          for (int cc = 0; cc < 3; ++cc) k.Rw[i][3 * rr + cc] = tf(t, B + B_ET + 3 * cc + rr);
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          k.pw[i][c] = tf(t, B + B_JPOS + c);
-          k.w[i][c] = 0.f;
-          k.l[i][c] = 0.f;
-        }
+      for (int k = 0; k < 3; ++k) {
+        pw[k] = q[qa + k];
+        w[k] = qd[va + k];
+        l[k] = qd[va + 3 + k];
       }
-#pragma unroll
-      for (int c = 0; c < 3; ++c) k.cw[i][c] = k.cl[i][c] = 0.f;
-      continue;
-    }
-    const bool prismatic = jt == JT_PRISMATIC;
-    float a[3], r[3], Et[9];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) a[c] = tf(t, B + B_AXIS + c);
-#pragma unroll
-    for (int c = 0; c < 9; ++c) Et[c] = tf(t, B + B_ET + c);
-    const float th = q[qa], thd = qd[va];
-    joint_r(t, B, prismatic, th, r);
-    float* E = k.E[i];
-    if (prismatic) {
-#pragma unroll
-      for (int c = 0; c < 9; ++c) E[c] = Et[c];
-    } else {
-      float s, co;
-      sincosf(th, &s, &co);
-      const float oc = 1.f - co;
-      // Rodrigues rotation about the joint axis; E = R^T Et
-      const float R[9] = {
-          co + a[0] * a[0] * oc, a[0] * a[1] * oc - a[2] * s, a[0] * a[2] * oc + a[1] * s,
-          a[1] * a[0] * oc + a[2] * s, co + a[1] * a[1] * oc, a[1] * a[2] * oc - a[0] * s,
-          a[2] * a[0] * oc - a[1] * s, a[2] * a[1] * oc + a[0] * s, co + a[2] * a[2] * oc};
+    } else {  // FIXED: Rw = Et^T, at the joint frame's origin, at rest
 #pragma unroll
       for (int rr = 0; rr < 3; ++rr)
 #pragma unroll
-        for (int cc = 0; cc < 3; ++cc)
-          E[3 * rr + cc] = R[rr] * Et[cc] + R[3 + rr] * Et[3 + cc] + R[6 + rr] * Et[6 + cc];
-    }
-    // v_i = X_i v_p + S thd, with S = [axis; 0] (revolute) or [0; axis]
-    float crs[3], tmp[3];
-    cross3(r, k.w[p], crs);
+        for (int cc = 0; cc < 3; ++cc) Rw[3 * rr + cc] = Bf[B_ET + 3 * cc + rr];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) tmp[c] = k.l[p][c] - crs[c];
-    mv3(E, k.w[p], k.w[i]);
-    mv3(E, tmp, k.l[i]);
-    float vJ[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) vJ[c] = a[c] * thd;
-    if (prismatic) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        k.l[i][c] += vJ[c];
-        k.cw[i][c] = 0.f;
+      for (int k = 0; k < 3; ++k) {
+        pw[k] = Bf[B_JPOS + k];
+        w[k] = 0.f;
+        l[k] = 0.f;
       }
-      cross3(k.w[i], vJ, k.cl[i]);
-    } else {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) k.w[i][c] += vJ[c];
-      cross3(k.w[i], vJ, k.cw[i]);
-      cross3(k.l[i], vJ, k.cl[i]);
     }
-    // Rw_i = Rw_p E^T, pw_i = pw_p + Rw_p r
-#pragma unroll
-    for (int rr = 0; rr < 3; ++rr)
-#pragma unroll
-      for (int cc = 0; cc < 3; ++cc)
-        k.Rw[i][3 * rr + cc] = k.Rw[p][3 * rr] * E[3 * cc] +
-                               k.Rw[p][3 * rr + 1] * E[3 * cc + 1] +
-                               k.Rw[p][3 * rr + 2] * E[3 * cc + 2];
-    mv3(k.Rw[p], r, tmp);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) k.pw[i][c] = k.pw[p][c] + tmp[c];
+    return;
   }
-  for (int i = 0; i < t.nb; ++i) {
-    mv3(k.Rw[i], k.w[i], k.wv[i]);
-    mv3(k.Rw[i], k.l[i], k.lv[i]);
+  const bool prismatic = jt == JT_PRISMATIC;
+  const float th = q[qa];
+  joint_r(Bf, prismatic, th, at(c, L_RJ) + 3 * i);
+  float* E = at(c, L_E) + 9 * i;
+  if (prismatic) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) E[k] = Bf[B_ET + k];
+    return;
   }
+  float a[3], Et[9];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) a[k] = Bf[B_AXIS + k];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) Et[k] = Bf[B_ET + k];
+  float s, co;
+  sincosf(th, &s, &co);
+  const float oc = 1.f - co;
+  // Rodrigues rotation about the joint axis
+  const float R[9] = {
+      co + a[0] * a[0] * oc, a[0] * a[1] * oc - a[2] * s, a[0] * a[2] * oc + a[1] * s,
+      a[1] * a[0] * oc + a[2] * s, co + a[1] * a[1] * oc, a[1] * a[2] * oc - a[0] * s,
+      a[2] * a[0] * oc - a[1] * s, a[2] * a[1] * oc + a[0] * s, co + a[2] * a[2] * oc};
+#pragma unroll
+  for (int rr = 0; rr < 3; ++rr)
+#pragma unroll
+    for (int cc = 0; cc < 3; ++cc)
+      E[3 * rr + cc] = R[rr] * Et[cc] + R[3 + rr] * Et[3 + cc] + R[6 + rr] * Et[6 + cc];
 }
 
-// per-env scratch of the dynamics
-struct Work {
-  Frames k;
-  float fx[OIGE_NB_MAX][3];   // world contact force per body
-  float tx[OIGE_NB_MAX][3];   // world contact torque about the body origin
-  float IA[OIGE_NB_MAX][36];  // articulated inertia, row-major 6x6
-  float pA[OIGE_NB_MAX][6];   // articulated bias force
-  float U[OIGE_NB_MAX][6];
-  float acc[OIGE_NB_MAX][6];  // spatial acceleration
-  float D[OIGE_NB_MAX];
-  float uu[OIGE_NB_MAX];
-  float tau[OIGE_NB_MAX];     // joint torque of joint body i
-  float qdd[OIGE_NV_MAX];
-  float qn[OIGE_NQ_MAX];
-  float qdn[OIGE_NV_MAX];
-};
+// item k of joint body i, its parent done: k < 9 entry k of Rw_i = Rw_p
+// E^T; k = 9 + j row j of v_i = X_i v_p + S thd (S = [axis; 0] revolute,
+// [0; axis] prismatic) and of pw_i = pw_p + Rw_p r
+__device__ __forceinline__ void fk_chain(const Ctx& c, int i, int k) {
+  const int p = bi(c, i, IB_PARENT);
+  const float* E = at(c, L_E) + 9 * i;
+  const float* Rp = at(c, L_RW) + 9 * p;
+  if (k < 9) {
+    const int rr = k / 3, cc = k - 3 * rr;
+    at(c, L_RW)[9 * i + k] =
+        Rp[3 * rr] * E[3 * cc] + Rp[3 * rr + 1] * E[3 * cc + 1] + Rp[3 * rr + 2] * E[3 * cc + 2];
+    return;
+  }
+  const int j = k - 9;
+  const bool prismatic = bi(c, i, IB_JTYPE) == JT_PRISMATIC;
+  const float vj = brec(c, i)[B_AXIS + j] * at(c, L_QD)[bi(c, i, IB_VADR)];
+  const float* r = at(c, L_RJ) + 3 * i;
+  const float* wp = at(c, L_W) + 3 * p;
+  const float* lp = at(c, L_L) + 3 * p;
+  float crs[3], tmp[3];
+  cross3(r, wp, crs);
+#pragma unroll
+  for (int m = 0; m < 3; ++m) tmp[m] = lp[m] - crs[m];
+  float w = rowdot(E, j, wp), l = rowdot(E, j, tmp);
+  if (prismatic)
+    l += vj;
+  else
+    w += vj;
+  at(c, L_W)[3 * i + j] = w;
+  at(c, L_L)[3 * i + j] = l;
+  at(c, L_PW)[3 * i + j] = at(c, L_PW)[3 * p + j] + rowdot(Rp, j, r);
+}
+
+// row j of body i's world velocities and of its velocity-product bias
+// v x vJ (zero at a root)
+__device__ __forceinline__ void fk_world(const Ctx& c, int i, int j) {
+  const float* Rw = at(c, L_RW) + 9 * i;
+  const float* w = at(c, L_W) + 3 * i;
+  const float* l = at(c, L_L) + 3 * i;
+  at(c, L_WV)[3 * i + j] = rowdot(Rw, j, w);
+  at(c, L_LV)[3 * i + j] = rowdot(Rw, j, l);
+  float cw = 0.f, cl = 0.f;
+  if (bi(c, i, IB_PARENT) >= 0) {
+    const float thd = at(c, L_QD)[bi(c, i, IB_VADR)];
+    const float* Bf = brec(c, i);
+    const float vJ[3] = {Bf[B_AXIS] * thd, Bf[B_AXIS + 1] * thd, Bf[B_AXIS + 2] * thd};
+    if (bi(c, i, IB_JTYPE) == JT_PRISMATIC) {
+      cl = crossk(w, vJ, j);
+    } else {
+      cw = crossk(w, vJ, j);
+      cl = crossk(l, vJ, j);
+    }
+  }
+  at(c, L_CW)[3 * i + j] = cw;
+  at(c, L_CL)[3 * i + j] = cl;
+}
+
+template <int G>
+__device__ __forceinline__ void fk(const Ctx& c, Prof& pf) {
+  const int nb = c.h[H_NB], nlev = c.h[H_NLEV];
+  const int* lev = c.S + c.h[H_LEV];
+  const int* lb = c.S + c.h[H_LBODY];
+  for (int j = c.lane; j < nb; j += G) fk_local(c, j);
+  gsync<G>(c);
+  pf.mark(c, PF_FK_LOCAL);
+  for (int L = 1; L < nlev; ++L) {
+    const int b0 = lev[L], n = 12 * (lev[L + 1] - b0);
+    for (int j = c.lane; j < n; j += G) fk_chain(c, lb[b0 + j / 12], j % 12);
+    gsync<G>(c);
+  }
+  pf.mark(c, PF_FK_CHAIN);
+  for (int j = c.lane; j < 3 * nb; j += G) fk_world(c, j / 3, j % 3);
+  gsync<G>(c);
+  pf.mark(c, PF_FK_WORLD);
+}
+
+// ---- contacts: one item per ground point and per pair, each writing its
+// wrench to the staging area; the per-body sums follow in contact_sum ----
 
 // compliant contact along a general unit normal n: Hunt-Crossley normal
 // force capped at fnm, plus stiction-capped viscous friction; the force on
@@ -414,7 +592,7 @@ __device__ __forceinline__ void contact_force(float pen, const float* n, const f
   const float vt_norm = sqrtf(vt[0] * vt[0] + vt[1] * vt[1] + vt[2] * vt[2] + 1e-12f);
   const float sc = jmin(mu * fn, kt * vt_norm) / (vt_norm + 1e-6f);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) f[c] = fn * n[c] - sc * vt[c];
+  for (int k = 0; k < 3; ++k) f[k] = fn * n[k] - sc * vt[k];
 }
 
 // unit vector and length of d, floored as the pair contacts define them
@@ -422,7 +600,7 @@ __device__ __forceinline__ float unit3(const float* d, float* n) {
   const float dist = sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + 1e-18f);
   const float inv = 1.f / (dist + 1e-9f);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) n[c] = d[c] * inv;
+  for (int k = 0; k < 3; ++k) n[k] = d[k] * inv;
   return dist;
 }
 
@@ -430,715 +608,931 @@ __device__ __forceinline__ float sign0(float x) {
   return x != x ? x : (float)((x > 0.f) - (x < 0.f));
 }
 
-// one substep of one env: (q, qd) -> (q, qd) in place; leaves this
-// substep's contact wrenches in w.fx / w.tx. PLANES: the ground contacts
-// read this env's terrain planes `pl` (a compile-time variant, like the JAX
-// kernel's has_height: a run-time test of the pointer in the contact loop
-// cost the flat-ground Humanoid 17% of its K1 time on the H100). DR: `dr`
-// is this env's packed randomization overlay (DrOffsets), a compile-time
-// variant for the same reason.
+// ground point c_: with PLANES against this env's terrain plane [n, d]
+// (pen = radius - (n.pt - d), force along the general normal; n arrives as
+// a unit vector and is not renormalized), else against z = 0. Stages the
+// force and its torque about the body origin (6 floats). DR: geom_scale
+// and friction_scale of the point's body.
 template <bool PLANES, bool DR>
-__device__ __forceinline__ void substep(const Tables& t, float* q, float* qd,
-                                        const float* eff, const float* ptg,
-                                        const float* vtg, const float* fapp,
-                                        const float* pl, const float* dr, Work& w) {
-  const int nb = t.nb;
-  const float h = tf(t, 3);
-  const float chi = tf(t, 4);
-  const DrOffsets o_(t);
-  // gravity, per env under gravity_delta, read where it is used
-  auto grav = [&](int c) {
-    float x = tf(t, c);
-    if constexpr (DR) x += __ldg(dr + (o_.o_grav + c));
-    return x;
-  };
-  // the tendons' share of each joint body's implicit diagonal, per env
-  // under the tendon scales (without an overlay it is part of B_DIMPL)
-  float dtend[DR ? OIGE_NB_MAX : 1];
-  if constexpr (DR)
-    for (int i = 0; i < nb; ++i) dtend[i] = 0.f;
-  Frames& k = w.k;
-  fk_full(t, q, qd, k);
-
-  // ---- ground contacts: with PLANES against this env's terrain planes
-  // [n, d] (pen = radius - (n.pt - d), force along the general normal; n
-  // arrives as a unit vector and is not renormalized), else against z = 0.
-  // The planes stay as given for the whole launch. ----
-  for (int i = 0; i < nb; ++i)
-    for (int c = 0; c < 3; ++c) w.fx[i][c] = w.tx[i][c] = 0.f;
-  for (int c_ = 0; c_ < t.ncp; ++c_) {
-    const int b = ti(t, t.i_cp + c_);
-    const int C = t.f_cp + CP_STRIDE * c_;
-    float lp[3], rel[3], crs[3], vpt[3];
+__device__ __forceinline__ void ground_contact(const Ctx& c, int c_) {
+  const int b = c.I[c.h[H_ICP] + c_];
+  const float* Cf = c.F + c.h[H_FCP] + S_CP * c_;
+  const float* Rw = at(c, L_RW) + 9 * b;
+  const float* pw = at(c, L_PW) + 3 * b;
+  const float* wv = at(c, L_WV) + 3 * b;
+  const float* lv = at(c, L_LV) + 3 * b;
+  const float chi = c.F[4];
+  float lp[3], rel[3], crs[3], vpt[3];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) lp[c] = tf(t, C + C_POS + c);
-    // geom_scale and friction_scale of the point's body
-    float gs = 1.f;
-    if constexpr (DR) {
-      gs = __ldg(dr + (o_.o_geom + b));
+  for (int k = 0; k < 3; ++k) lp[k] = Cf[C_POS + k];
+  float rad = Cf[C_RAD], mu = Cf[C_MU];
+  if constexpr (DR) {
+    const DrOffsets o(c.h);
+    const float* dr = overlay<PLANES>(c);
+    const float gs = dr[o.o_geom + b];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) lp[c] *= gs;
-    }
-    auto rad = [&] {
-      float r = tf(t, C + C_RAD);
-      if constexpr (DR) r *= gs;
-      return r;
-    };
-    auto mu = [&] {
-      float m = tf(t, C + C_MU);
-      if constexpr (DR) m *= __ldg(dr + (o_.o_fric + b));
-      return m;
-    };
-    mv3(k.Rw[b], lp, rel);
-    cross3(k.wv[b], rel, crs);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) vpt[c] = k.lv[b][c] + crs[c];
-    float f[3];
-    if constexpr (PLANES) {
-      const float4 P = __ldg(reinterpret_cast<const float4*>(pl) + c_);
-      const float pn[3] = {P.x, P.y, P.z};
-      const float dist = pn[0] * (k.pw[b][0] + rel[0]) + pn[1] * (k.pw[b][1] + rel[1]) +
-                         pn[2] * (k.pw[b][2] + rel[2]) - P.w;
-      contact_force(rad() - dist, pn, vpt, mu(), tf(t, C + C_KN), tf(t, C + C_KT),
-                    tf(t, C + C_FNM), chi, f);
-    } else {
-      const float pen = rad() - (k.pw[b][2] + rel[2]);
-      const float vn = vpt[2];
-      const float fn = jmin(tf(t, C + C_KN) * jmax(pen, 0.f) *
-                                jclip(1.f - chi * vn, 0.f, 5.f),
-                            tf(t, C + C_FNM));
-      const float vt0 = vpt[0], vt1 = vpt[1];
-      const float vt_norm = sqrtf(vt0 * vt0 + vt1 * vt1 + 1e-12f);
-      const float ft_mag = jmin(mu() * fn, tf(t, C + C_KT) * vt_norm);
-      const float sc = ft_mag / (vt_norm + 1e-6f);
-      f[0] = -sc * vt0;
-      f[1] = -sc * vt1;
-      f[2] = fn;
-    }
-    float n[3];
-    cross3(rel, f, n);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      w.fx[b][c] += f[c];
-      w.tx[b][c] += n[c];
-    }
+    for (int k = 0; k < 3; ++k) lp[k] *= gs;
+    rad *= gs;
+    mu *= dr[o.o_fric + b];
   }
+  mv3(Rw, lp, rel);
+  cross3(wv, rel, crs);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) vpt[k] = lv[k] + crs[k];
+  float f[3];
+  if constexpr (PLANES) {
+    const float* P = at(c, L_PLANES) + 4 * c_;
+    const float pn[3] = {P[0], P[1], P[2]};
+    const float dist = pn[0] * (pw[0] + rel[0]) + pn[1] * (pw[1] + rel[1]) +
+                       pn[2] * (pw[2] + rel[2]) - P[3];
+    contact_force(rad - dist, pn, vpt, mu, Cf[C_KN], Cf[C_KT], Cf[C_FNM], chi, f);
+  } else {
+    const float pen = rad - (pw[2] + rel[2]);
+    const float vn = vpt[2];
+    const float fn = jmin(Cf[C_KN] * jmax(pen, 0.f) * jclip(1.f - chi * vn, 0.f, 5.f),
+                          Cf[C_FNM]);
+    const float vt0 = vpt[0], vt1 = vpt[1];
+    const float vt_norm = sqrtf(vt0 * vt0 + vt1 * vt1 + 1e-12f);
+    const float ft_mag = jmin(mu * fn, Cf[C_KT] * vt_norm);
+    const float sc = ft_mag / (vt_norm + 1e-6f);
+    f[0] = -sc * vt0;
+    f[1] = -sc * vt1;
+    f[2] = fn;
+  }
+  float* out = at(c, L_STAGE) + 6 * c_;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) out[k] = f[k];
+  cross3(rel, f, out + 3);
+}
 
-  // ---- pair contacts: a contact point against a surface of another body;
-  // equal and opposite forces, torques about each body's origin ----
-  for (int pk = 0; pk < t.npair; ++pk) {
-    const int pi = ti(t, t.i_pair + 2 * pk), si = ti(t, t.i_pair + 2 * pk + 1);
-    const int pb = ti(t, t.i_cp + pi);
-    const int st = ti(t, t.i_surf + 2 * si), sb = ti(t, t.i_surf + 2 * si + 1);
-    const int C = t.f_cp + CP_STRIDE * pi;
-    const int S = t.f_surf + SURF_STRIDE * si;
-    const int G = t.f_pair + PAIR_STRIDE * pk;
-    const float* Rs = k.Rw[sb];
-    float lp[3], relp[3], rels[3], n[3], tmp[3];
+// pair pk: a contact point against a surface of another body; stages the
+// force on the point's body and its torques about the point's body origin
+// and about the surface body's origin (9 floats; the surface's body takes
+// the opposite force). DR: geom_scale of the point by its body and of the
+// surface's lengths by the surface's body (a box's rotation is not
+// scaled), friction_scale by the point's body.
+template <bool PLANES, bool DR>
+__device__ __forceinline__ void pair_contact(const Ctx& c, int pk) {
+  const int pi = c.I[c.h[H_IPAIR] + 2 * pk], si = c.I[c.h[H_IPAIR] + 2 * pk + 1];
+  const int pb = c.I[c.h[H_ICP] + pi];
+  const int st = c.I[c.h[H_ISURF] + 2 * si], sb = c.I[c.h[H_ISURF] + 2 * si + 1];
+  const float* Cf = c.F + c.h[H_FCP] + S_CP * pi;
+  const float* S = c.F + c.h[H_FSURF] + S_SURF * si;
+  const float* Gp = c.F + c.h[H_FPAIR] + S_PAIR * pk;
+  const float* Rs = at(c, L_RW) + 9 * sb;
+  const float* pwp = at(c, L_PW) + 3 * pb;
+  const float* pws = at(c, L_PW) + 3 * sb;
+  float lp[3], relp[3], rels[3], n[3], tmp[3];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) lp[c] = tf(t, C + C_POS + c);
-    // geom_scale: the point by its body, the surface's lengths by the
-    // surface's body (a box's rotation is not scaled); friction_scale by
-    // the point's body
-    float gp = 1.f, sgs = 1.f;
-    if constexpr (DR) {
-      gp = __ldg(dr + (o_.o_geom + pb));
+  for (int k = 0; k < 3; ++k) lp[k] = Cf[C_POS + k];
+  float rad = Cf[C_RAD], mu = Cf[C_MU], sgs = 1.f;
+  if constexpr (DR) {
+    const DrOffsets o(c.h);
+    const float* dr = overlay<PLANES>(c);
+    const float gp = dr[o.o_geom + pb];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) lp[c] *= gp;
-      sgs = __ldg(dr + (o_.o_geom + sb));
-    }
-    mv3(k.Rw[pb], lp, relp);
-    // the point relative to the surface body's origin
+    for (int k = 0; k < 3; ++k) lp[k] *= gp;
+    rad *= gp;
+    sgs = dr[o.o_geom + sb];
+    mu *= dr[o.o_fric + pb];
+  }
+  mv3(at(c, L_RW) + 9 * pb, lp, relp);
+  // the point relative to the surface body's origin
 #pragma unroll
-    for (int c = 0; c < 3; ++c) rels[c] = (k.pw[pb][c] + relp[c]) - k.pw[sb][c];
-    float rad = tf(t, C + C_RAD);
-    if constexpr (DR) rad *= gp;
-    float pen;
-    float at[3] = {rels[0], rels[1], rels[2]};  // where the surface's velocity is taken
-    if (st == ST_BOX) {
-      float cl[3], hf[3], Rq[9], dl[3], pl[3], d_out[3], nl[3];
+  for (int k = 0; k < 3; ++k) rels[k] = (pwp[k] + relp[k]) - pws[k];
+  float pen;
+  float at_[3] = {rels[0], rels[1], rels[2]};  // where the surface's velocity is taken
+  if (st == ST_BOX) {
+    float cl[3], hf[3], Rq[9], dl[3], pl[3], d_out[3], nl[3];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        cl[c] = tf(t, S + c);
-        hf[c] = tf(t, S + 3 + c);
-        if constexpr (DR) {
-          cl[c] *= sgs;
-          hf[c] *= sgs;
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < 9; ++c) Rq[c] = tf(t, S + 6 + c);
-      mv3(Rs, cl, tmp);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) dl[c] = rels[c] - tmp[c];
-      mtv3(Rs, dl, tmp);
-      mtv3(Rq, tmp, pl);  // the point in the box's frame
-      float d2 = 0.f;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        d_out[c] = pl[c] - jclip(pl[c], -hf[c], hf[c]);
-        d2 += d_out[c] * d_out[c];
-      }
-      const float dist_out = sqrtf(d2 + 1e-18f);
-      const bool outside = d2 > 1e-14f;
-      // inside: out through the nearest face
-      const float f0 = hf[0] - fabsf(pl[0]), f1 = hf[1] - fabsf(pl[1]),
-                  f2 = hf[2] - fabsf(pl[2]);
-      const bool is0 = f0 <= jmin(f1, f2);
-      const bool is1 = !is0 && f1 <= f2;
-      const float min_d = jmin(f0, jmin(f1, f2));
-      if (outside) {
-        const float inv = 1.f / (dist_out + 1e-9f);
-#pragma unroll
-        for (int c = 0; c < 3; ++c) nl[c] = d_out[c] * inv;
-        pen = rad - dist_out;
-      } else {
-        nl[0] = is0 ? sign0(pl[0]) : 0.f;
-        nl[1] = is1 ? sign0(pl[1]) : 0.f;
-        nl[2] = (is0 || is1) ? 0.f : sign0(pl[2]);
-        pen = rad + min_d;
-      }
-      mv3(Rq, nl, tmp);
-      mv3(Rs, tmp, n);
-    } else if (st == ST_CAPSULE) {
-      float e0[3], e1[3], p0[3], seg[3], d[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        e0[c] = tf(t, S + c);
-        e1[c] = tf(t, S + 3 + c);
-        if constexpr (DR) {
-          e0[c] *= sgs;
-          e1[c] *= sgs;
-        }
-      }
-      mv3(Rs, e0, p0);
-      mv3(Rs, e1, tmp);
-      float num = 0.f, den = 1e-9f;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        seg[c] = tmp[c] - p0[c];
-        num += (rels[c] - p0[c]) * seg[c];
-        den += seg[c] * seg[c];
-      }
-      const float tt = jclip(num / den, 0.f, 1.f);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        at[c] = p0[c] + tt * seg[c];  // nearest point of the axis
-        d[c] = rels[c] - at[c];
-      }
-      float srad = tf(t, S + 6);
-      if constexpr (DR) srad *= sgs;
-      pen = srad + rad - unit3(d, n);
-    } else {  // sphere
-      float cs[3], d[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) cs[c] = tf(t, S + c);
-      float srad = tf(t, S + 3);
+    for (int k = 0; k < 3; ++k) {
+      cl[k] = S[k];
+      hf[k] = S[3 + k];
       if constexpr (DR) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c) cs[c] *= sgs;
-        srad *= sgs;
+        cl[k] *= sgs;
+        hf[k] *= sgs;
       }
-      mv3(Rs, cs, tmp);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) d[c] = rels[c] - tmp[c];
-      pen = srad + rad - unit3(d, n);
     }
-    float c1[3], c2[3], vrel[3], f[3];
-    cross3(k.wv[pb], relp, c1);
-    cross3(k.wv[sb], at, c2);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) vrel[c] = (k.lv[pb][c] + c1[c]) - (k.lv[sb][c] + c2[c]);
-    float mu = tf(t, C + C_MU);
-    if constexpr (DR) mu *= __ldg(dr + (o_.o_fric + pb));
-    contact_force(pen, n, vrel, mu, tf(t, G + P_KN), tf(t, G + P_KT),
-                  tf(t, G + P_FNM), chi, f);
-    cross3(relp, f, c1);
-    cross3(rels, f, c2);
+    for (int k = 0; k < 9; ++k) Rq[k] = S[6 + k];
+    mv3(Rs, cl, tmp);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      w.fx[pb][c] += f[c];
-      w.tx[pb][c] += c1[c];
-      w.fx[sb][c] -= f[c];
-      w.tx[sb][c] -= c2[c];
+    for (int k = 0; k < 3; ++k) dl[k] = rels[k] - tmp[k];
+    mtv3(Rs, dl, tmp);
+    mtv3(Rq, tmp, pl);  // the point in the box's frame
+    float d2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      d_out[k] = pl[k] - jclip(pl[k], -hf[k], hf[k]);
+      d2 += d_out[k] * d_out[k];
+    }
+    const float dist_out = sqrtf(d2 + 1e-18f);
+    const bool outside = d2 > 1e-14f;
+    // inside: out through the nearest face
+    const float f0 = hf[0] - fabsf(pl[0]), f1 = hf[1] - fabsf(pl[1]),
+                f2 = hf[2] - fabsf(pl[2]);
+    const bool is0 = f0 <= jmin(f1, f2);
+    const bool is1 = !is0 && f1 <= f2;
+    const float min_d = jmin(f0, jmin(f1, f2));
+    if (outside) {
+      const float inv = 1.f / (dist_out + 1e-9f);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) nl[k] = d_out[k] * inv;
+      pen = rad - dist_out;
+    } else {
+      nl[0] = is0 ? sign0(pl[0]) : 0.f;
+      nl[1] = is1 ? sign0(pl[1]) : 0.f;
+      nl[2] = (is0 || is1) ? 0.f : sign0(pl[2]);
+      pen = rad + min_d;
+    }
+    mv3(Rq, nl, tmp);
+    mv3(Rs, tmp, n);
+  } else if (st == ST_CAPSULE) {
+    float e0[3], e1[3], p0[3], seg[3], d[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      e0[k] = S[k];
+      e1[k] = S[3 + k];
+      if constexpr (DR) {
+        e0[k] *= sgs;
+        e1[k] *= sgs;
+      }
+    }
+    mv3(Rs, e0, p0);
+    mv3(Rs, e1, tmp);
+    float num = 0.f, den = 1e-9f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      seg[k] = tmp[k] - p0[k];
+      num += (rels[k] - p0[k]) * seg[k];
+      den += seg[k] * seg[k];
+    }
+    const float tt = jclip(num / den, 0.f, 1.f);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      at_[k] = p0[k] + tt * seg[k];  // nearest point of the axis
+      d[k] = rels[k] - at_[k];
+    }
+    float srad = S[6];
+    if constexpr (DR) srad *= sgs;
+    pen = srad + rad - unit3(d, n);
+  } else {  // sphere
+    float cs[3], d[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) cs[k] = S[k];
+    float srad = S[3];
+    if constexpr (DR) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) cs[k] *= sgs;
+      srad *= sgs;
+    }
+    mv3(Rs, cs, tmp);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) d[k] = rels[k] - tmp[k];
+    pen = srad + rad - unit3(d, n);
+  }
+  float c1[3], c2[3], vrel[3], f[3];
+  cross3(at(c, L_WV) + 3 * pb, relp, c1);
+  cross3(at(c, L_WV) + 3 * sb, at_, c2);
+  const float* lvp = at(c, L_LV) + 3 * pb;
+  const float* lvs = at(c, L_LV) + 3 * sb;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) vrel[k] = (lvp[k] + c1[k]) - (lvs[k] + c2[k]);
+  contact_force(pen, n, vrel, mu, Gp[P_KN], Gp[P_KT], Gp[P_FNM], c.F[4], f);
+  float* out = at(c, L_STAGE) + 6 * c.h[H_NCP] + 9 * pk;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) out[k] = f[k];
+  cross3(relp, f, out + 3);
+  cross3(rels, f, out + 6);
+}
+
+// component k of body b's contact wrench (k < 3 world force, else world
+// torque about the body origin), summed by one lane over the body's ground
+// points and pairs in the order of their indices; returns it and where it
+// goes
+__device__ __forceinline__ float contact_sum(const Ctx& c, int b, int k, float*& dst) {
+  const int* start = c.S + c.h[H_CC];
+  const int* code = c.S + c.h[H_CCL];
+  const int ncp = c.h[H_NCP];
+  const float* g = at(c, L_STAGE);
+  const float* P = g + 6 * ncp;
+  float s = 0.f;
+  for (int t = start[b]; t < start[b + 1]; ++t) {
+    const int x = code[t];
+    if (x < ncp) {
+      s += g[6 * x + k];
+    } else {
+      const int pk = (x - ncp) >> 1;
+      if ((x - ncp) & 1)  // the surface's body: the opposite force
+        s -= P[9 * pk + (k < 3 ? k : k + 3)];
+      else
+        s += P[9 * pk + k];
     }
   }
+  dst = k < 3 ? at(c, L_FX) + 3 * b + k : at(c, L_TX) + 3 * b + k - 3;
+  return s;
+}
 
-  // ---- drives: clamped Stable-PD + effort + passive damping/friction ----
-  for (int i = 0; i < nb; ++i) {
-    if (tb(t, i, IB_PARENT) < 0) continue;
-    const int B = F_BODY + BODY_STRIDE * i;
-    const int d = tb(t, i, IB_JDOF);
-    const float qj = q[tb(t, i, IB_QADR)], qjd = qd[tb(t, i, IB_VADR)];
-    const float emax = tf(t, B + B_EMAX);
-    // stiffness_scale and damping_scale reach the drive's gains only: the
-    // implicit diagonal stays unscaled
-    auto kp = [&] {
-      float x = tf(t, B + B_KP);
-      if constexpr (DR) x *= __ldg(dr + (o_.o_stiff + d));
-      return x;
-    };
-    auto kd = [&] {
-      float x = tf(t, B + B_KD);
-      if constexpr (DR) x *= __ldg(dr + (d));
-      return x;
-    };
-    const float drive = jclip(kp() * (ptg[d] - qj - h * qjd) + kd() * (vtg[d] - qjd),
-                              -emax, emax);
-    const float passive = -tf(t, B + B_DAMP) * qjd - tf(t, B + B_FRIC) * tanhf(qjd * 10.f);
-    w.tau[i] = drive + eff[d] + passive;
+// ---- drives and tendons of joint body i: clamped Stable-PD + effort +
+// passive damping/friction, then the fixed tendons that couple the joint,
+// in tendon order (their implicit diagonal is part of the table's B_DIMPL;
+// under the tendon scales its share `dtend` is summed here per env:
+// stiffness and limit stiffness times the first scale, damping times the
+// second). stiffness_scale and damping_scale reach the drive's gains only:
+// the implicit diagonal stays unscaled. ----
+template <bool PLANES, bool DR>
+__device__ __forceinline__ void drive(const Ctx& c, int i) {
+  if (bi(c, i, IB_PARENT) < 0) return;
+  const float* Bf = brec(c, i);
+  const float* q = at(c, L_Q);
+  const float* qd = at(c, L_QD);
+  const float h = c.F[3];
+  const int d = bi(c, i, IB_JDOF);
+  const float qj = q[bi(c, i, IB_QADR)], qjd = qd[bi(c, i, IB_VADR)];
+  const float emax = Bf[B_EMAX];
+  float kp = Bf[B_KP], kd = Bf[B_KD];
+  const float* dr = overlay<PLANES>(c);
+  const DrOffsets o(c.h);
+  if constexpr (DR) {
+    kp *= dr[o.o_stiff + d];
+    kd *= dr[d];
   }
-
-  // ---- fixed tendons: Stable-PD coupling force on two joints (their
-  // implicit diagonal is part of the table's B_DIMPL; under the tendon
-  // scales it is summed here per env: stiffness and limit stiffness times
-  // the first, damping times the second) ----
-  for (int tn = 0; tn < t.nt; ++tn) {
-    const int b0 = ti(t, t.i_tend + 2 * tn), b1 = ti(t, t.i_tend + 2 * tn + 1);
-    const int T = t.f_tend + TEND_STRIDE * tn;
-    const float c0 = tf(t, T + T_C0), c1 = tf(t, T + T_C1);
-    const float q0 = q[tb(t, b0, IB_QADR)], q1 = q[tb(t, b1, IB_QADR)];
-    const float qd0 = qd[tb(t, b0, IB_VADR)], qd1 = qd[tb(t, b1, IB_VADR)];
+  const float drv = jclip(kp * (at(c, L_PTG)[d] - qj - h * qjd) + kd * (at(c, L_VTG)[d] - qjd),
+                          -emax, emax);
+  const float passive = -Bf[B_DAMP] * qjd - Bf[B_FRIC] * tanhf(qjd * 10.f);
+  float tau = drv + at(c, L_EFF)[d] + passive;
+  float dtend = 0.f;
+  const int nt = c.h[H_NT];
+  const int* tb = c.I + c.h[H_ITEND];
+  for (int tn = 0; tn < nt; ++tn) {
+    const int b0 = tb[2 * tn], b1 = tb[2 * tn + 1];
+    if (b0 != i && b1 != i) continue;
+    const float* T = c.F + c.h[H_FTEND] + S_TEND * tn;
+    const float c0 = T[T_C0], c1 = T[T_C1];
+    const float q0 = q[bi(c, b0, IB_QADR)], q1 = q[bi(c, b1, IB_QADR)];
+    const float qd0 = qd[bi(c, b0, IB_VADR)], qd1 = qd[bi(c, b1, IB_VADR)];
     const float L = c0 * (q0 + h * qd0) + c1 * (q1 + h * qd1);
     const float Ldot = c0 * qd0 + c1 * qd1;
-    const float excess = L - jclip(L, tf(t, T + T_LO), tf(t, T + T_HI));
-    float klim = tf(t, T + T_KLIM), tk = tf(t, T + T_K);
-    const float rest = tf(t, T + T_REST);
-    float tc = tf(t, T + T_C);
+    const float excess = L - jclip(L, T[T_LO], T[T_HI]);
+    float klim = T[T_KLIM], tk = T[T_K], tc = T[T_C];
+    float per_t = 0.f;
     if constexpr (DR) {
-      const float ts = __ldg(dr + (o_.o_tstiff + tn));
+      const float ts = dr[o.o_tstiff + tn];
       tk *= ts;
       klim *= ts;
-      tc *= __ldg(dr + (o_.o_tdamp + tn));
-      const float per_t = h * (tc + h * (tk + klim));
-      dtend[b0] += per_t * c0 * c0;
-      dtend[b1] += per_t * c1 * c1;
+      tc *= dr[o.o_tdamp + tn];
+      per_t = h * (tc + h * (tk + klim));
     }
-    const float F = klim * excess + tk * (L - rest) + tc * Ldot;
-    w.tau[b0] -= c0 * F;
-    w.tau[b1] -= c1 * F;
+    const float F = klim * excess + tk * (L - T[T_REST]) + tc * Ldot;
+    if (b0 == i) {
+      tau -= c0 * F;
+      if constexpr (DR) dtend += per_t * c0 * c0;
+    }
+    if (b1 == i) {
+      tau -= c1 * F;
+      if constexpr (DR) dtend += per_t * c1 * c1;
+    }
   }
+  at(c, L_TAU)[i] = tau;
+  at(c, L_DT)[i] = dtend;
+}
 
-  // ---- ABA: bias forces with the external wrench in body coordinates ----
-  for (int i = 0; i < nb; ++i) {
-    const int B = F_BODY + BODY_STRIDE * i;
-    float* IA = w.IA[i];
+// gravity, per env under gravity_delta
+template <bool PLANES, bool DR>
+__device__ __forceinline__ float grav(const Ctx& c, int k) {
+  float x = c.F[k];
+  if constexpr (DR) x += overlay<PLANES>(c)[DrOffsets(c.h).o_grav + k];
+  return x;
+}
+
+// ---- ABA: bias force of body i with the external wrench in body
+// coordinates ----
+template <bool PLANES, bool DR>
+__device__ __forceinline__ void bias(const Ctx& c, int i) {
+  const float* I6 = brec(c, i) + B_I6;
+  const float* wi = at(c, L_W) + 3 * i;
+  const float* li = at(c, L_L) + 3 * i;
+  const float* Rw = at(c, L_RW) + 9 * i;
+  const float* fapp = at(c, L_FAPP) + 6 * i;
+  // I v with I = [[Io, m cx], [m cx^T, m 1]]: the skew blocks have a zero
+  // diagonal and the mass block is diagonal, so those terms are skipped
+  float Iv[6];
 #pragma unroll
-    for (int c = 0; c < 36; ++c) IA[c] = tf(t, B + B_I6 + c);
-    // I v with I = [[Io, m cx], [m cx^T, m 1]]: the skew blocks have a zero
-    // diagonal and the mass block is diagonal, so those terms are skipped
-    const float* wi = k.w[i];
-    const float* li = k.l[i];
-    float Iv[6];
+  for (int r = 0; r < 3; ++r) {
+    const int r1 = (r + 1) % 3, r2 = (r + 2) % 3;
+    Iv[r] = I6[6 * r] * wi[0] + I6[6 * r + 1] * wi[1] + I6[6 * r + 2] * wi[2] +
+            I6[6 * r + 3 + r1] * li[r1] + I6[6 * r + 3 + r2] * li[r2];
+    Iv[3 + r] = I6[6 * (3 + r) + r1] * wi[r1] + I6[6 * (3 + r) + r2] * wi[r2] +
+                I6[6 * (3 + r) + 3 + r] * li[r];
+  }
+  float n1[3], n2[3], f6[3];
+  cross3(wi, Iv, n1);
+  cross3(li, Iv + 3, n2);
+  cross3(wi, Iv + 3, f6);
+  // mass_scale: the body's bias force, after the cross products (it is
+  // linear in I v), and its compensation force
+  float ms = 1.f;
+  if constexpr (DR) ms = overlay<PLANES>(c)[DrOffsets(c.h).o_mass + i];
+  float tw[3], fw[3], tbd[3], fb[3];
 #pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      const int r1 = (r + 1) % 3, r2 = (r + 2) % 3;
-      Iv[r] = IA[6 * r] * wi[0] + IA[6 * r + 1] * wi[1] + IA[6 * r + 2] * wi[2] +
-              IA[6 * r + 3 + r1] * li[r1] + IA[6 * r + 3 + r2] * li[r2];
-      Iv[3 + r] = IA[6 * (3 + r) + r1] * wi[r1] + IA[6 * (3 + r) + r2] * wi[r2] +
-                  IA[6 * (3 + r) + 3 + r] * li[r];
-    }
-    float n1[3], n2[3], f6[3];
-    cross3(k.w[i], Iv, n1);
-    cross3(k.l[i], Iv + 3, n2);
-    cross3(k.w[i], Iv + 3, f6);
-    float ms = 1.f;
+  for (int k = 0; k < 3; ++k) {
+    tw[k] = at(c, L_TX)[3 * i + k] + fapp[k];
+    fw[k] = at(c, L_FX)[3 * i + k] + fapp[3 + k];
+  }
+  // gravity compensation: counter-gravity at the body's CoM; it enters
+  // the dynamics, not the sensors' contact wrench
+  const float* Gc = c.F + c.h[H_FGC] + S_GC * i;
+  const float gcm = Gc[G_MASS];
+  if (gcm != 0.f) {
+    const float com[3] = {Gc[G_COM], Gc[G_COM + 1], Gc[G_COM + 2]};
+    float fg[3] = {-gcm * grav<PLANES, DR>(c, 0), -gcm * grav<PLANES, DR>(c, 1),
+                   -gcm * grav<PLANES, DR>(c, 2)};
     if constexpr (DR) {
-      // mass_scale: the body's spatial inertia here, its bias force below,
-      // after the cross products (it is linear in I v)
-      ms = __ldg(dr + (o_.o_mass + i));
 #pragma unroll
-      for (int c = 0; c < 36; ++c) IA[c] *= ms;
+      for (int k = 0; k < 3; ++k) fg[k] *= ms;
     }
-    float tw[3], fw[3], tbd[3], fb[3];
+    float cr[3], ng[3];
+    mv3(Rw, com, cr);
+    cross3(cr, fg, ng);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      tw[c] = w.tx[i][c] + fapp[6 * i + c];
-      fw[c] = w.fx[i][c] + fapp[6 * i + 3 + c];
-    }
-    // gravity compensation: counter-gravity at the body's CoM; it enters
-    // the dynamics, not the sensors' contact wrench
-    const int G = t.f_gc + GC_STRIDE * i;
-    const float gcm = tf(t, G + G_MASS);
-    if (gcm != 0.f) {
-      const float com[3] = {tf(t, G + G_COM), tf(t, G + G_COM + 1), tf(t, G + G_COM + 2)};
-      float fg[3] = {-gcm * grav(0), -gcm * grav(1), -gcm * grav(2)};
-      if constexpr (DR) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c) fg[c] *= ms;
-      }
-      float cr[3], ng[3];
-      mv3(k.Rw[i], com, cr);
-      cross3(cr, fg, ng);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        tw[c] += ng[c];
-        fw[c] += fg[c];
-      }
-    }
-    mtv3(k.Rw[i], tw, tbd);
-    mtv3(k.Rw[i], fw, fb);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      if constexpr (DR) {
-        w.pA[i][c] = (n1[c] + n2[c]) * ms - tbd[c];
-        w.pA[i][3 + c] = f6[c] * ms - fb[c];
-      } else {
-        w.pA[i][c] = n1[c] + n2[c] - tbd[c];
-        w.pA[i][3 + c] = f6[c] - fb[c];
-      }
+    for (int k = 0; k < 3; ++k) {
+      tw[k] += ng[k];
+      fw[k] += fg[k];
     }
   }
-
-  // ---- ABA inward pass, deepest body first ----
-  for (int i = nb - 1; i >= 0; --i) {
-    const int p = tb(t, i, IB_PARENT);
-    if (p < 0) continue;
-    const int B = F_BODY + BODY_STRIDE * i;
-    const bool prismatic = tb(t, i, IB_JTYPE) == JT_PRISMATIC;
-    const int o = prismatic ? 3 : 0;  // S = [axis; 0] or [0; axis]
-    const float a[3] = {tf(t, B + B_AXIS), tf(t, B + B_AXIS + 1), tf(t, B + B_AXIS + 2)};
-    const float* IA = w.IA[i];
-    float* U = w.U[i];
+  mtv3(Rw, tw, tbd);
+  mtv3(Rw, fw, fb);
+  float* pA = at(c, L_PA) + 6 * i;
 #pragma unroll
-    for (int r = 0; r < 6; ++r)
-      U[r] = IA[6 * r + o] * a[0] + IA[6 * r + o + 1] * a[1] + IA[6 * r + o + 2] * a[2];
-    auto dimpl = [&] {
-      if constexpr (DR)
-        return tf(t, B + B_DIMPL0) + dtend[i];
-      else
-        return tf(t, B + B_DIMPL);
-    };
-    const float D = a[0] * U[o] + a[1] * U[o + 1] + a[2] * U[o + 2] + tf(t, B + B_ARM) +
-                    dimpl();
-    const float uu = w.tau[i] - (a[0] * w.pA[i][o] + a[1] * w.pA[i][o + 1] +
-                                 a[2] * w.pA[i][o + 2]);
-    w.D[i] = D;
-    w.uu[i] = uu;
-    // a FIXED root solves nothing, so its articulated inertia is not needed
-    if (tb(t, p, IB_PARENT) < 0 && tb(t, p, IB_JTYPE) == JT_FIXED) continue;
-    const float invD = 1.f / D;
-    float Ia[36];
-#pragma unroll
-    for (int r = 0; r < 6; ++r)
-#pragma unroll
-      for (int c = 0; c < 6; ++c) Ia[6 * r + c] = IA[6 * r + c] - U[r] * U[c] * invD;
-    const float c6[6] = {k.cw[i][0], k.cw[i][1], k.cw[i][2], k.cl[i][0], k.cl[i][1], k.cl[i][2]};
-    float pa[6];
-#pragma unroll
-    for (int r = 0; r < 6; ++r) {
-      float s = 0.f;
-#pragma unroll
-      for (int c = 0; c < 6; ++c) s += Ia[6 * r + c] * c6[c];
-      pa[r] = w.pA[i][r] + s + U[r] * (uu * invD);
-    }
-    // X = [[E, 0], [-E rtil, E]], rtil = skew(r)
-    const float* E = k.E[i];
-    float rj[3];
-    joint_r(t, B, prismatic, q[tb(t, i, IB_QADR)], rj);
-    const float r0 = rj[0], r1 = rj[1], r2 = rj[2];
-    const float rt[9] = {0.f, -r2, r1, r2, 0.f, -r0, -r1, r0, 0.f};
-    float X[36];
-#pragma unroll
-    for (int rr = 0; rr < 3; ++rr)
-#pragma unroll
-      for (int cc = 0; cc < 3; ++cc) {
-        const float Q = E[3 * rr] * rt[cc] + E[3 * rr + 1] * rt[3 + cc] + E[3 * rr + 2] * rt[6 + cc];
-        X[6 * rr + cc] = E[3 * rr + cc];
-        X[6 * rr + 3 + cc] = 0.f;
-        X[6 * (3 + rr) + cc] = -Q;
-        X[6 * (3 + rr) + 3 + cc] = E[3 * rr + cc];
-      }
-    // IA_p += X^T Ia X, pA_p += X^T pa
-    float T[36];
-#pragma unroll
-    for (int r = 0; r < 6; ++r)
-#pragma unroll
-      for (int c = 0; c < 6; ++c) {
-        float s = 0.f;
-#pragma unroll
-        for (int m = 0; m < 6; ++m) s += Ia[6 * r + m] * X[6 * m + c];
-        T[6 * r + c] = s;
-      }
-    float* IAp = w.IA[p];
-#pragma unroll
-    for (int r = 0; r < 6; ++r)
-#pragma unroll
-      for (int c = 0; c < 6; ++c) {
-        float s = 0.f;
-#pragma unroll
-        for (int m = 0; m < 6; ++m) s += X[6 * m + r] * T[6 * m + c];
-        IAp[6 * r + c] += s;
-      }
-#pragma unroll
-    for (int r = 0; r < 6; ++r) {
-      float s = 0.f;
-#pragma unroll
-      for (int m = 0; m < 6; ++m) s += X[6 * m + r] * pa[m];
-      w.pA[p][r] += s;
-    }
-  }
-
-  // ---- roots: a0 = X_root [0; -g]; a FREE root solves
-  // IA qdd = -(pA + IA a0), a FIXED root only hands gravity on ----
-  for (int i = 0; i < nb; ++i) {
-    if (tb(t, i, IB_PARENT) >= 0) continue;
-    const float mg[3] = {-grav(0), -grav(1), -grav(2)};
-    float al[3];
-    mtv3(k.Rw[i], mg, al);
-    const float a0[6] = {0.f, 0.f, 0.f, al[0], al[1], al[2]};
-    if (tb(t, i, IB_JTYPE) == JT_FREE) {
-      const int va = tb(t, i, IB_VADR);
-      float rhs[6], x[6];
-#pragma unroll
-      for (int r = 0; r < 6; ++r) {
-        float s = 0.f;
-#pragma unroll
-        for (int c = 0; c < 6; ++c) s += w.IA[i][6 * r + c] * a0[c];
-        rhs[r] = -(w.pA[i][r] + s);
-      }
-      chol_solve6(w.IA[i], rhs, x);
-#pragma unroll
-      for (int c = 0; c < 6; ++c) {
-        w.qdd[va + c] = x[c];
-        w.acc[i][c] = a0[c] + x[c];
-      }
+  for (int k = 0; k < 3; ++k) {
+    if constexpr (DR) {
+      pA[k] = (n1[k] + n2[k]) * ms - tbd[k];
+      pA[3 + k] = f6[k] * ms - fb[k];
     } else {
-#pragma unroll
-      for (int c = 0; c < 6; ++c) w.acc[i][c] = a0[c];
+      pA[k] = n1[k] + n2[k] - tbd[k];
+      pA[3 + k] = f6[k] - fb[k];
     }
   }
+}
 
-  // ---- ABA outward pass ----
-  for (int i = 0; i < nb; ++i) {
-    const int p = tb(t, i, IB_PARENT);
-    if (p < 0) continue;
-    const int B = F_BODY + BODY_STRIDE * i;
-    const bool prismatic = tb(t, i, IB_JTYPE) == JT_PRISMATIC;
-    const int o = prismatic ? 3 : 0;
-    const float a[3] = {tf(t, B + B_AXIS), tf(t, B + B_AXIS + 1), tf(t, B + B_AXIS + 2)};
-    float r[3];
-    joint_r(t, B, prismatic, q[tb(t, i, IB_QADR)], r);
-    const float* E = k.E[i];
-    const float* ap = w.acc[p];
-    float crs[3], tmp[3], apw[3], apl[3];
-    cross3(r, ap, crs);
+// ---- ABA inward pass, one level at a time, deepest first. For a joint
+// body i, S = [axis; 0] (revolute) or [0; axis] (prismatic); X = [[E, 0],
+// [-E rtil, E]] with rtil = skew(r); Q = E rtil. ----
+
+// U = IA S, D = S^T U + armature + implicit diagonal (and 1 / D), u = tau
+// - S^T pA
+template <bool DR>
+__device__ __forceinline__ void inward_head(const Ctx& c, int i) {
+  const float* Bf = brec(c, i);
+  const int o = bi(c, i, IB_JTYPE) == JT_PRISMATIC ? 3 : 0;
+  const float a[3] = {Bf[B_AXIS], Bf[B_AXIS + 1], Bf[B_AXIS + 2]};
+  const float* IA = at(c, L_IA) + 36 * i;
+  const float* pA = at(c, L_PA) + 6 * i;
+  float* U = at(c, L_U) + 6 * i;
+  float Uo[3];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) tmp[c] = ap[3 + c] - crs[c];
-    mv3(E, ap, apw);
-    mv3(E, tmp, apl);
-    float a_p[6];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      a_p[c] = apw[c] + k.cw[i][c];
-      a_p[3 + c] = apl[c] + k.cl[i][c];
-    }
+  for (int r = 0; r < 6; ++r) {
+    const float x = IA[6 * r + o] * a[0] + IA[6 * r + o + 1] * a[1] + IA[6 * r + o + 2] * a[2];
+    U[r] = x;
+    if (r == o) Uo[0] = x;
+    if (r == o + 1) Uo[1] = x;
+    if (r == o + 2) Uo[2] = x;
+  }
+  float dimpl;
+  if constexpr (DR)
+    dimpl = Bf[B_DIMPL0] + at(c, L_DT)[i];
+  else
+    dimpl = Bf[B_DIMPL];
+  const float D = a[0] * Uo[0] + a[1] * Uo[1] + a[2] * Uo[2] + Bf[B_ARM] + dimpl;
+  at(c, L_D)[i] = D;
+  at(c, L_IDV)[i] = 1.f / D;
+  at(c, L_UU)[i] = at(c, L_TAU)[i] - (a[0] * pA[o] + a[1] * pA[o + 1] + a[2] * pA[o + 2]);
+}
+
+__device__ __forceinline__ float* slot(const Ctx& c, int i) {
+  return at(c, L_TMP) + TM_STRIDE * (slot_entry(c, i) & (SLOT_UNDER_FIXED - 1));
+}
+
+// entry k of Q = E rtil
+__device__ __forceinline__ void inward_q(const Ctx& c, int i, int k) {
+  const int rr = k / 3, cc = k - 3 * rr;
+  const float* E = at(c, L_E) + 9 * i;
+  const float* r = at(c, L_RJ) + 3 * i;
+  // column cc of rtil = {0, -r2, r1; r2, 0, -r0; -r1, r0, 0}
+  const float t0 = cc == 0 ? 0.f : cc == 1 ? -r[2] : r[1];
+  const float t1 = cc == 0 ? r[2] : cc == 1 ? 0.f : -r[0];
+  const float t2 = cc == 0 ? -r[1] : cc == 1 ? r[0] : 0.f;
+  slot(c, i)[TM_Q + k] = E[3 * rr] * t0 + E[3 * rr + 1] * t1 + E[3 * rr + 2] * t2;
+}
+
+// row r of Ia = IA - U U^T / D, entry m
+__device__ __forceinline__ float ia_entry(const float* IA, const float* U, float invD, int r,
+                                          int m) {
+  return IA[6 * r + m] - U[r] * U[m] * invD;
+}
+
+// k < 36: entry k of T = Ia X; k >= 36: row k - 36 of pa = pA + Ia c +
+// U u / D, c the velocity-product bias; returns it and where it goes
+__device__ __forceinline__ float inward_t(const Ctx& c, int i, int k, float*& dst) {
+  const float* IA = at(c, L_IA) + 36 * i;
+  const float* U = at(c, L_U) + 6 * i;
+  const float invD = at(c, L_IDV)[i];
+  float* sl = slot(c, i);
+  if (k >= 36) {
+    const int r = k - 36;
+    const float* cw = at(c, L_CW) + 3 * i;
+    const float* cl = at(c, L_CL) + 3 * i;
+    const float c6[6] = {cw[0], cw[1], cw[2], cl[0], cl[1], cl[2]};
     float s = 0.f;
 #pragma unroll
-    for (int c = 0; c < 6; ++c) s += w.U[i][c] * a_p[c];
-    const float qdd_i = (w.uu[i] - s) / w.D[i];
-    w.qdd[tb(t, i, IB_VADR)] = qdd_i;
-#pragma unroll
-    for (int c = 0; c < 6; ++c) w.acc[i][c] = a_p[c];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) w.acc[i][o + c] += a[c] * qdd_i;
+    for (int m = 0; m < 6; ++m) s += ia_entry(IA, U, invD, r, m) * c6[m];
+    dst = sl + TM_PA + r;
+    return at(c, L_PA)[6 * i + r] + s + U[r] * (at(c, L_UU)[i] * invD);
   }
-
-  // ---- semi-implicit Euler: caps, joint velocity clamp, limits ----
-  const int nq = t.nq, nv = t.nv;
-  // the velocity and joint-position updates round the product and the sum
-  // separately (no fused multiply-add), as the plain version does: a joint
-  // that lands on its limit then takes the same branch in both
-  for (int c = 0; c < nv; ++c) w.qdn[c] = __fadd_rn(qd[c], __fmul_rn(h, w.qdd[c]));
-  for (int c = 0; c < nq; ++c) w.qn[c] = q[c];
-  for (int i = 0; i < nb; ++i) {
-    const int qa = tb(t, i, IB_QADR), va = tb(t, i, IB_VADR);
-    if (tb(t, i, IB_PARENT) >= 0) {
-      const int B = F_BODY + BODY_STRIDE * i;
-      const float vmax = tf(t, B + B_VMAX);
-      // limit + delta, rounded once before the comparison, as the plain
-      // version's tensor sum is
-      auto limit = [&](int field, int off) {
-        float x = tf(t, B + field);
-        if constexpr (DR) x = __fadd_rn(x, __ldg(dr + (off + tb(t, i, IB_JDOF))));
-        return x;
-      };
-      const float lo = limit(B_LO, o_.o_lo), hi = limit(B_HI, o_.o_hi);
-      float qjd = jclip(w.qdn[va], -vmax, vmax);
-      float qj = __fadd_rn(q[qa], __fmul_rn(h, qjd));
-      const bool hit_lb = qj < lo;
-      const bool hit_ub = qj > hi;
-      qj = jclip(qj, lo, hi);
-      if (hit_ub) qjd = jmin(qjd, 0.f);
-      if (hit_lb) qjd = jmax(qjd, 0.f);
-      w.qn[qa] = qj;
-      w.qdn[va] = qjd;
-    } else if (tb(t, i, IB_JTYPE) == JT_FREE) {
+  const int r = k / 6, cc = k - 6 * r;
+  const float* Q = sl + TM_Q;
+  const float* E = at(c, L_E) + 9 * i;
+  float s = 0.f;
+  if (cc < 3) {
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        w.qdn[va + c] = jclip(w.qdn[va + c], -64.f, 64.f);
-        w.qdn[va + 3 + c] = jclip(w.qdn[va + 3 + c], -1000.f, 1000.f);
-      }
-      float dp[3];
-      mv3(k.Rw[i], &w.qdn[va + 3], dp);
+    for (int m = 0; m < 3; ++m) s += ia_entry(IA, U, invD, r, m) * E[3 * m + cc];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) w.qn[qa + c] = q[qa + c] + h * dp[c];
-      // q' = q * exp(omega h / 2)
-      const float hx = w.qdn[va] * (h / 2.f), hy = w.qdn[va + 1] * (h / 2.f),
-                  hz = w.qdn[va + 2] * (h / 2.f);
-      const float ang = sqrtf(hx * hx + hy * hy + hz * hz + 1e-24f);
-      const float sa = sinf(ang) / ang;
-      const float ew = cosf(ang), ex = sa * hx, ey = sa * hy, ez = sa * hz;
-      const float qw = q[qa + 3], qx = q[qa + 4], qy = q[qa + 5], qz = q[qa + 6];
-      const float nw = qw * ew - qx * ex - qy * ey - qz * ez;
-      const float nx = qw * ex + qx * ew + qy * ez - qz * ey;
-      const float ny = qw * ey - qx * ez + qy * ew + qz * ex;
-      const float nz = qw * ez + qx * ey - qy * ex + qz * ew;
-      const float norm = sqrtf(nw * nw + nx * nx + ny * ny + nz * nz + 1e-12f);
-      w.qn[qa + 3] = nw / norm;
-      w.qn[qa + 4] = nx / norm;
-      w.qn[qa + 5] = ny / norm;
-      w.qn[qa + 6] = nz / norm;
-    }
+    for (int m = 0; m < 3; ++m) s += ia_entry(IA, U, invD, r, 3 + m) * -Q[3 * m + cc];
+  } else {
+#pragma unroll
+    for (int m = 0; m < 3; ++m) s += ia_entry(IA, U, invD, r, 3 + m) * E[3 * m + cc - 3];
   }
-  for (int c = 0; c < nq; ++c) q[c] = w.qn[c];
-  for (int c = 0; c < nv; ++c) qd[c] = w.qdn[c];
+  dst = sl + TM_T + k;
+  return s;
 }
 
-// report FK fields of one env: pos (nb,3), quat (nb,4), avel, lvel (nb,3)
-__device__ __forceinline__ void write_report(const Tables& t, const Frames& k, long e,
-                                             float* pos, float* quat, float* avel,
-                                             float* lvel) {
-  const int nb = t.nb;
-  for (int i = 0; i < nb; ++i) {
-    const long o3 = (e * nb + i) * 3, o4 = (e * nb + i) * 4;
-    float qt[4];
-    mat_quat(k.Rw[i], qt);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      pos[o3 + c] = k.pw[i][c];
-      avel[o3 + c] = k.wv[i][c];
-      lvel[o3 + c] = k.lv[i][c];
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) quat[o4 + c] = qt[c];
-  }
-}
-
-// n_steps substeps of one env, then the report FK unless `pos` is null
-// (the single-substep launch mode writes no report); with PLANES, `planes`
-// is (n_env, ncp, 4); with DR, `dr` is (n_env, n_dr): every substep reads
-// the env's overlay from device memory through the read-only path (a copy
-// in the thread's stack, 1,104 B more of it, measured 13% slower on the
-// H100 at the hand's 12 substeps)
+// entry k of body p's articulated inertia IA (k < 36, row-major; its
+// spatial inertia, under mass_scale) or bias force pA (k >= 36), plus X^T
+// Ia X and X^T pa of each of its children, by descending child index;
+// returns it and where it goes. The whole 6x6 is summed, not its upper
+// triangle: a chattering env of the randomized hand amplifies the
+// difference of the two roundings past the limits of ops/parity.py.
 template <bool PLANES, bool DR>
-__device__ __forceinline__ void step_env(const Tables t, long e, const float* q_in,
+__device__ __forceinline__ float inward_acc(const Ctx& c, int p, int k, float*& dst) {
+  const int* start = c.S + c.h[H_CH];
+  const int* child = c.S + c.h[H_CHL];
+  float acc;
+  int r, cc = 0;
+  if (k < 36) {
+    r = k / 6;
+    cc = k - 6 * r;
+    dst = at(c, L_IA) + 36 * p + k;
+    acc = brec(c, p)[B_I6 + k];
+    if constexpr (DR) acc *= overlay<PLANES>(c)[DrOffsets(c.h).o_mass + p];
+  } else {
+    r = k - 36;
+    dst = at(c, L_PA) + 6 * p + r;
+    acc = *dst;
+  }
+  for (int t = start[p]; t < start[p + 1]; ++t) {
+    const int j = child[t];
+    const float* sl = slot(c, j);
+    const float* E = at(c, L_E) + 9 * j;
+    const float* Q = sl + TM_Q;
+    // column r of X: rows m < 3 E[m][r] and rows 3 + m -Q[m][r] (r < 3),
+    // rows 3 + m E[m][r - 3] (r >= 3)
+    const float* v = k < 36 ? sl + TM_T + cc : sl + TM_PA;
+    const int st = k < 36 ? 6 : 1;
+    float s = 0.f;
+    if (r < 3) {
+#pragma unroll
+      for (int m = 0; m < 3; ++m) s += E[3 * m + r] * v[st * m];
+#pragma unroll
+      for (int m = 0; m < 3; ++m) s += -Q[3 * m + r] * v[st * (3 + m)];
+    } else {
+#pragma unroll
+      for (int m = 0; m < 3; ++m) s += E[3 * m + r - 3] * v[st * (3 + m)];
+    }
+    acc += s;
+  }
+  return acc;
+}
+
+// ---- roots: a0 = X_root [0; -g]; a FREE root solves IA qdd = -(pA + IA
+// a0), a FIXED root only hands gravity on ----
+template <bool PLANES, bool DR>
+__device__ __forceinline__ void root_solve(const Ctx& c, int i) {
+  const float mg[3] = {-grav<PLANES, DR>(c, 0), -grav<PLANES, DR>(c, 1),
+                       -grav<PLANES, DR>(c, 2)};
+  float al[3];
+  mtv3(at(c, L_RW) + 9 * i, mg, al);
+  const float a0[6] = {0.f, 0.f, 0.f, al[0], al[1], al[2]};
+  float* acc = at(c, L_ACC) + 6 * i;
+  if (bi(c, i, IB_JTYPE) == JT_FREE) {
+    const int va = bi(c, i, IB_VADR);
+    const float* IA = at(c, L_IA) + 36 * i;
+    float A[36], rhs[6], x[6];
+#pragma unroll
+    for (int k = 0; k < 36; ++k) A[k] = IA[k];
+#pragma unroll
+    for (int r = 0; r < 6; ++r) {
+      float s = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < 6; ++cc) s += A[6 * r + cc] * a0[cc];
+      rhs[r] = -(at(c, L_PA)[6 * i + r] + s);
+    }
+    chol_solve6(A, rhs, x);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      at(c, L_QDD)[va + k] = x[k];
+      acc[k] = a0[k] + x[k];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) acc[k] = a0[k];
+  }
+}
+
+// ---- ABA outward pass: joint body i, its parent's acceleration done ----
+__device__ __forceinline__ void outward(const Ctx& c, int i) {
+  const int p = bi(c, i, IB_PARENT);
+  const float* Bf = brec(c, i);
+  const int o = bi(c, i, IB_JTYPE) == JT_PRISMATIC ? 3 : 0;
+  const float* E = at(c, L_E) + 9 * i;
+  const float* r = at(c, L_RJ) + 3 * i;
+  const float* ap = at(c, L_ACC) + 6 * p;
+  const float* U = at(c, L_U) + 6 * i;
+  float crs[3], tmp[3], apw[3], apl[3];
+  cross3(r, ap, crs);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) tmp[k] = ap[3 + k] - crs[k];
+  mv3(E, ap, apw);
+  mv3(E, tmp, apl);
+  float a_p[6];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    a_p[k] = apw[k] + at(c, L_CW)[3 * i + k];
+    a_p[3 + k] = apl[k] + at(c, L_CL)[3 * i + k];
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) s += U[k] * a_p[k];
+  const float qdd_i = (at(c, L_UU)[i] - s) / at(c, L_D)[i];
+  at(c, L_QDD)[bi(c, i, IB_VADR)] = qdd_i;
+  float* acc = at(c, L_ACC) + 6 * i;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) acc[k] = a_p[k];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) acc[o + k] += Bf[B_AXIS + k] * qdd_i;
+}
+
+// ---- semi-implicit Euler of body i's coordinates, in place: caps, joint
+// velocity clamp, limits. The velocity and joint-position updates round
+// the product and the sum separately (no fused multiply-add), as the plain
+// version does: a joint that lands on its limit then takes the same branch
+// in both. ----
+template <bool PLANES, bool DR>
+__device__ __forceinline__ void integrate(const Ctx& c, int i) {
+  const int qa = bi(c, i, IB_QADR), va = bi(c, i, IB_VADR);
+  float* q = at(c, L_Q);
+  float* qd = at(c, L_QD);
+  const float* qdd = at(c, L_QDD);
+  const float h = c.F[3];
+  if (bi(c, i, IB_PARENT) >= 0) {
+    const float* Bf = brec(c, i);
+    const float vmax = Bf[B_VMAX];
+    // limit + delta, rounded once before the comparison, as the plain
+    // version's tensor sum is
+    float lo = Bf[B_LO], hi = Bf[B_HI];
+    if constexpr (DR) {
+      const DrOffsets o(c.h);
+      const float* dr = overlay<PLANES>(c);
+      const int d = bi(c, i, IB_JDOF);
+      lo = __fadd_rn(lo, dr[o.o_lo + d]);
+      hi = __fadd_rn(hi, dr[o.o_hi + d]);
+    }
+    float qjd = jclip(__fadd_rn(qd[va], __fmul_rn(h, qdd[va])), -vmax, vmax);
+    float qj = __fadd_rn(q[qa], __fmul_rn(h, qjd));
+    const bool hit_lb = qj < lo;
+    const bool hit_ub = qj > hi;
+    qj = jclip(qj, lo, hi);
+    if (hit_ub) qjd = jmin(qjd, 0.f);
+    if (hit_lb) qjd = jmax(qjd, 0.f);
+    q[qa] = qj;
+    qd[va] = qjd;
+  } else if (bi(c, i, IB_JTYPE) == JT_FREE) {
+    float v[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) v[k] = __fadd_rn(qd[va + k], __fmul_rn(h, qdd[va + k]));
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      v[k] = jclip(v[k], -64.f, 64.f);
+      v[3 + k] = jclip(v[3 + k], -1000.f, 1000.f);
+    }
+    float dp[3];
+    mv3(at(c, L_RW) + 9 * i, v + 3, dp);
+    // q' = q * exp(omega h / 2)
+    const float hx = v[0] * (h / 2.f), hy = v[1] * (h / 2.f), hz = v[2] * (h / 2.f);
+    const float ang = sqrtf(hx * hx + hy * hy + hz * hz + 1e-24f);
+    const float sa = sinf(ang) / ang;
+    const float ew = cosf(ang), ex = sa * hx, ey = sa * hy, ez = sa * hz;
+    const float qw = q[qa + 3], qx = q[qa + 4], qy = q[qa + 5], qz = q[qa + 6];
+    const float nw = qw * ew - qx * ex - qy * ey - qz * ez;
+    const float nx = qw * ex + qx * ew + qy * ez - qz * ey;
+    const float ny = qw * ey - qx * ez + qy * ew + qz * ex;
+    const float nz = qw * ez + qx * ey - qy * ex + qz * ew;
+    const float norm = sqrtf(nw * nw + nx * nx + ny * ny + nz * nz + 1e-12f);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) q[qa + k] = q[qa + k] + h * dp[k];
+    q[qa + 3] = nw / norm;
+    q[qa + 4] = nx / norm;
+    q[qa + 5] = ny / norm;
+    q[qa + 6] = nz / norm;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) qd[va + k] = v[k];
+  }
+}
+
+// ---- one env: copies between device memory and the working set, the
+// substep, the report ----
+
+// row e (n floats) of an (n_env, n) input into the working set, and back
+// to an output, by consecutive lanes
+template <int G>
+__device__ __forceinline__ void load(const Ctx& c, float* dst, const float* src, long e, int n) {
+  for (int j = c.lane; j < n; j += G) dst[j] = __ldg(src + e * n + j);
+}
+template <int G>
+__device__ __forceinline__ void store(const Ctx& c, float* dst, long e, const float* src, int n) {
+  for (int j = c.lane; j < n; j += G) dst[e * n + j] = src[j];
+}
+
+// one substep of the env in the working set: (q, qd) in place; leaves this
+// substep's contact wrenches in L_FX / L_TX
+template <bool PLANES, bool DR, int G>
+__device__ __forceinline__ void substep(const Ctx& c, Prof& pf) {
+  const int nb = c.h[H_NB], nlev = c.h[H_NLEV];
+  const int ncp = c.h[H_NCP], npair = c.h[H_NPAIR];
+  const int* lev = c.S + c.h[H_LEV];
+  const int* lb = c.S + c.h[H_LBODY];
+  fk<G>(c, pf);
+  for (int j = c.lane; j < ncp; j += G) ground_contact<PLANES, DR>(c, j);
+  for (int j = c.lane; j < npair; j += G) pair_contact<PLANES, DR>(c, j);
+  gsync<G>(c);
+  pf.mark(c, PF_CONTACT);
+  two_per_round<G>(c, 6 * nb, [&](int j, float*& dst) {
+    return contact_sum(c, j / 6, j % 6, dst);
+  });
+  for (int j = c.lane; j < nb; j += G) drive<PLANES, DR>(c, j);
+  gsync<G>(c);
+  pf.mark(c, PF_SUM_DRIVE);
+  for (int j = c.lane; j < nb; j += G) bias<PLANES, DR>(c, j);
+  gsync<G>(c);
+  pf.mark(c, PF_BIAS);
+  // inward, deepest level first: a level's bodies take their own inertia
+  // and their children's X^T Ia X and X^T pa, then compute their own
+  for (int L = nlev - 1; L >= 1; --L) {
+    const int b0 = lev[L], n = lev[L + 1] - b0;
+    two_per_round<G>(c, 42 * n, [&](int j, float*& dst) {
+      return inward_acc<PLANES, DR>(c, lb[b0 + j / 42], j % 42, dst);
+    });
+    gsync<G>(c);
+    pf.mark(c, PF_ACC);
+    for (int j = c.lane; j < n; j += G) inward_head<DR>(c, lb[b0 + j]);
+    for (int j = c.lane; j < 9 * n; j += G) {
+      const int i = lb[b0 + j / 9];
+      if (!(slot_entry(c, i) & SLOT_UNDER_FIXED)) inward_q(c, i, j % 9);
+    }
+    gsync<G>(c);
+    pf.mark(c, PF_HEAD);
+    two_per_round<G>(c, 42 * n, [&](int j, float*& dst) {
+      const int i = lb[b0 + j / 42];
+      return slot_entry(c, i) & SLOT_UNDER_FIXED ? 0.f : inward_t(c, i, j % 42, dst);
+    });
+    gsync<G>(c);
+    pf.mark(c, PF_T);
+  }
+  const int n0 = lev[1] - lev[0];
+  two_per_round<G>(c, 42 * n0, [&](int j, float*& dst) {
+    const int i = lb[j / 42];
+    return bi(c, i, IB_JTYPE) == JT_FREE ? inward_acc<PLANES, DR>(c, i, j % 42, dst) : 0.f;
+  });
+  gsync<G>(c);
+  for (int j = c.lane; j < n0; j += G) root_solve<PLANES, DR>(c, lb[j]);
+  gsync<G>(c);
+  pf.mark(c, PF_ROOT);
+  for (int L = 1; L < nlev; ++L) {
+    const int b0 = lev[L], n = lev[L + 1] - b0;
+    for (int j = c.lane; j < n; j += G) outward(c, lb[b0 + j]);
+    gsync<G>(c);
+  }
+  pf.mark(c, PF_OUTWARD);
+  for (int j = c.lane; j < nb; j += G) integrate<PLANES, DR>(c, j);
+  gsync<G>(c);
+  pf.mark(c, PF_INTEGRATE);
+}
+
+// report FK fields of the env, from its frames: pos (nb,3), quat (nb,4),
+// avel, lvel (nb,3), each row of the env written by consecutive lanes
+template <int G>
+__device__ __forceinline__ void write_report(const Ctx& c, long e, float* pos, float* quat,
+                                             float* avel, float* lvel) {
+  const int nb = c.h[H_NB];
+  for (int j = c.lane; j < nb; j += G) mat_quat(at(c, L_RW) + 9 * j, at(c, L_QUAT) + 4 * j);
+  gsync<G>(c);
+  store<G>(c, pos, e, at(c, L_PW), 3 * nb);
+  store<G>(c, quat, e, at(c, L_QUAT), 4 * nb);
+  store<G>(c, avel, e, at(c, L_WV), 3 * nb);
+  store<G>(c, lvel, e, at(c, L_LV), 3 * nb);
+}
+
+// n_steps substeps of env e, then the report FK unless `pos` is null (the
+// single-substep launch mode writes no report); with PLANES, `planes` is
+// (n_env, ncp, 4); with DR, `dr` is (n_env, n_dr). Every input is read
+// once and every output written once per launch.
+template <bool PLANES, bool DR, int G>
+__device__ __forceinline__ void step_env(const Ctx& c, long e, const float* q_in,
                                          const float* qd_in, const float* eff,
                                          const float* ptg, const float* vtg,
                                          const float* fapp, const float* planes,
-                                         const float* dr, float* q_out,
-                                         float* qd_out, float* sf_out, float* pos,
-                                         float* quat, float* avel, float* lvel,
-                                         int n_steps) {
-  const int nb = t.nb, nq = t.nq, nv = t.nv, njd = t.njd;
-  float q[OIGE_NQ_MAX], qd[OIGE_NV_MAX];
-  Work w;
-  for (int c = 0; c < nq; ++c) q[c] = q_in[e * nq + c];
-  for (int c = 0; c < nv; ++c) qd[c] = qd_in[e * nv + c];
-  const float* eff_e = eff + e * njd;
-  const float* ptg_e = ptg + e * njd;
-  const float* vtg_e = vtg + e * njd;
-  const float* fapp_e = fapp + e * 6 * nb;
-  const float* pl_e = PLANES ? planes + e * 4 * t.ncp : nullptr;
-  const float* dr_e = DR ? dr + e * DrOffsets(t).n_dr : nullptr;
-  for (int s = 0; s < n_steps; ++s)
-    substep<PLANES, DR>(t, q, qd, eff_e, ptg_e, vtg_e, fapp_e, pl_e, dr_e, w);
-  for (int c = 0; c < nq; ++c) q_out[e * nq + c] = q[c];
-  for (int c = 0; c < nv; ++c) qd_out[e * nv + c] = qd[c];
+                                         const float* dr, float* q_out, float* qd_out,
+                                         float* sf_out, float* pos, float* quat,
+                                         float* avel, float* lvel, int n_steps) {
+  const int nb = c.h[H_NB], nq = c.h[H_NQ], nv = c.h[H_NV], njd = c.h[H_NJD];
+  const int ncp = c.h[H_NCP], ns = c.h[H_NS];
+  Prof pf;
+  pf.start();
+  load<G>(c, at(c, L_Q), q_in, e, nq);
+  load<G>(c, at(c, L_QD), qd_in, e, nv);
+  load<G>(c, at(c, L_EFF), eff, e, njd);
+  load<G>(c, at(c, L_PTG), ptg, e, njd);
+  load<G>(c, at(c, L_VTG), vtg, e, njd);
+  load<G>(c, at(c, L_FAPP), fapp, e, 6 * nb);
+  if constexpr (PLANES) load<G>(c, at(c, L_PLANES), planes, e, 4 * ncp);
+  if constexpr (DR)
+    load<G>(c, c.s + c.h[L_PLANES] + (PLANES ? 4 * ncp : 0), dr, e, DrOffsets(c.h).n_dr);
+  gsync<G>(c);
+  pf.mark(c, PF_LOAD);
+  for (int s = 0; s < n_steps; ++s) substep<PLANES, DR, G>(c, pf);
+  store<G>(c, q_out, e, at(c, L_Q), nq);
+  store<G>(c, qd_out, e, at(c, L_QD), nv);
   // sensors read the last substep's contact wrench [force, torque]: ground
   // and pair contacts, without applied forces and gravity compensation
-  for (int s = 0; s < t.ns; ++s) {
-    const int b = ti(t, t.i_sens + s);
-    const long o = (e * t.ns + s) * 6;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      sf_out[o + c] = w.fx[b][c];
-      sf_out[o + 3 + c] = w.tx[b][c];
-    }
+  for (int j = c.lane; j < 6 * ns; j += G) {
+    const int b = c.I[c.h[H_ISENS] + j / 6], k = j % 6;
+    sf_out[e * 6 * ns + j] = k < 3 ? at(c, L_FX)[3 * b + k] : at(c, L_TX)[3 * b + k - 3];
   }
-  if (pos == nullptr) return;
-  fk_full(t, q, qd, w.k);
-  write_report(t, w.k, e, pos, quat, avel, lvel);
+  gsync<G>(c);
+  pf.mark(c, PF_STORE);
+  if (pos != nullptr) {
+    Prof quiet;  // the report's FK counts as the report
+    quiet.on = false;
+    fk<G>(c, quiet);
+    write_report<G>(c, e, pos, quat, avel, lvel);
+    gsync<G>(c);
+    pf.mark(c, PF_REPORT);
+  }
 }
 
-__device__ __forceinline__ void fk_env(const Tables t, long e, const float* q_in,
+template <int G>
+__device__ __forceinline__ void fk_env(const Ctx& c, long e, const float* q_in,
                                        const float* qd_in, float* pos, float* quat,
                                        float* avel, float* lvel) {
-  const int nq = t.nq, nv = t.nv;
-  float q[OIGE_NQ_MAX], qd[OIGE_NV_MAX];
-  Frames k;
-  for (int c = 0; c < nq; ++c) q[c] = q_in[e * nq + c];
-  for (int c = 0; c < nv; ++c) qd[c] = qd_in[e * nv + c];
-  fk_full(t, q, qd, k);
-  write_report(t, k, e, pos, quat, avel, lvel);
+  const int nq = c.h[H_NQ], nv = c.h[H_NV];
+  load<G>(c, at(c, L_Q), q_in, e, nq);
+  load<G>(c, at(c, L_QD), qd_in, e, nv);
+  gsync<G>(c);
+  Prof pf;
+  fk<G>(c, pf);
+  write_report<G>(c, e, pos, quat, avel, lvel);
+  gsync<G>(c);
 }
 
-template <bool PLANES, bool DR>
-__global__ void __launch_bounds__(128) step_kernel(
-    const Tables t, const float* __restrict__ q_in, const float* __restrict__ qd_in,
+}  // namespace
+
+#ifdef __CUDACC__
+
+namespace {
+
+// the schedule's header as a kernel parameter
+struct Hdr {
+  int v[H_LEN];
+};
+
+// stage the tables into the block's shared memory, [float table at the
+// shared strides | int table], then the working sets of its envs, env_floats each; the group of
+// this thread and its view
+template <int G>
+__device__ __forceinline__ Ctx block_ctx(const Hdr& hdr, const float* __restrict__ ftab,
+                                         const int* __restrict__ itab, int nf, int ni,
+                                         int env_floats) {
+  extern __shared__ float4 smem4[];  // 16-byte aligned
+  Ctx c;
+  const int nfs = hdr.v[H_FEND];  // floats of the copy
+  float* sm = reinterpret_cast<float*>(smem4);
+  int* si = reinterpret_cast<int*>(sm + nfs);
+  for (int j = threadIdx.x; j < nf; j += blockDim.x) sm[staged_index(hdr.v, j)] = __ldg(ftab + j);
+  for (int j = threadIdx.x; j < ni; j += blockDim.x) si[j] = __ldg(itab + j);
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < H_LEN; ++k) c.h[k] = hdr.v[k];
+  c.F = sm;
+  c.S = si;
+  c.I = si + c.h[H_IMODEL];
+  c.s = sm + ((nfs + ni + 3) & ~3) + (threadIdx.x / G) * env_floats;
+  c.lane = threadIdx.x % G;
+  c.mask = G == 32 ? 0xffffffffu : ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+  return c;
+}
+
+template <bool PLANES, bool DR, int G>
+__global__ void __launch_bounds__(OIGE_MAX_THREADS, 1) step_kernel(
+    const Hdr hdr, const float* __restrict__ ftab, const int* __restrict__ itab, int nf, int ni,
+    int env_floats, const float* __restrict__ q_in, const float* __restrict__ qd_in,
     const float* __restrict__ eff, const float* __restrict__ ptg,
     const float* __restrict__ vtg, const float* __restrict__ fapp,
     const float* __restrict__ planes, const float* __restrict__ dr,
-    float* __restrict__ q_out,
-    float* __restrict__ qd_out, float* __restrict__ sf_out,
+    float* __restrict__ q_out, float* __restrict__ qd_out, float* __restrict__ sf_out,
     float* __restrict__ pos, float* __restrict__ quat, float* __restrict__ avel,
     float* __restrict__ lvel, int n_env, int n_steps) {
-  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n_env) return;
-  step_env<PLANES, DR>(t, e, q_in, qd_in, eff, ptg, vtg, fapp, planes, dr, q_out, qd_out,
-                       sf_out, pos, quat, avel, lvel, n_steps);
+  const Ctx c = block_ctx<G>(hdr, ftab, itab, nf, ni, env_floats);
+  const int epb = blockDim.x / G;
+  const long stride = (long)gridDim.x * epb;
+  for (long e = (long)blockIdx.x * epb + threadIdx.x / G; e < n_env; e += stride)
+    step_env<PLANES, DR, G>(c, e, q_in, qd_in, eff, ptg, vtg, fapp, planes, dr, q_out,
+                            qd_out, sf_out, pos, quat, avel, lvel, n_steps);
 }
 
-__global__ void __launch_bounds__(128) fk_kernel(
-    const Tables t, const float* __restrict__ q_in, const float* __restrict__ qd_in,
+template <int G>
+__global__ void __launch_bounds__(OIGE_MAX_THREADS, 1) fk_kernel(
+    const Hdr hdr, const float* __restrict__ ftab, const int* __restrict__ itab, int nf, int ni,
+    int env_floats, const float* __restrict__ q_in, const float* __restrict__ qd_in,
     float* __restrict__ pos, float* __restrict__ quat, float* __restrict__ avel,
     float* __restrict__ lvel, int n_env) {
-  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n_env) return;
-  fk_env(t, e, q_in, qd_in, pos, quat, avel, lvel);
+  const Ctx c = block_ctx<G>(hdr, ftab, itab, nf, ni, env_floats);
+  const int epb = blockDim.x / G;
+  const long stride = (long)gridDim.x * epb;
+  for (long e = (long)blockIdx.x * epb + threadIdx.x / G; e < n_env; e += stride)
+    fk_env<G>(c, e, q_in, qd_in, pos, quat, avel, lvel);
+}
+
+// the launch configuration (host memory, from ops/fused_step.py
+// launch_config): envs per block, blocks, shared bytes per block, floats
+// per env's working set, float and int table lengths, then the schedule's
+// header (H_LEN ints)
+enum { CFG_EPB, CFG_BLOCKS, CFG_SMEM, CFG_ENV, CFG_NF, CFG_NI, CFG_LEN };
+
+Hdr header(const int* cfg) {
+  Hdr h;
+  for (int k = 0; k < H_LEN; ++k) h.v[k] = cfg[CFG_LEN + k];
+  return h;
+}
+
+// the configuration fits these tables (dims: nb, ncp, ns, npair, nsurf,
+// nt, nq, nv, njd) and a block's threads
+bool cfg_ok(const int* dims, const int* cfg) {
+  const int nf = F_BODY + (BODY_STRIDE + GC_STRIDE) * dims[0] + CP_STRIDE * dims[1] +
+                 PAIR_STRIDE * dims[3] + SURF_STRIDE * dims[4] + TEND_STRIDE * dims[5];
+  return cfg[CFG_NF] == nf && OIGE_G * cfg[CFG_EPB] <= OIGE_MAX_THREADS;
+}
+
+// lets `kernel` take up to the device's largest dynamic shared memory per
+// block; each launcher calls it once per process (a static of its own), not
+// at every launch
+template <class K>
+int allow_max_smem(K kernel) {
+  int dev = 0, most = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (!err) err = (int)cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (!err) err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  return err;
+}
+
+template <bool PLANES, bool DR>
+int launch_step(const int* cfg, const float* ftab, const int* itab, const float* q,
+                const float* qd, const float* eff, const float* ptg, const float* vtg,
+                const float* fapp, const float* planes, const float* dr, float* q_out,
+                float* qd_out, float* sf_out, float* pos, float* quat, float* avel,
+                float* lvel, int n_env, int n_steps, void* stream) {
+  static const int err = allow_max_smem(step_kernel<PLANES, DR, OIGE_G>);
+  if (err) return err;
+  step_kernel<PLANES, DR, OIGE_G><<<cfg[CFG_BLOCKS], OIGE_G * cfg[CFG_EPB], cfg[CFG_SMEM],
+                                    (cudaStream_t)stream>>>(
+      header(cfg), ftab, itab, cfg[CFG_NF], cfg[CFG_NI], cfg[CFG_ENV], q, qd, eff, ptg, vtg, fapp,
+      planes, dr, q_out, qd_out, sf_out, pos, quat, avel, lvel, n_env, n_steps);
+  return (int)cudaGetLastError();
+}
+
+int launch_fk(const int* cfg, const float* ftab, const int* itab, const float* q,
+              const float* qd, float* pos, float* quat, float* avel, float* lvel,
+              int n_env, void* stream) {
+  static const int err = allow_max_smem(fk_kernel<OIGE_G>);
+  if (err) return err;
+  fk_kernel<OIGE_G><<<cfg[CFG_BLOCKS], OIGE_G * cfg[CFG_EPB], cfg[CFG_SMEM],
+                      (cudaStream_t)stream>>>(
+      header(cfg), ftab, itab, cfg[CFG_NF], cfg[CFG_NI], cfg[CFG_ENV], q, qd, pos, quat, avel, lvel,
+      n_env);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // ---- C entry points: launch on the caller's stream, return cudaError_t ----
-#define OIGE_THREADS 128
-
-// dims: nb, ncp, ns, npair, nsurf, nt, nq, nv, njd (host memory)
-static Tables make_tables(const float* ftab, const int* itab, const int* dims) {
-  Tables t;
-  t.f = ftab;
-  t.it = itab;
-  t.nb = dims[0];
-  t.ncp = dims[1];
-  t.ns = dims[2];
-  t.npair = dims[3];
-  t.nsurf = dims[4];
-  t.nt = dims[5];
-  t.nq = dims[6];
-  t.nv = dims[7];
-  t.njd = dims[8];
-  t.f_cp = F_BODY + BODY_STRIDE * t.nb;
-  t.f_gc = t.f_cp + CP_STRIDE * t.ncp;
-  t.f_pair = t.f_gc + GC_STRIDE * t.nb;
-  t.f_surf = t.f_pair + PAIR_STRIDE * t.npair;
-  t.f_tend = t.f_surf + SURF_STRIDE * t.nsurf;
-  t.i_cp = IB_STRIDE * t.nb;
-  t.i_sens = t.i_cp + t.ncp;
-  t.i_pair = t.i_sens + t.ns;
-  t.i_surf = t.i_pair + 2 * t.npair;
-  t.i_tend = t.i_surf + 2 * t.nsurf;
-  return t;
-}
 
 extern "C" int oige_limits(int* out) {
   out[0] = OIGE_NB_MAX;
@@ -1151,42 +1545,26 @@ extern "C" int oige_limits(int* out) {
   return 0;
 }
 
-template <bool PLANES, bool DR>
-static void launch_step(const Tables& t, const float* q, const float* qd, const float* eff,
-                        const float* ptg, const float* vtg, const float* fapp,
-                        const float* planes, const float* dr, float* q_out, float* qd_out,
-                        float* sf_out, float* pos, float* quat, float* avel, float* lvel,
-                        int n_env, int n_steps, void* stream) {
-  const int blocks = (n_env + OIGE_THREADS - 1) / OIGE_THREADS;
-  step_kernel<PLANES, DR><<<blocks, OIGE_THREADS, 0, (cudaStream_t)stream>>>(
-      t, q, qd, eff, ptg, vtg, fapp, planes, dr, q_out, qd_out, sf_out, pos, quat, avel,
-      lvel, n_env, n_steps);
-}
-
-// planes: (n_env, ncp, 4) contiguous terrain planes, or null for flat
-// ground; dr: (n_env, n_dr) contiguous packed overlays, or null for none.
-// Which of the two are given picks one of the kernel's four variants.
+// itab: [schedule | model int table]; planes: (n_env, ncp, 4) contiguous
+// terrain planes, or null for flat ground; dr: (n_env, n_dr) contiguous
+// packed overlays, or null for none. Which of the two are given picks one
+// of the kernel's four instantiations.
 extern "C" int oige_step(const float* ftab, const int* itab, const int* dims,
                          const float* q, const float* qd, const float* eff,
                          const float* ptg, const float* vtg, const float* fapp,
                          const float* planes, const float* dr, float* q_out,
                          float* qd_out, float* sf_out, float* pos,
                          float* quat, float* avel, float* lvel, int n_env, int n_steps,
-                         void* stream) {
-  const Tables t = make_tables(ftab, itab, dims);
-#define OIGE_STEP_ARGS                                                                  \
-  t, q, qd, eff, ptg, vtg, fapp, planes, dr, q_out, qd_out, sf_out, pos, quat, avel, lvel, \
-      n_env, n_steps, stream
-  if (planes != nullptr && dr != nullptr)
-    launch_step<true, true>(OIGE_STEP_ARGS);
-  else if (planes != nullptr)
-    launch_step<true, false>(OIGE_STEP_ARGS);
-  else if (dr != nullptr)
-    launch_step<false, true>(OIGE_STEP_ARGS);
-  else
-    launch_step<false, false>(OIGE_STEP_ARGS);
+                         void* stream, const int* cfg) {
+  if (!cfg_ok(dims, cfg)) return (int)cudaErrorInvalidValue;
+#define OIGE_STEP_ARGS                                                                   \
+  cfg, ftab, itab, q, qd, eff, ptg, vtg, fapp, planes, dr, q_out, qd_out, sf_out, pos, quat, \
+      avel, lvel, n_env, n_steps, stream
+  if (planes != nullptr && dr != nullptr) return launch_step<true, true>(OIGE_STEP_ARGS);
+  if (planes != nullptr) return launch_step<true, false>(OIGE_STEP_ARGS);
+  if (dr != nullptr) return launch_step<false, true>(OIGE_STEP_ARGS);
+  return launch_step<false, false>(OIGE_STEP_ARGS);
 #undef OIGE_STEP_ARGS
-  return (int)cudaGetLastError();
 }
 
 // K3: one substep, no report FK
@@ -1194,17 +1572,37 @@ extern "C" int oige_substep(const float* ftab, const int* itab, const int* dims,
                             const float* q, const float* qd, const float* eff,
                             const float* ptg, const float* vtg, const float* fapp,
                             const float* planes, const float* dr, float* q_out,
-                            float* qd_out, float* sf_out, int n_env, void* stream) {
+                            float* qd_out, float* sf_out, int n_env, void* stream,
+                            const int* cfg) {
   return oige_step(ftab, itab, dims, q, qd, eff, ptg, vtg, fapp, planes, dr, q_out, qd_out,
-                   sf_out, nullptr, nullptr, nullptr, nullptr, n_env, 1, stream);
+                   sf_out, nullptr, nullptr, nullptr, nullptr, n_env, 1, stream, cfg);
+}
+
+// the phase counters of a build with -DOIGE_PROFILE: cycles and marks of
+// each phase (2 * PF_N values, summed over the slots), read and then
+// zeroed; -1 in other builds
+extern "C" int oige_profile(unsigned long long* out) {
+#ifdef OIGE_PROFILE
+  static unsigned long long buf[PF_SLOTS * 2 * PF_N];
+  cudaError_t err = cudaMemcpyFromSymbol(buf, g_prof, sizeof(g_prof));
+  if (err) return (int)err;
+  for (int k = 0; k < 2 * PF_N; ++k) {
+    out[k] = 0;
+    for (int sl = 0; sl < PF_SLOTS; ++sl) out[k] += buf[sl * 2 * PF_N + k];
+  }
+  for (auto& x : buf) x = 0;
+  return (int)cudaMemcpyToSymbol(g_prof, buf, sizeof(g_prof));
+#else
+  (void)out;
+  return -1;
+#endif
 }
 
 extern "C" int oige_fk(const float* ftab, const int* itab, const int* dims,
                        const float* q, const float* qd, float* pos, float* quat,
-                       float* avel, float* lvel, int n_env, void* stream) {
-  const Tables t = make_tables(ftab, itab, dims);
-  const int blocks = (n_env + OIGE_THREADS - 1) / OIGE_THREADS;
-  fk_kernel<<<blocks, OIGE_THREADS, 0, (cudaStream_t)stream>>>(t, q, qd, pos, quat, avel,
-                                                               lvel, n_env);
-  return (int)cudaGetLastError();
+                       float* avel, float* lvel, int n_env, void* stream, const int* cfg) {
+  if (!cfg_ok(dims, cfg)) return (int)cudaErrorInvalidValue;
+  return launch_fk(cfg, ftab, itab, q, qd, pos, quat, avel, lvel, n_env, stream);
 }
+
+#endif  // __CUDACC__

@@ -8,7 +8,13 @@ launch. K2 `fk` replaces batched_fk / fk_kernel: (q, qd) -> world pose and
 velocity of every body. K3 `substep` replaces batched / kernel: one substep
 without the report (a launch mode of K1's device code). The CUDA source is
 built with nvcc at first use into `build/torch_kernels/` (keyed by a hash
-of the source and flags) and bound with ctypes.
+of the source and flags) and bound with ctypes. K1 and K3 come in two
+forms: a group of 32 lanes per env, whose working set lives in shared
+memory beside the staged model tables (`csrc/fused_step.cu`, which also
+holds K2), and one thread per env (`csrc/fused_step_thread.cu`), faster
+once a batch fills the card. `launch_config` picks the form and sizes the
+launch (envs per block, blocks, shared bytes), and the wrappers hand it to
+the C entry.
 
 A wrapper given CPU tensors runs the plain version (`step_plain`,
 `fk_plain`, `substep_plain`); given CUDA tensors it launches the kernel or
@@ -20,7 +26,8 @@ fixed tendons and per-env domain-randomization overlays (`overlay`, a dict
 of (N, size) tensors under `OVERLAY_KEYS`, packed here into the one
 (N, n_dr) input the kernel reads);
 `scope_errors` lists what a model has beyond the kernels' compile-time
-maxima, and the engine's `check_scope` refuses such a model on CUDA.
+maxima or beyond the shared memory of a block, and the engine's
+`check_scope` refuses such a model on CUDA.
 """
 
 from __future__ import annotations
@@ -41,6 +48,8 @@ from omniisaacgymenvs_torch.physics import contacts, dynamics, rotations as rot
 from omniisaacgymenvs_torch.physics.model import JointType, Model, SurfaceType
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_step.cu"
+# the one-thread-per-env form of K1 / K3, a library of its own
+THREAD_SOURCE = SOURCE.with_name("fused_step_thread.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -57,6 +66,49 @@ _GC_STRIDE, _PAIR_STRIDE, _SURF_STRIDE, _TEND_STRIDE, _IB_STRIDE = 4, 4, 16, 8, 
 NB_MAX, NCP_MAX, NS_MAX = 32, 128, 8
 NPAIR_MAX, NSURF_MAX, NT_MAX, NFREE_MAX = 1024, 32, 8, 4
 LIMITS = (NB_MAX, NCP_MAX, NS_MAX, NPAIR_MAX, NSURF_MAX, NT_MAX, NFREE_MAX)
+
+# the schedule table's header (csrc/fused_step.cu H_* and L_*): the model's
+# sizes, the sections of the float and the model int table, where the
+# schedule's own sections start, and the offsets of one env's working set
+SCHEDULE_HEADER = (
+    "nb", "ncp", "ns", "npair", "nsurf", "nt", "nq", "nv", "njd",
+    "p_cp", "p_gc", "p_pair", "p_surf", "p_tend", "p_end",
+    "f_cp", "f_gc", "f_pair", "f_surf", "f_tend", "f_end",
+    "i_cp", "i_sens", "i_pair", "i_surf", "i_tend",
+    "i_model", "nlev", "lev", "lbody", "slot", "ch", "chl", "cc", "ccl",
+    "L_q", "L_qd", "L_Rw", "L_pw", "L_E", "L_rj", "L_w", "L_l", "L_cw", "L_cl",
+    "L_wv", "L_lv", "L_quat", "L_qdd", "L_eff", "L_ptg", "L_vtg", "L_fapp",
+    "L_fx", "L_tx", "L_tau", "L_dt", "L_IA", "L_pA", "L_U", "L_D", "L_uu", "L_idv",
+    "L_acc", "L_tmp", "L_planes",
+)
+_TM_STRIDE = 51  # inward-pass scratch per body of a level (Q, pa, T)
+_SLOT_UNDER_FIXED = 0x10000  # a slot's flag: the parent is a FIXED root
+
+# the card's limits the launch configuration keeps to (H100 SXM): shared
+# memory a block can use and an SM holds (each block reserves 1 KB more);
+# threads, blocks and registers an SM holds; threads a block of these
+# kernels may have (csrc/fused_step.cu OIGE_MAX_THREADS) and the registers
+# each may then take; the SMs
+SMEM_BLOCK_MAX = 232448
+SMEM_SM = 233472
+SMEM_RESERVED = 1024
+THREADS_SM = 2048
+BLOCKS_SM = 32
+REGS_SM = 65536
+MAX_THREADS = 512
+REGS = 128  # registers a thread may take under __launch_bounds__(512, 1)
+N_SM_H100 = 132
+# lanes per env of the group form (csrc/fused_step.cu OIGE_G): one warp;
+# 16 and 8 measured slower on every main path of the H100
+GROUP = 32
+# K1 / K3 take the one-thread-per-env form once a batch gives every SM at
+# least this many envs (blocks of THREAD_BLOCK threads), the group form
+# below: on the H100 the group form was faster at 62 envs per SM and fewer,
+# the thread form at 124 and more, on each of the four main-path models
+# (PERF.md)
+THREAD_ENVS_PER_SM = 96
+THREAD_BLOCK = 128  # csrc/fused_step_thread.cu OIGE_THREADS
+DESIGNS = ("group", "thread")
 
 # The domain-randomization overlay keys in the order of the packed overlay
 # the kernel reads (csrc/fused_step.cu DrOffsets), each with the Model
@@ -80,7 +132,9 @@ def n_free_roots(model: Model) -> int:
 
 def scope_errors(model: Model) -> List[str]:
     """What `model` has beyond the kernels' own scope (empty when in
-    scope): the sizes must lie within the kernels' compile-time maxima."""
+    scope): the sizes must lie within the kernels' compile-time maxima, and
+    one env's working set (the largest variant: terrain planes and an
+    overlay) with the tables must fit in the shared memory of a block."""
     errs = []
     for n, cap, what in (
         (model.nb, NB_MAX, "bodies"),
@@ -93,6 +147,11 @@ def scope_errors(model: Model) -> List[str]:
     ):
         if n > cap:
             errs.append(f"{n} {what} > kernel maximum {cap}")
+    need = 4 * (table_floats(model)
+                + env_floats(model, planes=True, overlay=True))
+    if need > SMEM_BLOCK_MAX:
+        errs.append(f"shared memory: one env's working set and the tables "
+                    f"take {need} B > the {SMEM_BLOCK_MAX} B of a block")
     return errs
 
 
@@ -274,6 +333,210 @@ def pack_tables(model: Model, h: float, gravity, contact, gains: np.ndarray,
     return f.astype(np.float32), it.astype(np.int32)
 
 
+def tree_levels(model: Model) -> List[List[int]]:
+    """The bodies by depth in the forest (roots at 0), each level by
+    index."""
+    depth = []
+    for i in range(model.nb):
+        p = int(model.parents[i])
+        depth.append(0 if p < 0 else depth[p] + 1)
+    return [[i for i in range(model.nb) if depth[i] == d]
+            for d in range(max(depth) + 1)]
+
+
+def env_layout(model: Model, planes: bool = False, overlay: bool = False,
+               fk: bool = False) -> dict:
+    """Offsets (floats) of one env's working set in shared memory
+    (csrc/fused_step.cu L_*), and its length under "end": the state, the
+    frames and the report's quaternions (all K2 needs, `fk`), then the
+    substep's inputs, contact wrenches, torques, the articulated-body
+    arrays (which the contact staging, a 6-float wrench per ground point
+    and 9 floats per pair, overlays), the inward pass's per-level scratch,
+    the terrain planes and the packed overlay."""
+    nb, nq, nv, njd, ncp = model.nb, model.nq, model.nv, model.njd, model.ncp
+    maxw = max([len(lv) for lv in tree_levels(model)[1:]] or [0])
+    parts = [("q", nq), ("qd", nv), ("Rw", 9 * nb), ("pw", 3 * nb),
+             ("E", 9 * nb), ("rj", 3 * nb), ("w", 3 * nb), ("l", 3 * nb),
+             ("cw", 3 * nb), ("cl", 3 * nb), ("wv", 3 * nb), ("lv", 3 * nb),
+             ("quat", 4 * nb)]
+    if not fk:
+        dyn = 57 * nb
+        stage = 6 * ncp + 9 * len(model.pair_surf)
+        parts += [("qdd", nv), ("eff", njd), ("ptg", njd), ("vtg", njd),
+                  ("fapp", 6 * nb), ("fx", 3 * nb), ("tx", 3 * nb),
+                  ("tau", nb), ("dt", nb), ("IA", 36 * nb), ("pA", 6 * nb),
+                  ("U", 6 * nb), ("D", nb), ("uu", nb), ("idv", nb),
+                  ("acc", 6 * nb + max(0, stage - dyn)),
+                  ("tmp", _TM_STRIDE * maxw),
+                  ("planes", 4 * ncp if planes else 0),
+                  ("dr", sum(overlay_sizes(model).values()) if overlay else 0)]
+    out, at = {}, 0
+    for name, size in parts:
+        out[name] = at
+        at += size
+    out["end"] = at
+    return out
+
+
+def env_floats(model: Model, planes: bool = False, overlay: bool = False,
+               fk: bool = False) -> int:
+    """Floats of one env's working set, rounded up to 16 bytes."""
+    return -(-env_layout(model, planes, overlay, fk)["end"] // 4) * 4
+
+
+def pack_schedule(model: Model) -> np.ndarray:
+    """int32 schedule table: the header (SCHEDULE_HEADER, which the kernels
+    take by value), then its sections, which they stage, at the offsets
+    the header gives from the header's end: the level
+    starts and the bodies by level, each body's slot within its level (plus
+    0x10000 where its parent is a FIXED root), the
+    children of each body (starts, then children by descending index), and
+    each body's contact contributions (starts, then codes: ground point c
+    as c; pair k as ncp + 2k on the point's body, ncp + 2k + 1 on the
+    surface's body), in the order the kernels sum them."""
+    nb, ncp = model.nb, model.ncp
+    levels = tree_levels(model)
+    lev = np.cumsum([0] + [len(lv) for lv in levels])
+    lbody = [i for lv in levels for i in lv]
+    slot = np.zeros(nb, np.int64)
+    for lv in levels:
+        for k, i in enumerate(lv):
+            p = int(model.parents[i])
+            under_fixed = (p >= 0 and model.parents[p] < 0
+                           and model.jtype[p] == JointType.FIXED)
+            slot[i] = k + (_SLOT_UNDER_FIXED if under_fixed else 0)
+    children = [[j for j in range(nb - 1, -1, -1) if model.parents[j] == i]
+                for i in range(nb)]
+    contrib = [[] for _ in range(nb)]
+    for c in range(ncp):
+        contrib[int(model.cp_body[c])].append(c)
+    for k, (pt, si) in enumerate(zip(model.pair_point, model.pair_surf)):
+        contrib[int(model.cp_body[pt])].append(ncp + 2 * k)
+        contrib[int(model.surf_body[si])].append(ncp + 2 * k + 1)
+
+    def csr(lists):
+        return (np.cumsum([0] + [len(x) for x in lists]),
+                np.asarray([v for x in lists for v in x], np.int64))
+
+    ch, chl = csr(children)
+    cc, ccl = csr(contrib)
+    sections = [("lev", lev), ("lbody", lbody), ("slot", slot), ("ch", ch),
+                ("chl", chl), ("cc", cc), ("ccl", ccl)]
+    hdr = dict(zip(("nb", "ncp", "ns", "npair", "nsurf", "nt", "nq", "nv",
+                    "njd"), table_dims(model)))
+    off = table_offsets(model)
+    hdr.update({k: v for k, v in off.items() if k.startswith("i_")})
+    hdr.update({"p" + k[1:]: v for k, v in off.items() if k.startswith("f_")})
+    hdr.update(staged_offsets(model))
+    at = 0  # the sections' offsets count from the end of the header
+    for name, arr in sections:
+        hdr[name] = at
+        at += len(arr)
+    hdr["i_model"] = at
+    hdr["nlev"] = len(levels)
+    hdr.update({"L_" + k: v for k, v in
+                env_layout(model, planes=True, overlay=True).items()})
+    head = [hdr[k] for k in SCHEDULE_HEADER]
+    return np.concatenate([np.asarray(head, np.int64)]
+                          + [np.asarray(a, np.int64) for _, a in sections]
+                          ).astype(np.int32)
+
+
+def staged_offsets(model: Model) -> dict:
+    """Sections of the float table as a block stages it in shared memory
+    (csrc/fused_step.cu staged_index): every record one float longer than
+    in the packed table."""
+    nb, ncp, _, npair, nsurf, nt, _, _, _ = table_dims(model)
+    f_cp = _F_BODY + (_BODY_STRIDE + 1) * nb
+    f_gc = f_cp + (_CP_STRIDE + 1) * ncp
+    f_pair = f_gc + (_GC_STRIDE + 1) * nb
+    f_surf = f_pair + (_PAIR_STRIDE + 1) * npair
+    f_tend = f_surf + (_SURF_STRIDE + 1) * nsurf
+    return dict(f_cp=f_cp, f_gc=f_gc, f_pair=f_pair, f_surf=f_surf,
+                f_tend=f_tend, f_end=f_tend + (_TEND_STRIDE + 1) * nt)
+
+
+def table_floats(model: Model) -> int:
+    """Words of the tables a block stages: the float table at its shared
+    strides and the int table [schedule sections | model int table],
+    rounded up to 16 bytes."""
+    n = (staged_offsets(model)["f_end"] + len(pack_schedule(model))
+         - len(SCHEDULE_HEADER) + table_offsets(model)["i_end"])
+    return -(-n // 4) * 4
+
+
+def launch_config(model: Model, n_env: int, planes: bool = False,
+                  overlay: bool = False, fk: bool = False, design=None,
+                  n_sm=None) -> dict:
+    """How K1 / K3 (or K2, `fk`) launch for n_env envs. `design`: "group"
+    (a group of GROUP lanes per env, csrc/fused_step.cu) or "thread" (one
+    thread per env, csrc/fused_step_thread.cu; not for K2); unless given,
+    K1 / K3 take "thread" once n_env gives every SM THREAD_ENVS_PER_SM
+    envs, and "group" below that. The group form's `envs_per_block`
+    groups per block, `blocks` (a persistent grid: at most what the SMs
+    hold at once, each group walking over envs with the stride of all
+    groups), shared bytes per block (`smem_bytes`: the staged tables,
+    `table_bytes`, and one working set per env, `env_bytes`) and
+    `resident` envs per SM; the envs per block maximise the envs an SM
+    holds, and a batch spreads evenly over every SM. The thread form's
+    blocks of THREAD_BLOCK envs, no shared memory. `n_sm`: the card's SMs
+    (an H100's 132 unless given)."""
+    n_sm = N_SM_H100 if n_sm is None else int(n_sm)
+    if design is None:
+        design = ("thread" if not fk and n_env >= THREAD_ENVS_PER_SM * n_sm
+                  else "group")
+    if design not in DESIGNS or (fk and design != "group"):
+        raise ValueError(f"design {design!r}: K1 / K3 take one of {DESIGNS}, "
+                         f"K2 the group form")
+    off = table_offsets(model)
+    common = dict(design=design, n_sm=n_sm, n_env=n_env, nf=off["f_end"],
+                  ni=len(pack_schedule(model)) - len(SCHEDULE_HEADER)
+                  + off["i_end"])
+    if design == "thread":
+        return dict(common, group=1, envs_per_block=THREAD_BLOCK,
+                    blocks=-(-n_env // THREAD_BLOCK), threads=THREAD_BLOCK,
+                    smem_bytes=0, table_bytes=0, env_bytes=0, env_floats=0,
+                    resident=None)
+    env = env_floats(model, planes, overlay, fk)
+    tab = table_floats(model)
+
+    def per_sm(epb):
+        smem = 4 * (tab + epb * env)
+        return min(SMEM_SM // (smem + SMEM_RESERVED),
+                   THREADS_SM // (epb * GROUP), REGS_SM // (REGS * epb * GROUP),
+                   BLOCKS_SM)
+
+    best = None
+    for epb in range(1, MAX_THREADS // GROUP + 1):
+        if 4 * (tab + epb * env) > SMEM_BLOCK_MAX:
+            break
+        if best is None or per_sm(epb) * epb >= per_sm(best) * best:
+            best = epb
+    if best is None:
+        raise ValueError(f"{model.name}: one env's working set and the "
+                         f"tables exceed the {SMEM_BLOCK_MAX} B of a block")
+    # blocks per SM that the batch needs, spread evenly over the SMs
+    k = -(-n_env // (n_sm * best))
+    epb = min(best, max(1, -(-n_env // (n_sm * k))))
+    blocks = min(-(-n_env // epb), n_sm * per_sm(epb))
+    return dict(common, group=GROUP, envs_per_block=epb, blocks=blocks,
+                threads=GROUP * epb, smem_bytes=4 * (tab + epb * env),
+                table_bytes=4 * tab, env_bytes=4 * env, env_floats=env,
+                resident=per_sm(epb) * epb)
+
+
+def describe_config(lc: dict) -> str:
+    """One line of a launch configuration, for logs."""
+    if lc["design"] == "thread":
+        return (f"one thread per env, {lc['blocks']} blocks of "
+                f"{lc['threads']} threads")
+    return (f"G={lc['group']}, {lc['envs_per_block']} envs per block, "
+            f"{lc['blocks']} blocks of {lc['threads']} threads, "
+            f"{lc['smem_bytes']} B shared per block ({lc['table_bytes']} B "
+            f"tables, {lc['env_bytes']} B per env), {lc['resident']} envs "
+            f"per SM")
+
+
 class FusedKernels:
     """The packed model tables of one engine on its CUDA device, and the
     launch count of each kernel wrapper."""
@@ -281,15 +544,46 @@ class FusedKernels:
     def __init__(self, model: Model, h: float, gravity, contact,
                  gains: np.ndarray, pair_gains: np.ndarray | None = None):
         ftab, itab = pack_tables(model, h, gravity, contact, gains, pair_gains)
+        self.model = model
         self.ftab = torch.as_tensor(ftab, device=model.device)
-        self.itab = torch.as_tensor(itab, device=model.device)
+        # the group form takes the schedule's header by value and stages
+        # [schedule sections | model int table]; the thread form reads the
+        # model int table alone, from `thread_itab`
+        sched = pack_schedule(model)
+        nh = len(SCHEDULE_HEADER)
+        self.header = [int(x) for x in sched[:nh]]
+        self.itab = torch.as_tensor(np.concatenate([sched[nh:], itab]),
+                                    device=model.device)
+        self.thread_itab = self.itab[len(sched) - nh:]
         self.dims = (ctypes.c_int * 9)(*table_dims(model))
+        self.n_sm = (torch.cuda.get_device_properties(model.device)
+                     .multi_processor_count
+                     if model.device.type == "cuda" else N_SM_H100)
+        self._configs = {}
         self.launches = {"step": 0, "fk": 0, "substep": 0}
-        # how many of those launches read an overlay
+        # how many of those launches read an overlay, and how many took the
+        # one-thread-per-env form
         self.overlay_launches = {"step": 0, "substep": 0}
+        self.thread_launches = {"step": 0, "substep": 0}
+
+    def config(self, n_env: int, planes=False, overlay=False, fk=False,
+               design=None):
+        """(launch_config dict, the group form's C int array), cached."""
+        key = (n_env, planes, overlay, fk, design)
+        if key not in self._configs:
+            lc = launch_config(self.model, n_env, planes, overlay, fk, design,
+                               self.n_sm)
+            # the launch's ints, then the schedule's header, which the
+            # kernels take by value
+            arr = (ctypes.c_int * (6 + len(SCHEDULE_HEADER)))(
+                lc["envs_per_block"], lc["blocks"], lc["smem_bytes"],
+                lc["env_floats"], lc["nf"], lc["ni"], *self.header)
+            self._configs[key] = (lc, arr)
+        return self._configs[key]
 
     def reset_counts(self):
-        for counts in (self.launches, self.overlay_launches):
+        for counts in (self.launches, self.overlay_launches,
+                       self.thread_launches):
             for k in counts:
                 counts[k] = 0
 
@@ -407,10 +701,37 @@ def _packed_overlay(model, overlay, n, device):
     return None if overlay is None else pack_overlay(model, overlay, n, device)
 
 
+def _launch_step(k, key, ins, planes, dr, outs, n_steps, design):
+    """Launch K1 (`key` "step": n_steps substeps and the report into the
+    seven `outs`) or K3 ("substep": one substep, three `outs`) in the form
+    `launch_config` picks, and count it."""
+    N, dev = ins[0].shape[0], ins[0].device
+    lc, cfg = k.config(N, planes is not None, dr is not None, design=design)
+    lib = library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    thread = lc["design"] == "thread"
+    itab = (k.thread_itab if thread else k.itab).data_ptr()
+    args = [k.ftab.data_ptr(), itab, k.dims, *[x.data_ptr() for x in ins],
+            _ptr(planes), _ptr(dr), *[x.data_ptr() for x in outs], N]
+    args += [int(n_steps), stream] if key == "step" else [stream]
+    name = f"oige_{key}" + ("_thread" if thread else "")
+    err = (getattr(lib.thread, name)(*args) if thread
+           else getattr(lib.lib, name)(*args, cfg))
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    k.launches[key] += 1
+    if dr is not None:
+        k.overlay_launches[key] += 1
+    if thread:
+        k.thread_launches[key] += 1
+
+
 def step(engine, q, qd, effort, pos_target, vel_target, f_applied,
-         n_steps: int, planes=None, overlay=None):
+         n_steps: int, planes=None, overlay=None, design=None):
     """K1: n_steps substeps + report FK in one launch. Same arguments and
-    returns as `step_plain`, which it runs for CPU tensors."""
+    returns as `step_plain`, which it runs for CPU tensors; `design`: the
+    kernel's form ("group" or "thread"), `launch_config`'s pick unless
+    given."""
     if not q.is_cuda:
         return step_plain(engine, q, qd, effort, pos_target, vel_target,
                           f_applied, n_steps, planes, overlay)
@@ -427,24 +748,15 @@ def step(engine, q, qd, effort, pos_target, vel_target, f_applied,
             e((N, m.num_sensors, 6), device=dev), e((N, m.nb, 3), device=dev),
             e((N, m.nb, 4), device=dev), e((N, m.nb, 3), device=dev),
             e((N, m.nb, 3), device=dev))
-    err = library().lib.oige_step(
-        k.ftab.data_ptr(), k.itab.data_ptr(), k.dims,
-        *[x.data_ptr() for x in ins], _ptr(planes), _ptr(dr),
-        *[x.data_ptr() for x in outs], N, int(n_steps),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"oige_step launch failed: cudaError {err}")
-    k.launches["step"] += 1
-    if dr is not None:
-        k.overlay_launches["step"] += 1
+    _launch_step(k, "step", ins, planes, dr, outs, n_steps, design)
     return outs
 
 
 def substep(engine, q, qd, effort, pos_target, vel_target, f_applied,
-            planes=None, overlay=None):
+            planes=None, overlay=None, design=None):
     """K3: one substep in one launch, without the report FK: (q, qd,
-    sensor_forces). Runs `substep_plain` for CPU tensors."""
+    sensor_forces). Runs `substep_plain` for CPU tensors; `design` as in
+    `step`."""
     if not q.is_cuda:
         return substep_plain(engine, q, qd, effort, pos_target, vel_target,
                              f_applied, planes, overlay)
@@ -457,22 +769,13 @@ def substep(engine, q, qd, effort, pos_target, vel_target, f_applied,
     e = torch.empty
     outs = (e((N, m.nq), device=dev), e((N, m.nv), device=dev),
             e((N, m.num_sensors, 6), device=dev))
-    err = library().lib.oige_substep(
-        k.ftab.data_ptr(), k.itab.data_ptr(), k.dims,
-        *[x.data_ptr() for x in ins], _ptr(planes), _ptr(dr),
-        *[x.data_ptr() for x in outs], N,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"oige_substep launch failed: cudaError {err}")
-    k.launches["substep"] += 1
-    if dr is not None:
-        k.overlay_launches["substep"] += 1
+    _launch_step(k, "substep", ins, planes, dr, outs, 1, design)
     return outs
 
 
 def fk(engine, q, qd):
-    """K2: report FK in one launch; runs `fk_plain` for CPU tensors."""
+    """K2: report FK in one launch (the group form); runs `fk_plain` for
+    CPU tensors."""
     if not q.is_cuda:
         return fk_plain(engine.model, q, qd)
     k = _kernels(engine)
@@ -486,10 +789,11 @@ def fk(engine, q, qd):
     e = torch.empty
     outs = (e((N, m.nb, 3), device=dev), e((N, m.nb, 4), device=dev),
             e((N, m.nb, 3), device=dev), e((N, m.nb, 3), device=dev))
+    _, cfg = k.config(N, fk=True)
     err = library().lib.oige_fk(
         k.ftab.data_ptr(), k.itab.data_ptr(), k.dims,
         q.data_ptr(), qd.data_ptr(), *[x.data_ptr() for x in outs], N,
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(dev).cuda_stream, cfg,
     )
     if err:
         raise RuntimeError(f"oige_fk launch failed: cudaError {err}")
@@ -657,12 +961,19 @@ def io_bytes(model: Model, planes: bool = False,
 # ---------------------------------------------------------------------------
 
 class _Library:
-    def __init__(self, lib: ctypes.CDLL, ptxas_log: str, build_s: float,
-                 path: Path):
+    """The two kernel libraries: `lib` (csrc/fused_step.cu: the group form
+    of K1 / K3, and K2) and `thread` (csrc/fused_step_thread.cu: the
+    one-thread-per-env form of K1 / K3), with their ptxas reports, the
+    seconds their build took (both nvcc at once) and their paths."""
+
+    def __init__(self, lib: ctypes.CDLL, thread: ctypes.CDLL, ptxas_log: str,
+                 build_s: float, path: Path, thread_path: Path):
         self.lib = lib
+        self.thread = thread
         self.ptxas_log = ptxas_log
         self.build_s = build_s
         self.path = path
+        self.thread_path = thread_path
 
 
 _LIBRARY = None
@@ -680,42 +991,55 @@ def _nvcc() -> str:
 
 
 def build(flags=NVCC_FLAGS) -> _Library:
-    """Build `csrc/fused_step.cu` with `flags` (once per source and flags
-    hash; the library stays in BUILD_DIR) and load it."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
+    """Build `csrc/fused_step.cu` and `csrc/fused_step_thread.cu` with
+    `flags`, one nvcc for each, both at once (once per source and flags
+    hash; the libraries stay in BUILD_DIR), and load them."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"fused_step_{key}.so"
-    log = so.with_suffix(".log")
     t0 = time.time()
-    if not so.exists():
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        res = subprocess.run(
-            [_nvcc(), *flags, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{res.stderr}")
-        log.write_text(res.stdout + res.stderr)
+    built, running = [], []
+    for src in (SOURCE, THREAD_SOURCE):
+        key = hashlib.sha256(src.read_bytes()
+                             + " ".join(flags).encode()).hexdigest()[:16]
+        so = BUILD_DIR / f"{src.stem}_{key}.so"
+        built.append(so)
+        if not so.exists():
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            running.append((src, so, tmp, subprocess.Popen(
+                [_nvcc(), *flags, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for src, so, tmp, proc in running:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src}:\n{err}")
+            continue
+        so.with_suffix(".log").write_text(out + err)
         os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     build_s = time.time() - t0
-    lib = ctypes.CDLL(str(so))
+    lib, thread = (ctypes.CDLL(str(so)) for so in built)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.oige_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.oige_limits.restype = ci
     dims = ctypes.POINTER(ctypes.c_int)
-    lib.oige_step.argtypes = [vp, vp, dims] + [vp] * 15 + [ci, ci, vp]
-    lib.oige_step.restype = ci
-    lib.oige_substep.argtypes = [vp, vp, dims] + [vp] * 11 + [ci, vp]
-    lib.oige_substep.restype = ci
-    lib.oige_fk.argtypes = [vp, vp, dims] + [vp] * 6 + [ci, vp]
+    for handle, tail, cfg in ((lib, "", [dims]), (thread, "_thread", [])):
+        step_fn = getattr(handle, "oige_step" + tail)
+        step_fn.argtypes = [vp, vp, dims] + [vp] * 15 + [ci, ci, vp] + cfg
+        step_fn.restype = ci
+        sub_fn = getattr(handle, "oige_substep" + tail)
+        sub_fn.argtypes = [vp, vp, dims] + [vp] * 11 + [ci, vp] + cfg
+        sub_fn.restype = ci
+    lib.oige_fk.argtypes = [vp, vp, dims] + [vp] * 6 + [ci, vp, dims]
     lib.oige_fk.restype = ci
     lim = (ctypes.c_int * len(LIMITS))()
     lib.oige_limits(lim)
     if tuple(lim) != LIMITS:
         raise RuntimeError(f"kernel maxima {tuple(lim)} disagree with "
                            f"{LIMITS}")
-    return _Library(lib, log.read_text() if log.exists() else "", build_s, so)
+    logs = [so.with_suffix(".log") for so in built]
+    ptxas = "".join(x.read_text() for x in logs if x.exists())
+    return _Library(lib, thread, ptxas, build_s, *built)
 
 
 def library() -> _Library:

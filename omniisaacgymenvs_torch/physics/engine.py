@@ -10,7 +10,7 @@ launch of a single substep per substep, each on planes sampled from the
 launch before) and `_report` (hence `init_state`) one launch of the
 report-FK kernel K2 (`ops/fused_step.py`, which also has the single-substep
 kernel K3 that no engine path launches); a model beyond the kernels' maxima
-raises `NotImplementedError` there (`check_scope`). On the CPU both run the
+or their shared memory raises `NotImplementedError` there (`check_scope`). On the CPU both run the
 plain versions, with the same plane semantics: terrain planes are sampled
 from the reported state and stay frozen over the substeps of one launch.
 
@@ -73,8 +73,8 @@ def sim_params_from_cfg(sim_cfg, dt: float = 1.0 / 60.0, substeps: int = 1,
 
 def check_scope(model: Model, cuda: bool):
     """Raise NotImplementedError for a scene the port cannot step: on CUDA
-    what lies beyond the kernels' maxima (there is no plain fallback on the
-    card)."""
+    what lies beyond the kernels' maxima or their shared memory (there is no
+    plain fallback on the card)."""
     errs = fused_step.scope_errors(model) if cuda else []
     if errs:
         raise NotImplementedError(f"{model.name}: {'; '.join(errs)}")

@@ -10,8 +10,10 @@
         task=ShadowHandOpenAI_FF num_envs=8192 max_iterations=8
 
 Builds the same VecEnv as `random_policy`, resets and warms up for two
-steps, then traces `max_iterations` steps with `torch.profiler`. Prints
-the wall time per control step, the device-busy share of the window
+steps, times `max_iterations` steps without the profiler, then traces as
+many with `torch.profiler`. Prints the wall time per control step
+untraced and traced (the profiler's host-side recording adds to the
+latter), the device-busy share of the traced window
 (kernel time summed over one stream, over wall time), and the kernels by
 device time. A task under domain randomization (ShadowHandOpenAI_FF, or
 ShadowHand with `task.domain_randomization.randomize=True`) is traced with
@@ -67,9 +69,15 @@ def main(argv=None) -> int:
     def one_step():
         state[0] = env.step(state[0], policy(state[0].obs, env.generator))
 
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        one_step()
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t0) * 1e3 / steps
     wall_us, kernels = _trace(one_step, steps)
     busy_us = sum(_device_us(e) for e in kernels)
-    print(f"{cfg['task_name']} {env.num_envs} envs, {steps} traced steps: "
+    print(f"{cfg['task_name']} {env.num_envs} envs, {steps} steps: "
+          f"{untraced_ms:.4f} ms per control step untraced, "
           f"{wall_us / steps / 1e3:.4f} ms per control step (wall, traced), "
           f"device busy {busy_us / steps / 1e3:.4f} ms per step, "
           f"idle share {1.0 - busy_us / wall_us:.4f}, "

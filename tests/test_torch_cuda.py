@@ -340,3 +340,72 @@ def test_wrapper_refuses_bad_inputs_on_card(cuda_device):
     with pytest.raises(ValueError):
         fs.substep(eng, q, qd, qd, qd, qd, qd)
     assert eng.kernels.launches == {"step": 0, "fk": 0, "substep": 0}
+
+
+def _variant_case(variant, n, cuda_device):
+    """(engine, K1 inputs, keyword inputs) of one step-kernel variant: the
+    Humanoid flat, the ShadowHand under an overlay, AnymalTerrain on its
+    planes, with or without an overlay."""
+    if variant.startswith("planes"):
+        task, ins, planes = _terrain_case(cuda_device, n, seed=5)
+        eng, kw = task.engine, {"planes": planes}
+    else:
+        eng = _scene_engine("Humanoid" if variant == "flat" else "ShadowHand",
+                            cuda_device)
+        q, qd, eff = parity.check_inputs(eng.model, n, seed=5, device=cuda_device)
+        z = torch.zeros((n, eng.model.njd), device=cuda_device)
+        fa = torch.zeros((n, eng.model.nb, 6), device=cuda_device)
+        ins, kw = (q, qd, eff, parity.check_targets(eng.model, q, 5), z, fa), {}
+    if variant.endswith("overlay"):
+        kw["overlay"] = parity.overlay_inputs(eng.model, n, seed=5, device=cuda_device)
+    if not variant.startswith("planes"):
+        # check states off the ties of two box faces (ops/parity.py)
+        ins = (parity.clear_box_ties(eng, ins[0], ins[1], kw.get("overlay")),
+               *ins[1:])
+    return eng, ins, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["flat", "overlay", "planes", "planes_overlay"])
+def test_kernels_are_deterministic_and_independent_of_group(variant, cuda_device):
+    """Each K1 variant and K3 in both forms (a group of lanes per env, one
+    thread per env) and K2: two launches on the same inputs give
+    bitwise-equal outputs (in the group form every sum is taken by one lane
+    in a fixed order)."""
+    eng, ins, kw = _variant_case(variant, 1061, cuda_device)
+    runs = {("K2", "group"): lambda: fs.fk(eng, ins[0], ins[1])}
+    for d in fs.DESIGNS:
+        runs["K1", d] = lambda d=d: fs.step(eng, *ins, N_STEPS, design=d, **kw)
+        runs["K3", d] = lambda d=d: fs.substep(eng, *ins, design=d, **kw)
+    for name, run in runs.items():
+        ref = run()
+        for a, b in zip(run(), ref):
+            assert torch.isfinite(a).all(), name
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["flat", "overlay", "planes", "planes_overlay"])
+def test_thread_form_matches_plain_on_card(variant, cuda_device):
+    """Each K1 variant and K3 in the one-thread-per-env form, which the
+    engine takes for batches that fill the card, against the plain versions
+    at a small width, with the tolerances of ops/parity.py."""
+    eng, ins, kw = _variant_case(variant, 515, cuda_device)
+    m = eng.model
+    tol = parity.step_tol(m)
+    for label, run_k, run_p, names, t in (
+            ("K1", lambda: fs.step(eng, *ins, N_STEPS, design="thread", **kw),
+             lambda q, qd: fs.step_plain(eng, q, qd, *ins[2:], N_STEPS, **kw),
+             parity.STEP_NAMES, tol),
+            ("K3", lambda: fs.substep(eng, *ins, design="thread", **kw),
+             lambda q, qd: fs.substep_plain(eng, q, qd, *ins[2:], **kw),
+             parity.SUBSTEP_NAMES, parity.SUBSTEP_TOL)):
+        before = eng.kernels.thread_launches[{"K1": "step", "K3": "substep"}[label]]
+        out, ref = run_k(), run_p(ins[0], ins[1])
+        torch.cuda.synchronize()
+        assert eng.kernels.thread_launches[
+            {"K1": "step", "K3": "substep"}[label]] == before + 1
+        keep = (parity.well_conditioned(run_p, ins[0], ins[1], ref, names, t)
+                if "overlay" in kw else None)
+        parity.assert_within(f"{variant} {label} thread form",
+                             parity.compare(out, ref, names, t, keep), t)
