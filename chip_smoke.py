@@ -51,7 +51,17 @@ Phases (any failure exits non-zero):
      versions' and the roofline bound; AnymalTerrain's K1 also at 32768
      envs, a width that fills the card, and under planes and an overlay
      together; the hand's K1 with and without the overlay at 12 and at 8
-     substeps.
+     substeps;
+  8. training on the card, through the learner's entry point
+     (`PPOTrainer.train` on the CLI's env, `scripts/common.py`): Humanoid
+     at 4096 envs under HumanoidPPO.yaml (bf16 networks), reset and 3
+     epochs, with the launch counts read around them (K1 exactly once per
+     control step of every rollout, in the form `launch_config` picks, K2
+     at least as often, no plain physics), every metric finite and the
+     learning rate within its bounds; then one learner epoch (GAE, norms,
+     SGD) on a stored rollout on the card and on the CPU with the same
+     permutations, f32 networks, held at the CPU parity tests' rule; and
+     ShadowHandOpenAI_FF at 8192 envs, 2 epochs with the central value.
 Tolerances and check states come from omniisaacgymenvs_torch/ops/parity.py.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -59,8 +69,10 @@ The line before the last is the `kernels` JSON; the last line is
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -89,6 +101,8 @@ WIDE = 32768  # AnymalTerrain's K1 is also timed at a width that fills the card
 N_PAD = 37  # the checks' env counts are not a multiple of a block's envs
 # end to end, kernel path on the card vs plain path on the CPU, 3 steps
 E2E_TOL = (5e-3, 5e-3)
+# phase 8: task, envs, epochs (the Humanoid at its yaml's 4096 envs)
+TRAIN = {"Humanoid": (4096, 3), "ShadowHandOpenAI_FF": (8192, 2)}
 # the source of each form of the kernels
 SOURCES = {"group": "omniisaacgymenvs_torch/ops/csrc/fused_step.cu",
            "thread": "omniisaacgymenvs_torch/ops/csrc/fused_step_thread.cu"}
@@ -121,15 +135,6 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def to_cpu(x):
-    if isinstance(x, torch.Tensor):
-        return x.cpu()
-    if dataclasses.is_dataclass(x):
-        return dataclasses.replace(x, **{f.name: to_cpu(getattr(x, f.name))
-                                         for f in dataclasses.fields(x)})
-    return {k: to_cpu(v) for k, v in x.items()}
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -139,6 +144,7 @@ def main() -> int:
     from omniisaacgymenvs_torch.ops import parity
     from omniisaacgymenvs_torch.physics.engine import PhysicsEngine, SimParams
     from omniisaacgymenvs_torch.scripts import random_policy
+    from omniisaacgymenvs_torch.scripts.common import build_env_from_cli
     from omniisaacgymenvs_torch.scripts.time_kernels import kernel_device_ms
     from omniisaacgymenvs_torch.tasks import get_task
     from omniisaacgymenvs_torch.utils.config import load_config
@@ -294,7 +300,7 @@ def main() -> int:
     def main_path(name: str, n: int, e2e_envs: int, e2e_cfg=None):
         argv = [f"task={name}", f"num_envs={n}", f"max_iterations={STEPS}",
                 "seed=0", "device=cuda"]
-        cfg, mtask, env = random_policy.build_env(argv)
+        cfg, mtask, env = build_env_from_cli(argv)
         kern = mtask.engine.kernels
         form = kern.config(n, mtask.engine.has_terrain, mtask._dr_on)[0]["design"]
         kern.reset_counts()
@@ -359,7 +365,7 @@ def main() -> int:
         genv = VecEnv(get_task(name, task_cfg, device=dev), e2e_envs, seed=5)
         cenv = VecEnv(get_task(name, task_cfg, device="cpu"), e2e_envs, seed=5)
         ges = genv.reset(seed=5)
-        ces = to_cpu(ges)
+        ces = _state_to(ges, "cpu")
         g = torch.Generator().manual_seed(7)
         ever_done = torch.zeros(e2e_envs, dtype=torch.bool)
         for _ in range(3):
@@ -594,6 +600,7 @@ def main() -> int:
                     f"{ms_p:.4f} ms per sampling (CUDA events over 20)")
             del wq, wqd, weff, wpl, wz, wfa
     torch.cuda.synchronize()
+    train_phase(dev, card)
     # K1 and K2 carry each main path; K3 is a launch mode no product path
     # takes, held against its plain version above
     for r in rows:
@@ -606,6 +613,133 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _state_to(x, device):
+    """A copy of a trainer's state (dataclasses, dicts, lists, modules,
+    tensors) on `device`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device, copy=True)
+    if isinstance(x, torch.nn.Module):
+        return copy.deepcopy(x).to(device)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: _state_to(getattr(x, f.name), device)
+                                         for f in dataclasses.fields(x)})
+    if isinstance(x, dict):
+        return {k: _state_to(v, device) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_state_to(v, device) for v in x]
+    return x
+
+
+def train_phase(dev, card):
+    """Phase 8: the learner on the card (module docstring)."""
+    from omniisaacgymenvs_torch.learn import PPOConfig, PPOTrainer
+    from omniisaacgymenvs_torch.ops import fused_step as fs
+    from omniisaacgymenvs_torch.physics.engine import PhysicsEngine
+    from omniisaacgymenvs_torch.scripts.common import build_env_from_cli
+    from omniisaacgymenvs_torch.utils.config import ppo_config_kwargs
+
+    # every plain physics call of the phase is counted: there must be none
+    plain_calls = {"n": 0}
+    originals = {(fs, "step_plain"): fs.step_plain, (fs, "fk_plain"): fs.fk_plain,
+                 (fs, "substep_plain"): fs.substep_plain,
+                 (PhysicsEngine, "_substep"): PhysicsEngine._substep}
+
+    def counted(fn):
+        def run(*a, **kw):
+            plain_calls["n"] += 1
+            return fn(*a, **kw)
+        return run
+
+    for (owner, name), fn in originals.items():
+        setattr(owner, name, counted(fn))
+    try:
+        for name, (n, epochs) in TRAIN.items():
+            cfg, task, env = build_env_from_cli(
+                [f"task={name}", f"num_envs={n}", "seed=0", "device=cuda"])
+            ppo = PPOConfig(**ppo_config_kwargs(cfg["train"]))
+            trainer = PPOTrainer(env, ppo, seed=0)
+            kern = task.engine.kernels
+            form = kern.config(n, task.engine.has_terrain, task._dr_on)[0]["design"]
+            kern.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hist = trainer.train(max_epochs=epochs, log_every=1, log_fn=log)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = dict(kern.launches)
+            per_epoch = ppo.horizon_length * task.engine.k1_launches(task.decimation)
+            assert got["step"] == epochs * per_epoch, got
+            assert got["fk"] >= epochs * per_epoch, got
+            assert got["substep"] == 0, got
+            assert kern.thread_launches["step"] == (got["step"] if form == "thread"
+                                                    else 0), kern.thread_launches
+            assert kern.overlay_launches["step"] == (got["step"] if task._dr_on
+                                                     else 0), kern.overlay_launches
+            assert plain_calls["n"] == 0, "the trainer ran the plain physics"
+            assert len(hist) == epochs
+            for m in hist:
+                bad = [k for k, v in m.items() if not math.isfinite(v)]
+                assert not bad, f"non-finite metrics {bad}"
+                assert ppo.lr_min <= m["lr"] <= ppo.lr_max, m["lr"]
+            if trainer.use_cv:
+                assert all(math.isfinite(m["cv_loss"]) for m in hist)
+            steps = epochs * ppo.horizon_length * n
+            log(f"train path: {card} | {name} {n} envs, {epochs} epochs of "
+                f"{ppo.horizon_length} steps (bf16 networks {ppo.mixed_precision}, "
+                f"central value {trainer.use_cv}): {steps / dt:.1f} train-steps/s, "
+                f"{dt * 1e3 / epochs:.3f} ms per epoch (first epoch included), "
+                f"launches {got}, K1 in the {form} form; last epoch "
+                f"mean_step_reward {hist[-1]['mean_step_reward']:.4f}, kl "
+                f"{hist[-1]['kl']:.5f}, lr {hist[-1]['lr']:.3e}")
+            if name == "Humanoid":
+                learner_card_vs_cpu(trainer, card)
+            del trainer, env, task
+    finally:
+        for (owner, name), fn in originals.items():
+            setattr(owner, name, fn)
+
+
+def learner_card_vs_cpu(trainer, card):
+    """One learner epoch (GAE, value norm, SGD, obs norm) on one stored
+    rollout, on the card and on the CPU, with the same permutations and f32
+    networks, held at tests/test_torch_ppo.py's rule: every metric within
+    rtol 1e-3 (atol 1e-5), the norms within rtol 1e-4, and at least 99.9% of
+    the parameters within 1e-5, every one within 2 lr_max n_updates."""
+    ppo = trainer.cfg
+    ts = trainer.state
+    traj, last_value, stats = trainer._rollout(ts)
+    S = ppo.horizon_length * trainer.env.num_envs
+    perms = trainer._perms(ppo.mini_epochs, S)
+    cpu = torch.device("cpu")
+    sides = {}
+    for label, device in (("card", trainer.device), ("cpu", cpu)):
+        tr = copy.copy(trainer)
+        tr.device = device
+        st = _state_to(ts, device)
+        st.ac.dtype = None
+        m = tr._learn(st, _state_to(traj, device), last_value.to(device),
+                      _state_to(stats, device), perms=perms.to(device))
+        sides[label] = (st, {k: float(v) for k, v in m.items()})
+    (g, gm), (c, cm) = sides["card"], sides["cpu"]
+    for k in cm:
+        assert abs(gm[k] - cm[k]) <= 1e-5 + 1e-3 * abs(cm[k]), (k, gm[k], cm[k])
+    for name in ("obs_norm", "value_norm"):
+        for f in ("mean", "var", "count"):
+            a, b = getattr(getattr(g, name), f).cpu(), getattr(getattr(c, name), f)
+            assert bool(((a - b).abs() <= 1e-6 + 1e-4 * b.abs()).all()), (name, f)
+    n_updates = ppo.mini_epochs * (S // min(ppo.minibatch_size, S))
+    lr_max = min(float(ts.lr) * 1.5 ** n_updates, ppo.lr_max)
+    diffs = torch.cat([(a.detach().cpu() - b.detach()).abs().flatten()
+                       for a, b in zip(g.ac.parameters(), c.ac.parameters())])
+    within = float((diffs <= 1e-5).float().mean())
+    log(f"learner epoch, card vs CPU: {card} | {S} samples, {n_updates} updates: "
+        f"parameters max abs diff {float(diffs.max()):.3e} (bound "
+        f"{2 * lr_max * n_updates:.3e}), {within:.6f} within 1e-5; lr "
+        f"{gm['lr']:.4e} / {cm['lr']:.4e}; kl {gm['kl']:.6f} / {cm['kl']:.6f}")
+    assert float(diffs.max()) <= 2 * lr_max * n_updates
+    assert within >= 0.999
 
 
 if __name__ == "__main__":

@@ -4,7 +4,9 @@
 numpy arrays, structural fields as they are) and builds the port's Model;
 `state_from_arrays` / `env_state_from_arrays` do the same for `State` and
 `EnvState`. The model's constants play the role of weights, so both
-packages compute on identical inputs.
+packages compute on identical inputs. `actor_critic_from_arrays` /
+`central_value_from_arrays` load a flax parameter tree of the JAX learner's
+networks into the port's modules.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from omniisaacgymenvs_torch.learn.networks import ActorCritic, CentralValue
 from omniisaacgymenvs_torch.physics.model import Model
 from omniisaacgymenvs_torch.physics.state import State
 from omniisaacgymenvs_torch.tasks.base import EnvState
@@ -80,3 +83,54 @@ def env_state_from_arrays(fields: dict, device="cpu") -> EnvState:
         progress=_tensor(fields["progress"], device),
         metrics=_tensor_tree(fields["metrics"], device),
     )
+
+
+def _dense_names(tree: dict):
+    """The tree's Dense_i keys in creation order."""
+    return sorted((k for k in tree if k.startswith("Dense_")),
+                  key=lambda k: int(k.split("_")[1]))
+
+
+def _load_dense(layer: torch.nn.Linear, dense: dict):
+    """A flax Dense ({"kernel": (in, out), "bias": (out,)}) into an
+    nn.Linear (weight (out, in))."""
+    kernel = np.asarray(dense["kernel"], np.float32)
+    if kernel.shape != tuple(layer.weight.shape[::-1]):
+        raise ValueError(f"kernel {kernel.shape} does not fit a Linear of "
+                         f"weight {tuple(layer.weight.shape)}")
+    with torch.no_grad():
+        layer.weight.copy_(torch.as_tensor(kernel.T.copy()))
+        layer.bias.copy_(torch.as_tensor(np.asarray(dense["bias"], np.float32)))
+
+
+def _params(tree: dict) -> dict:
+    return tree["params"] if "params" in tree else tree
+
+
+def actor_critic_from_arrays(tree: dict, module: ActorCritic) -> ActorCritic:
+    """Load the flax ActorCritic tree {"params": {"Dense_0".."Dense_k-1"
+    (trunk), "Dense_k" (mu), "Dense_k+1" (value), "log_std"}} (numpy
+    arrays) into `module`, in place; returns it."""
+    p = _params(tree)
+    dense = _dense_names(p)
+    layers = [*module.trunk.layers, module.mu, module.value]
+    if len(dense) != len(layers):
+        raise ValueError(f"{len(dense)} Dense layers for {len(layers)} Linears")
+    for name, layer in zip(dense, layers):
+        _load_dense(layer, p[name])
+    with torch.no_grad():
+        module.log_std.copy_(torch.as_tensor(np.asarray(p["log_std"], np.float32)))
+    return module
+
+
+def central_value_from_arrays(tree: dict, module: CentralValue) -> CentralValue:
+    """Load the flax CentralValue tree {"params": {"Dense_0".."Dense_k"}}
+    (the last the value head) into `module`, in place; returns it."""
+    p = _params(tree)
+    dense = _dense_names(p)
+    layers = [*module.trunk.layers, module.value]
+    if len(dense) != len(layers):
+        raise ValueError(f"{len(dense)} Dense layers for {len(layers)} Linears")
+    for name, layer in zip(dense, layers):
+        _load_dense(layer, p[name])
+    return module

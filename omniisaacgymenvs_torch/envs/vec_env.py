@@ -42,6 +42,13 @@ class VecEnv:
         """actions: (num_envs, num_actions) -> next EnvState."""
         return self.task.step(es, actions, self.generator)
 
+    def step_rl(self, es: EnvState, actions: torch.Tensor):
+        """The rl_games-shaped return: (es, {"obs", "states"}, reward, done,
+        extras)."""
+        es = self.step(es, actions)
+        obs_dict = {"obs": es.obs, "states": es.states}
+        return es, obs_dict, es.reward, es.done, dict(es.metrics)
+
     # ------------------------------------------------------------------
     def rollout(self, es: EnvState, policy_fn, horizon: int):
         """`horizon` steps; policy_fn(obs, generator) -> actions. Returns the

@@ -1,0 +1,19 @@
+"""Shared CLI plumbing of the entry scripts."""
+
+from __future__ import annotations
+
+import sys
+
+from omniisaacgymenvs_torch.envs import VecEnv
+from omniisaacgymenvs_torch.tasks import get_task
+from omniisaacgymenvs_torch.utils.config import load_config, parse_cli
+
+
+def build_env_from_cli(argv=None):
+    """Parse key=value overrides and build (cfg, task, env) on `device=`
+    (default cuda; raises without a card unless device=cpu is given)."""
+    overrides = parse_cli(sys.argv[1:] if argv is None else argv)
+    cfg = load_config(overrides)
+    task = get_task(cfg["task_name"], cfg["task"], device=cfg["device"])
+    num_envs = int(cfg["task"].get("env", {}).get("numEnvs", 512))
+    return cfg, task, VecEnv(task, num_envs, seed=int(cfg["seed"]))

@@ -9,7 +9,7 @@
     python -m omniisaacgymenvs_torch.scripts.profile_rollout \
         task=ShadowHandOpenAI_FF num_envs=8192 max_iterations=8
 
-Builds the same VecEnv as `random_policy`, resets and warms up for two
+Builds the same VecEnv as `random_policy` (`scripts/common.py`), resets and warms up for two
 steps, times `max_iterations` steps without the profiler, then traces as
 many with `torch.profiler`. Prints the wall time per control step
 untraced and traced (the profiler's host-side recording adds to the
@@ -31,7 +31,8 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from omniisaacgymenvs_torch.scripts.random_policy import build_env, uniform_policy
+from omniisaacgymenvs_torch.scripts.common import build_env_from_cli
+from omniisaacgymenvs_torch.scripts.random_policy import uniform_policy
 
 
 def _device_us(evt) -> float:
@@ -55,7 +56,7 @@ def _trace(fn, reps: int):
 
 
 def main(argv=None) -> int:
-    cfg, task, env = build_env(argv)
+    cfg, task, env = build_env_from_cli(argv)
     if env.device.type != "cuda":
         raise SystemExit("profile_rollout measures the card: needs device=cuda")
     steps = int(cfg.get("max_iterations") or 8)

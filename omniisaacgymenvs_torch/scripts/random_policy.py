@@ -13,22 +13,12 @@ its yaml's domain randomization; ShadowHand takes
 
 from __future__ import annotations
 
-import sys
 import time
 
 import torch
 
 from omniisaacgymenvs_torch.envs import VecEnv
-from omniisaacgymenvs_torch.tasks import get_task
-from omniisaacgymenvs_torch.utils.config import load_config, parse_cli
-
-
-def build_env(argv=None):
-    """Parse key=value overrides and build (cfg, task, env)."""
-    cfg = load_config(parse_cli(sys.argv[1:] if argv is None else argv))
-    task = get_task(cfg["task_name"], cfg["task"], device=cfg["device"])
-    num_envs = int(cfg["task"].get("env", {}).get("numEnvs", 512))
-    return cfg, task, VecEnv(task, num_envs, seed=int(cfg["seed"]))
+from omniisaacgymenvs_torch.scripts.common import build_env_from_cli
 
 
 def uniform_policy(num_actions: int):
@@ -60,7 +50,7 @@ def drive(cfg: dict, env: VecEnv) -> dict:
 
 
 def run(argv=None) -> dict:
-    cfg, _, env = build_env(argv)
+    cfg, _, env = build_env_from_cli(argv)
     return drive(cfg, env)
 
 
