@@ -103,6 +103,9 @@ N_PAD = 37  # the checks' env counts are not a multiple of a block's envs
 E2E_TOL = (5e-3, 5e-3)
 # phase 8: task, envs, epochs (the Humanoid at its yaml's 4096 envs)
 TRAIN = {"Humanoid": (4096, 3), "ShadowHandOpenAI_FF": (8192, 2)}
+# phase 8: one f32 learner epoch, card vs CPU, every parameter (the two read
+# within 3e-8 of each other on an H100)
+LEARNER_ATOL = 1e-5
 # the source of each form of the kernels
 SOURCES = {"group": "omniisaacgymenvs_torch/ops/csrc/fused_step.cu",
            "thread": "omniisaacgymenvs_torch/ops/csrc/fused_step_thread.cu"}
@@ -704,9 +707,10 @@ def train_phase(dev, card):
 def learner_card_vs_cpu(trainer, card):
     """One learner epoch (GAE, value norm, SGD, obs norm) on one stored
     rollout, on the card and on the CPU, with the same permutations and f32
-    networks, held at tests/test_torch_ppo.py's rule: every metric within
-    rtol 1e-3 (atol 1e-5), the norms within rtol 1e-4, and at least 99.9% of
-    the parameters within 1e-5, every one within 2 lr_max n_updates."""
+    networks: every metric within rtol 1e-3 (atol 1e-5) and the norms within
+    rtol 1e-4, as tests/test_torch_ppo.py holds them; every parameter within
+    LEARNER_ATOL; and each parameter tensor moved as the CPU's moved (the
+    norm of the difference at most 1e-3 of the norm of the CPU's change)."""
     ppo = trainer.cfg
     ts = trainer.state
     traj, last_value, stats = trainer._rollout(ts)
@@ -730,16 +734,20 @@ def learner_card_vs_cpu(trainer, card):
             a, b = getattr(getattr(g, name), f).cpu(), getattr(getattr(c, name), f)
             assert bool(((a - b).abs() <= 1e-6 + 1e-4 * b.abs()).all()), (name, f)
     n_updates = ppo.mini_epochs * (S // min(ppo.minibatch_size, S))
-    lr_max = min(float(ts.lr) * 1.5 ** n_updates, ppo.lr_max)
-    diffs = torch.cat([(a.detach().cpu() - b.detach()).abs().flatten()
-                       for a, b in zip(g.ac.parameters(), c.ac.parameters())])
-    within = float((diffs <= 1e-5).float().mean())
+    init = {k: v.detach().cpu() for k, v in ts.ac.named_parameters()}
+    worst, worst_rel = 0.0, 0.0
+    for (k, a), b in zip(g.ac.named_parameters(), c.ac.parameters()):
+        a, b = a.detach().cpu(), b.detach()
+        diff = float((a - b).abs().max())
+        moved = float((b - init[k]).norm())
+        rel = float((a - b).norm()) / moved if moved > 0 else math.inf
+        assert diff <= LEARNER_ATOL and rel <= 1e-3, (k, diff, rel)
+        worst, worst_rel = max(worst, diff), max(worst_rel, rel)
     log(f"learner epoch, card vs CPU: {card} | {S} samples, {n_updates} updates: "
-        f"parameters max abs diff {float(diffs.max()):.3e} (bound "
-        f"{2 * lr_max * n_updates:.3e}), {within:.6f} within 1e-5; lr "
-        f"{gm['lr']:.4e} / {cm['lr']:.4e}; kl {gm['kl']:.6f} / {cm['kl']:.6f}")
-    assert float(diffs.max()) <= 2 * lr_max * n_updates
-    assert within >= 0.999
+        f"parameters max abs diff {worst:.3e} (bound {LEARNER_ATOL:.0e} for "
+        f"every element), largest per-tensor |card - cpu| / |cpu change| "
+        f"{worst_rel:.3e} (bound 1e-3); lr {gm['lr']:.4e} / {cm['lr']:.4e}; "
+        f"kl {gm['kl']:.6f} / {cm['kl']:.6f}")
 
 
 if __name__ == "__main__":

@@ -38,6 +38,9 @@ from omniisaacgymenvs_torch.learn.networks import (
 )
 from omniisaacgymenvs_torch.learn.running_norm import RunningNorm
 
+# `train(profile_dir=...)` skips this many epochs (allocation, cuBLAS
+# heuristics, the kernels' first builds) before it starts tracing
+PROFILE_START = 3
 
 def _pack_dataset(dataset: Dict[str, torch.Tensor]):
     """Pack a flat f32 dataset of (S,) / (S, D) fields into ONE (S, D_total)
@@ -520,24 +523,20 @@ class PPOTrainer:
         max_epochs: Optional[int] = None,
         log_every: int = 10,
         log_fn=print,
-        score_target: Optional[float] = None,
         save_dir: Optional[str] = None,
-        save_frequency: int = 50,
-        save_best_after: int = 100,
         writer=None,
         profile_dir: Optional[str] = None,
-        profile_start: int = 3,
         profile_epochs: int = 2,
         epochs_per_jit: int = 1,
         history_path: Optional[str] = None,
     ):
         """The epoch loop. Each epoch's metrics come to the host in one
-        transfer. `profile_dir` traces `profile_epochs` epochs from
-        `profile_start` with torch.profiler (a Chrome trace per window).
+        transfer. `profile_dir` traces `profile_epochs` epochs after the
+        first PROFILE_START with torch.profiler (one Chrome trace).
         `epochs_per_jit` is accepted for the JAX CLI's sake and ignored:
         there is no compiled multi-epoch program here, every epoch is its
         own loop of launches. `save_dir` (checkpoints) is not ported yet."""
-        del epochs_per_jit, save_frequency, save_best_after
+        del epochs_per_jit
         if save_dir is not None:
             raise NotImplementedError(
                 "checkpoints (save_dir) are not ported yet: ROADMAP A10")
@@ -550,7 +549,7 @@ class PPOTrainer:
         t_log = time.time()
         epoch = self.state.epoch
         while epoch < max_epochs:
-            if profile_dir is not None and prof is None and epoch >= profile_start:
+            if profile_dir is not None and prof is None and epoch >= PROFILE_START:
                 sync()
                 acts = [torch.profiler.ProfilerActivity.CPU]
                 if self.device.type == "cuda":
@@ -559,7 +558,7 @@ class PPOTrainer:
                 prof.start()
             metrics = self._epoch(self.state)
             if prof is not None and profile_dir is not None \
-                    and epoch + 1 >= profile_start + profile_epochs:
+                    and epoch + 1 >= PROFILE_START + profile_epochs:
                 sync()
                 prof.stop()
                 os.makedirs(profile_dir, exist_ok=True)
@@ -591,8 +590,4 @@ class PPOTrainer:
                 with open(history_path, "w") as f:
                     json.dump(history, f)
             epoch += 1
-            if score_target is not None and m["mean_ep_reward"] >= score_target:
-                if not (epoch - 1) % log_every == 0 and not last:
-                    history.append(m)  # record the stopping epoch
-                break
         return history

@@ -430,7 +430,7 @@ def compare(outs, refs, names, tol, keep=None) -> dict:
 # of its size, by 2.9 and 6.6 under changes of the same size with random
 # signs, and the kernel's result differed by 1.097; the gap grew substep by
 # substep as the plain step's own spread did
-# (scripts/conditioning_probe.py, PERF.md Findings). So the state is changed in
+# (tools/conditioning_probe.py, PERF.md Findings). So the state is changed in
 # each of COND_DIRECTIONS: every coordinate up, every one down, and four
 # fixed random sign patterns. The overlay checks
 # judge the kernel on the other envs and fail if more than COND_MAX_EXCLUDED

@@ -89,7 +89,6 @@ def load_config(overrides: Optional[Dict[str, Any]] = None) -> dict:
         test=overrides.pop("test", False),
         checkpoint=overrides.pop("checkpoint", ""),
         max_iterations=overrides.pop("max_iterations", None),
-        headless=overrides.pop("headless", True),  # accepted, no-op
         experiment=overrides.pop("experiment", ""),
         device=overrides.pop("device", "cuda"),
     )

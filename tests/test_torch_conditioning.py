@@ -84,12 +84,17 @@ def test_cap_of_one_percent_still_holds():
 
 
 def test_conditioning_probe_dry_run_on_cpu(tmp_path, capsys):
-    """scripts/conditioning_probe.py at a tiny size with device=cpu (the
+    """tools/conditioning_probe.py at a tiny size with device=cpu (the
     plain version on both sides, so every gap reads 0): the criteria lines
     and the summary file."""
+    import importlib.util
     import json
+    from pathlib import Path
 
-    from omniisaacgymenvs_torch.scripts import conditioning_probe
+    path = Path(__file__).resolve().parents[1] / "tools" / "conditioning_probe.py"
+    spec = importlib.util.spec_from_file_location("conditioning_probe", path)
+    conditioning_probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(conditioning_probe)
 
     out = tmp_path / "probe.json"
     assert conditioning_probe.main(["device=cpu", "num_envs=12", "seeds=1",

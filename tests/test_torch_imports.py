@@ -1,7 +1,6 @@
 """The port imports neither JAX nor Flax nor anything of the JAX package:
-an ast scan of every file of omniisaacgymenvs_torch/, of chip_smoke.py and
-of bench_torch.py,
-and a fresh interpreter that imports the whole port."""
+an ast scan of every file of omniisaacgymenvs_torch/, of chip_smoke.py, of
+bench_torch.py and of tools/conditioning_probe.py, and a fresh interpreter that imports the whole port."""
 
 import ast
 import os
@@ -32,7 +31,8 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize(
-    "path", PORT_FILES + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"],
+    "path", PORT_FILES + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
+                          ROOT / "tools" / "conditioning_probe.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_jax_imports(path):

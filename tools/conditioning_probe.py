@@ -1,7 +1,7 @@
 """The envs behind a kernel-vs-plain reading under a randomization overlay,
 and how their plain step moves under small changes of the state.
 
-    python -m omniisaacgymenvs_torch.scripts.conditioning_probe \
+    python tools/conditioning_probe.py \
         [task=ShadowHandOpenAI_FF] [num_envs=8229] [seeds=0,1,2,3] [top=6]
 
 Needs a CUDA card (`device=cpu` runs the plain version on both sides, a dry
@@ -31,6 +31,10 @@ import json
 import os
 import subprocess
 import sys
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if _ROOT not in sys.path:
+    sys.path.insert(0, _ROOT)
 
 import torch
 
