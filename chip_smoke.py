@@ -61,7 +61,22 @@ Phases (any failure exits non-zero):
      learning rate within its bounds; then one learner epoch (GAE, norms,
      SGD) on a stored rollout on the card and on the CPU with the same
      permutations, f32 networks, held at the CPU parity tests' rule; and
-     ShadowHandOpenAI_FF at 8192 envs, 2 epochs with the central value.
+     ShadowHandOpenAI_FF at 8192 envs, 2 epochs with the central value;
+  9. the recurrent learner and its checkpoints on the card:
+     ShadowHandOpenAI_LSTM at 8192 envs under ShadowHandOpenAI_LSTMPPO.yaml
+     (bf16 networks, 1024-unit LSTMs for the actor and the central value),
+     2 epochs through `PPOTrainer.train` with a checkpoint every epoch into
+     a temporary directory, the launches counted as in phase 8 (K1 16 an
+     epoch, every one with the overlay); `nn/last` loaded into a fresh
+     trainer on the card, every leaf (parameters, Adam moments and counts,
+     norms, lr, LSTM states, env state, both generators) bitwise equal to
+     the saved trainer's; one more epoch from each, their parameters within
+     LEARNER_ATOL (and whether bitwise); the same checkpoint loaded on the
+     CPU (torch.load's map_location), every leaf but the generators'
+     bitwise; `scripts/train.py test=True checkpoint=<nn/last>
+     max_iterations=32` on the card, a finite mean reward; and one f32 LSTM
+     learner epoch (central value and actor) on a stored rollout of 512
+     envs at the yaml's widths, card against CPU, held as in phase 8.
 Tolerances and check states come from omniisaacgymenvs_torch/ops/parity.py.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -69,12 +84,15 @@ The line before the last is the `kernels` JSON; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -103,8 +121,12 @@ N_PAD = 37  # the checks' env counts are not a multiple of a block's envs
 E2E_TOL = (5e-3, 5e-3)
 # phase 8: task, envs, epochs (the Humanoid at its yaml's 4096 envs)
 TRAIN = {"Humanoid": (4096, 3), "ShadowHandOpenAI_FF": (8192, 2)}
-# phase 8: one f32 learner epoch, card vs CPU, every parameter (the two read
-# within 3e-8 of each other on an H100)
+# phase 9: the recurrent learner (task, envs, epochs: the yaml's 8192), and
+# the envs of the stored rollout its f32 learner epoch runs on, card vs CPU
+TRAIN_LSTM = ("ShadowHandOpenAI_LSTM", 8192, 2)
+LSTM_CPU_ENVS = 512
+# phases 8 and 9: one f32 learner epoch, card vs CPU, every parameter (the
+# two read within 3e-8 of each other on an H100 in phase 8)
 LEARNER_ATOL = 1e-5
 # the source of each form of the kernels
 SOURCES = {"group": "omniisaacgymenvs_torch/ops/csrc/fused_step.cu",
@@ -604,6 +626,7 @@ def main() -> int:
             del wq, wqd, weff, wpl, wz, wfa
     torch.cuda.synchronize()
     train_phase(dev, card)
+    lstm_phase(card)
     # K1 and K2 carry each main path; K3 is a launch mode no product path
     # takes, held against its plain version above
     for r in rows:
@@ -619,8 +642,8 @@ def main() -> int:
 
 
 def _state_to(x, device):
-    """A copy of a trainer's state (dataclasses, dicts, lists, modules,
-    tensors) on `device`."""
+    """A copy of a trainer's state (dataclasses, dicts, lists, tuples,
+    modules, tensors) on `device`."""
     if isinstance(x, torch.Tensor):
         return x.to(device, copy=True)
     if isinstance(x, torch.nn.Module):
@@ -630,124 +653,259 @@ def _state_to(x, device):
                                          for f in dataclasses.fields(x)})
     if isinstance(x, dict):
         return {k: _state_to(v, device) for k, v in x.items()}
-    if isinstance(x, list):
-        return [_state_to(v, device) for v in x]
+    if isinstance(x, (list, tuple)):
+        return type(x)(_state_to(v, device) for v in x)
     return x
 
 
-def train_phase(dev, card):
-    """Phase 8: the learner on the card (module docstring)."""
-    from omniisaacgymenvs_torch.learn import PPOConfig, PPOTrainer
+@contextlib.contextmanager
+def plain_physics_counted():
+    """Counts every call of the plain physics (the kernels' plain versions
+    and the engine's plain substep) while it is open: {"n": calls}."""
     from omniisaacgymenvs_torch.ops import fused_step as fs
     from omniisaacgymenvs_torch.physics.engine import PhysicsEngine
-    from omniisaacgymenvs_torch.scripts.common import build_env_from_cli
-    from omniisaacgymenvs_torch.utils.config import ppo_config_kwargs
 
-    # every plain physics call of the phase is counted: there must be none
-    plain_calls = {"n": 0}
+    calls = {"n": 0}
     originals = {(fs, "step_plain"): fs.step_plain, (fs, "fk_plain"): fs.fk_plain,
                  (fs, "substep_plain"): fs.substep_plain,
                  (PhysicsEngine, "_substep"): PhysicsEngine._substep}
 
     def counted(fn):
         def run(*a, **kw):
-            plain_calls["n"] += 1
+            calls["n"] += 1
             return fn(*a, **kw)
         return run
 
     for (owner, name), fn in originals.items():
         setattr(owner, name, counted(fn))
     try:
-        for name, (n, epochs) in TRAIN.items():
-            cfg, task, env = build_env_from_cli(
-                [f"task={name}", f"num_envs={n}", "seed=0", "device=cuda"])
-            ppo = PPOConfig(**ppo_config_kwargs(cfg["train"]))
-            trainer = PPOTrainer(env, ppo, seed=0)
-            kern = task.engine.kernels
-            form = kern.config(n, task.engine.has_terrain, task._dr_on)[0]["design"]
-            kern.reset_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            hist = trainer.train(max_epochs=epochs, log_every=1, log_fn=log)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            got = dict(kern.launches)
-            per_epoch = ppo.horizon_length * task.engine.k1_launches(task.decimation)
-            assert got["step"] == epochs * per_epoch, got
-            assert got["fk"] >= epochs * per_epoch, got
-            assert got["substep"] == 0, got
-            assert kern.thread_launches["step"] == (got["step"] if form == "thread"
-                                                    else 0), kern.thread_launches
-            assert kern.overlay_launches["step"] == (got["step"] if task._dr_on
-                                                     else 0), kern.overlay_launches
-            assert plain_calls["n"] == 0, "the trainer ran the plain physics"
-            assert len(hist) == epochs
-            for m in hist:
-                bad = [k for k, v in m.items() if not math.isfinite(v)]
-                assert not bad, f"non-finite metrics {bad}"
-                assert ppo.lr_min <= m["lr"] <= ppo.lr_max, m["lr"]
-            if trainer.use_cv:
-                assert all(math.isfinite(m["cv_loss"]) for m in hist)
-            steps = epochs * ppo.horizon_length * n
-            log(f"train path: {card} | {name} {n} envs, {epochs} epochs of "
-                f"{ppo.horizon_length} steps (bf16 networks {ppo.mixed_precision}, "
-                f"central value {trainer.use_cv}): {steps / dt:.1f} train-steps/s, "
-                f"{dt * 1e3 / epochs:.3f} ms per epoch (first epoch included), "
-                f"launches {got}, K1 in the {form} form; last epoch "
-                f"mean_step_reward {hist[-1]['mean_step_reward']:.4f}, kl "
-                f"{hist[-1]['kl']:.5f}, lr {hist[-1]['lr']:.3e}")
-            if name == "Humanoid":
-                learner_card_vs_cpu(trainer, card)
-            del trainer, env, task
+        yield calls
     finally:
         for (owner, name), fn in originals.items():
             setattr(owner, name, fn)
 
 
+def train_on_card(name, n, epochs, card, **train_kw):
+    """(trainer, task, history): `name` built as the CLI builds it, at n
+    envs under its train yaml, trained `epochs` epochs through
+    PPOTrainer.train; the launch counts read around the training (K1 once
+    per control step of every rollout, in the form `launch_config` picks,
+    with the overlay where the task randomizes, K2 at least as often, no
+    plain physics), every metric finite, the learning rate within its
+    bounds."""
+    from omniisaacgymenvs_torch.learn import PPOConfig, PPOTrainer
+    from omniisaacgymenvs_torch.scripts.common import build_env_from_cli
+    from omniisaacgymenvs_torch.utils.config import ppo_config_kwargs
+
+    cfg, task, env = build_env_from_cli(
+        [f"task={name}", f"num_envs={n}", "seed=0", "device=cuda"])
+    ppo = PPOConfig(**ppo_config_kwargs(cfg["train"]))
+    trainer = PPOTrainer(env, ppo, seed=0)
+    kern = task.engine.kernels
+    form = kern.config(n, task.engine.has_terrain, task._dr_on)[0]["design"]
+    kern.reset_counts()
+    with plain_physics_counted() as plain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = trainer.train(max_epochs=epochs, log_every=1, log_fn=log, **train_kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    got = dict(kern.launches)
+    per_epoch = ppo.horizon_length * task.engine.k1_launches(task.decimation)
+    assert got["step"] == epochs * per_epoch, got
+    assert got["fk"] >= epochs * per_epoch, got
+    assert got["substep"] == 0, got
+    assert kern.thread_launches["step"] == (got["step"] if form == "thread"
+                                            else 0), kern.thread_launches
+    assert kern.overlay_launches["step"] == (got["step"] if task._dr_on
+                                             else 0), kern.overlay_launches
+    assert plain["n"] == 0, "the trainer ran the plain physics"
+    assert len(hist) == epochs
+    for m in hist:
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        assert not bad, f"non-finite metrics {bad}"
+        assert ppo.lr_min <= m["lr"] <= ppo.lr_max, m["lr"]
+    if trainer.use_cv:
+        assert all(math.isfinite(m["cv_loss"]) for m in hist)
+    steps = epochs * ppo.horizon_length * n
+    nets = (f"LSTM {ppo.rnn_units} units" + (", central value LSTM"
+                                             if trainer.is_cv_rnn else "")
+            if trainer.is_rnn else "FF")
+    log(f"train path: {card} | {name} {n} envs, {epochs} epochs of "
+        f"{ppo.horizon_length} steps ({nets}, bf16 networks {ppo.mixed_precision}, "
+        f"central value {trainer.use_cv}): {steps / dt:.1f} train-steps/s, "
+        f"{dt * 1e3 / epochs:.3f} ms per epoch (first epoch included), "
+        f"launches {got} (K1 with the overlay {kern.overlay_launches['step']}), K1 "
+        f"in the {form} form; last epoch mean_step_reward "
+        f"{hist[-1]['mean_step_reward']:.4f}, kl {hist[-1]['kl']:.5f}, lr "
+        f"{hist[-1]['lr']:.3e}")
+    return trainer, task, hist
+
+
+def train_phase(dev, card):
+    """Phase 8: the FF learner on the card (module docstring)."""
+    for name, (n, epochs) in TRAIN.items():
+        trainer, task, _ = train_on_card(name, n, epochs, card)
+        if name == "Humanoid":
+            learner_card_vs_cpu(trainer, card)
+        del trainer, task
+
+
+def checkpoint_leaves(trainer) -> dict:
+    """Every leaf a checkpoint holds (the main file's and the sidecar's),
+    and both generators' states."""
+    from omniisaacgymenvs_torch.learn.ppo import _flatten
+
+    out = _flatten({"main": trainer._main_tree(), "env": trainer._env_state_tree()})
+    out.update({f"rng.{k}": g.get_state() for k, g in trainer._generators().items()})
+    return out
+
+
+def unequal_leaves(a: dict, b: dict, skip=()) -> list:
+    """The leaves of a and b (b's moved to a's device) that are not
+    bitwise equal."""
+    assert sorted(a) == sorted(b)
+    bad = []
+    for k, v in a.items():
+        if k in skip:
+            continue
+        w = b[k]
+        if isinstance(v, torch.Tensor):
+            if v.dtype != w.dtype or not torch.equal(v, w.to(v.device)):
+                bad.append(k)
+        elif v != w:
+            bad.append(k)
+    return bad
+
+
+def lstm_phase(card):
+    """Phase 9: the recurrent learner and its checkpoints on the card
+    (module docstring)."""
+    from omniisaacgymenvs_torch.learn import PPOTrainer
+    from omniisaacgymenvs_torch.scripts import train
+    from omniisaacgymenvs_torch.scripts.common import build_env_from_cli
+
+    name, n, epochs = TRAIN_LSTM
+
+    def fresh_trainer(device, seed):
+        _, _, env = build_env_from_cli(
+            [f"task={name}", f"num_envs={n}", "seed=0", f"device={device}"])
+        return PPOTrainer(env, trainer.cfg, seed=seed)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, task, _ = train_on_card(name, n, epochs, card, save_dir=tmp,
+                                         save_frequency=1)
+        assert trainer.is_rnn and trainer.is_cv_rnn
+        last = os.path.join(tmp, "last")
+        # reload into a fresh trainer on the card: every leaf bitwise
+        reloaded = fresh_trainer("cuda", seed=1)
+        reloaded.load(last, log_fn=log)
+        saved = checkpoint_leaves(trainer)
+        bad = unequal_leaves(saved, checkpoint_leaves(reloaded))
+        assert not bad, f"reload differs in {bad[:5]}"
+        log(f"reload on the card: {card} | {len(saved)} leaves (parameters, Adam "
+            f"moments and counts, norms, lr, LSTM states, env state, both "
+            f"generators) bitwise equal to the saved trainer's")
+        # one more epoch from each: the same metrics and parameters
+        kern = task.engine.kernels
+        with plain_physics_counted() as plain:
+            m_a = trainer._epoch(trainer.state)
+            m_b = reloaded._epoch(reloaded.state)
+            torch.cuda.synchronize()
+        assert plain["n"] == 0, "the trainer ran the plain physics"
+        after = unequal_leaves(checkpoint_leaves(trainer), checkpoint_leaves(reloaded))
+        worst = max(float((a - b).detach().abs().max()) for net in ("ac", "cv")
+                    for a, b in zip(getattr(trainer.state, net).parameters(),
+                                    getattr(reloaded.state, net).parameters()))
+        metric_diff = max(abs(float(m_a[k]) - float(m_b[k])) for k in m_a)
+        assert worst <= LEARNER_ATOL, (worst, after[:5])
+        assert all(math.isfinite(float(v)) for v in m_a.values())
+        log(f"one more epoch, original and reloaded: {card} | parameters max abs "
+            f"diff {worst:.3e} (bound {LEARNER_ATOL:.0e}), metrics max abs diff "
+            f"{metric_diff:.3e}; bitwise equal: {not after} "
+            f"({len(after)} leaves differ{': ' + ', '.join(after[:5]) if after else ''})"
+            f"; K1 launches {kern.launches['step']} over the phase")
+        del reloaded
+        # the same checkpoint on the CPU (torch.load's map_location)
+        cpu = fresh_trainer("cpu", seed=1)
+        msgs = []
+        cpu.load(last, log_fn=msgs.append)
+        bad = unequal_leaves(checkpoint_leaves(cpu), saved,
+                             skip=("rng.trainer", "rng.env"))
+        assert not bad, f"the CPU load differs in {bad[:5]}"
+        assert "another device type" in msgs[-1], msgs
+        log(f"the card's checkpoint on the CPU: {len(saved) - 2} leaves bitwise "
+            f"equal, the generators left as they were ({msgs[-1]})")
+        del cpu
+        # scripts/train.py test=True from the checkpoint, on the card
+        mean_ret, n_ep = train.main([f"task={name}", f"num_envs={n}", "seed=0",
+                                     "device=cuda",
+                                     "test=True", f"checkpoint={last}",
+                                     "max_iterations=32"])
+        assert math.isfinite(mean_ret), mean_ret
+        log(f"test=True from nn/last: {card} | {name} {n} envs x 32 steps, mean "
+            f"episode reward {mean_ret:.4f} over {n_ep} episodes")
+    del trainer, task
+    # one f32 LSTM learner epoch, card against CPU, on a stored rollout at
+    # the yaml's widths
+    small, _, _ = train_on_card(name, LSTM_CPU_ENVS, 1, card)
+    learner_card_vs_cpu(small, card)
+
+
 def learner_card_vs_cpu(trainer, card):
-    """One learner epoch (GAE, value norm, SGD, obs norm) on one stored
-    rollout, on the card and on the CPU, with the same permutations and f32
-    networks: every metric within rtol 1e-3 (atol 1e-5) and the norms within
-    rtol 1e-4, as tests/test_torch_ppo.py holds them; every parameter within
+    """One learner epoch (GAE, value norm, SGD of the central value and the
+    actor, obs and states norms) on one stored rollout, on the card and on
+    the CPU, with the same permutations and f32 networks: every metric
+    within rtol 1e-3 (atol 1e-5) and the norms within rtol 1e-4, as
+    tests/test_torch_ppo.py holds them; every parameter within
     LEARNER_ATOL; and each parameter tensor moved as the CPU's moved (the
     norm of the difference at most 1e-3 of the norm of the CPU's change)."""
     ppo = trainer.cfg
     ts = trainer.state
     traj, last_value, stats = trainer._rollout(ts)
-    S = ppo.horizon_length * trainer.env.num_envs
+    S, mb = trainer._slices()
     perms = trainer._perms(ppo.mini_epochs, S)
+    cv_perms = trainer._perms(ppo.cv_mini_epochs, S) if trainer.use_cv else None
     cpu = torch.device("cpu")
+    nets = ("ac", "cv") if trainer.use_cv else ("ac",)
     sides = {}
     for label, device in (("card", trainer.device), ("cpu", cpu)):
         tr = copy.copy(trainer)
         tr.device = device
         st = _state_to(ts, device)
-        st.ac.dtype = None
+        for net in nets:
+            getattr(st, net).dtype = None
         m = tr._learn(st, _state_to(traj, device), last_value.to(device),
-                      _state_to(stats, device), perms=perms.to(device))
+                      _state_to(stats, device), perms=perms.to(device),
+                      cv_perms=None if cv_perms is None else cv_perms.to(device))
         sides[label] = (st, {k: float(v) for k, v in m.items()})
     (g, gm), (c, cm) = sides["card"], sides["cpu"]
     for k in cm:
         assert abs(gm[k] - cm[k]) <= 1e-5 + 1e-3 * abs(cm[k]), (k, gm[k], cm[k])
-    for name in ("obs_norm", "value_norm"):
+    for name in ("obs_norm", "value_norm", "states_norm"):
         for f in ("mean", "var", "count"):
             a, b = getattr(getattr(g, name), f).cpu(), getattr(getattr(c, name), f)
             assert bool(((a - b).abs() <= 1e-6 + 1e-4 * b.abs()).all()), (name, f)
-    n_updates = ppo.mini_epochs * (S // min(ppo.minibatch_size, S))
-    init = {k: v.detach().cpu() for k, v in ts.ac.named_parameters()}
+    n_updates = ppo.mini_epochs * (S // mb)
     worst, worst_rel = 0.0, 0.0
-    for (k, a), b in zip(g.ac.named_parameters(), c.ac.parameters()):
-        a, b = a.detach().cpu(), b.detach()
-        diff = float((a - b).abs().max())
-        moved = float((b - init[k]).norm())
-        rel = float((a - b).norm()) / moved if moved > 0 else math.inf
-        assert diff <= LEARNER_ATOL and rel <= 1e-3, (k, diff, rel)
-        worst, worst_rel = max(worst, diff), max(worst_rel, rel)
-    log(f"learner epoch, card vs CPU: {card} | {S} samples, {n_updates} updates: "
-        f"parameters max abs diff {worst:.3e} (bound {LEARNER_ATOL:.0e} for "
-        f"every element), largest per-tensor |card - cpu| / |cpu change| "
-        f"{worst_rel:.3e} (bound 1e-3); lr {gm['lr']:.4e} / {cm['lr']:.4e}; "
-        f"kl {gm['kl']:.6f} / {cm['kl']:.6f}")
+    for net in nets:
+        init = {k: v.detach().cpu() for k, v in getattr(ts, net).named_parameters()}
+        for (k, a), b in zip(getattr(g, net).named_parameters(),
+                             getattr(c, net).parameters()):
+            a, b = a.detach().cpu(), b.detach()
+            diff = float((a - b).abs().max())
+            moved = float((b - init[k]).norm())
+            rel = float((a - b).norm()) / moved if moved > 0 else math.inf
+            assert diff <= LEARNER_ATOL and rel <= 1e-3, (net, k, diff, rel)
+            worst, worst_rel = max(worst, diff), max(worst_rel, rel)
+    rows = (f"{S} sequences of {ppo.seq_len} steps" if trainer.is_rnn
+            else f"{S} samples")
+    log(f"learner epoch, card vs CPU: {card} | {trainer.env.num_envs} envs, {rows}, "
+        f"{n_updates} actor updates{' and the central value' if trainer.use_cv else ''}"
+        f": parameters max abs diff {worst:.3e} (bound {LEARNER_ATOL:.0e} for every "
+        f"element), largest per-tensor |card - cpu| / |cpu change| {worst_rel:.3e} "
+        f"(bound 1e-3); lr {gm['lr']:.4e} / {cm['lr']:.4e}; kl {gm['kl']:.6f} / "
+        f"{cm['kl']:.6f}")
 
 
 if __name__ == "__main__":

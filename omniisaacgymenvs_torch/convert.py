@@ -5,8 +5,11 @@ numpy arrays, structural fields as they are) and builds the port's Model;
 `state_from_arrays` / `env_state_from_arrays` do the same for `State` and
 `EnvState`. The model's constants play the role of weights, so both
 packages compute on identical inputs. `actor_critic_from_arrays` /
-`central_value_from_arrays` load a flax parameter tree of the JAX learner's
-networks into the port's modules.
+`central_value_from_arrays` and their LSTM counterparts
+`lstm_actor_critic_from_arrays` / `lstm_central_value_from_arrays` load a
+flax parameter tree of the JAX learner's networks into the port's modules
+(flax kernels are (in, out), a torch Linear's weight (out, in); a flax
+LayerNorm's `scale` is the torch one's `weight`).
 """
 
 from __future__ import annotations
@@ -16,7 +19,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from omniisaacgymenvs_torch.learn.networks import ActorCritic, CentralValue
+from omniisaacgymenvs_torch.learn.networks import (
+    ActorCritic,
+    CentralValue,
+    LSTMActorCritic,
+    LSTMCentralValue,
+)
 from omniisaacgymenvs_torch.physics.model import Model
 from omniisaacgymenvs_torch.physics.state import State
 from omniisaacgymenvs_torch.tasks.base import EnvState
@@ -91,16 +99,21 @@ def _dense_names(tree: dict):
                   key=lambda k: int(k.split("_")[1]))
 
 
-def _load_dense(layer: torch.nn.Linear, dense: dict):
-    """A flax Dense ({"kernel": (in, out), "bias": (out,)}) into an
-    nn.Linear (weight (out, in))."""
-    kernel = np.asarray(dense["kernel"], np.float32)
-    if kernel.shape != tuple(layer.weight.shape[::-1]):
-        raise ValueError(f"kernel {kernel.shape} does not fit a Linear of "
-                         f"weight {tuple(layer.weight.shape)}")
+def _copy(dst: torch.Tensor, src):
+    src = np.asarray(src, np.float32)
+    if src.shape != tuple(dst.shape):
+        raise ValueError(f"array {src.shape} does not fit a parameter of "
+                         f"shape {tuple(dst.shape)}")
     with torch.no_grad():
-        layer.weight.copy_(torch.as_tensor(kernel.T.copy()))
-        layer.bias.copy_(torch.as_tensor(np.asarray(dense["bias"], np.float32)))
+        dst.copy_(torch.as_tensor(src.copy()))
+
+
+def _load_dense(layer: torch.nn.Linear, dense: dict):
+    """A flax Dense ({"kernel": (in, out), "bias": (out,)}, the bias
+    optional) into an nn.Linear (weight (out, in))."""
+    _copy(layer.weight, np.asarray(dense["kernel"], np.float32).T)
+    if "bias" in dense:
+        _copy(layer.bias, dense["bias"])
 
 
 def _params(tree: dict) -> dict:
@@ -118,8 +131,7 @@ def actor_critic_from_arrays(tree: dict, module: ActorCritic) -> ActorCritic:
         raise ValueError(f"{len(dense)} Dense layers for {len(layers)} Linears")
     for name, layer in zip(dense, layers):
         _load_dense(layer, p[name])
-    with torch.no_grad():
-        module.log_std.copy_(torch.as_tensor(np.asarray(p["log_std"], np.float32)))
+    _copy(module.log_std, p["log_std"])
     return module
 
 
@@ -133,4 +145,42 @@ def central_value_from_arrays(tree: dict, module: CentralValue) -> CentralValue:
         raise ValueError(f"{len(dense)} Dense layers for {len(layers)} Linears")
     for name, layer in zip(dense, layers):
         _load_dense(layer, p[name])
+    return module
+
+
+def _load_lstm_trunk(p: dict, module):
+    """lstm.wx / lstm.wh, ln and mlp_0.. of a flax LSTM network."""
+    _load_dense(module.lstm.wx, p["lstm"]["wx"])
+    _load_dense(module.lstm.wh, p["lstm"]["wh"])
+    if module.ln is not None:
+        _copy(module.ln.weight, p["ln"]["scale"])
+        _copy(module.ln.bias, p["ln"]["bias"])
+    mlp = sorted((k for k in p if k.startswith("mlp_")),
+                 key=lambda k: int(k.split("_")[1]))
+    if len(mlp) != module.n_mlp:
+        raise ValueError(f"{len(mlp)} mlp layers for {module.n_mlp} Linears")
+    for k in mlp:
+        _load_dense(getattr(module, k), p[k])
+
+
+def lstm_actor_critic_from_arrays(tree: dict,
+                                  module: LSTMActorCritic) -> LSTMActorCritic:
+    """Load the flax LSTMActorCritic tree {"params": {"lstm": {"wx", "wh"},
+    "ln", "mlp_i", "mu", "value", "log_std"}} (numpy arrays) into `module`,
+    in place; returns it."""
+    p = _params(tree)
+    _load_lstm_trunk(p, module)
+    _load_dense(module.mu, p["mu"])
+    _load_dense(module.value, p["value"])
+    _copy(module.log_std, p["log_std"])
+    return module
+
+
+def lstm_central_value_from_arrays(tree: dict,
+                                   module: LSTMCentralValue) -> LSTMCentralValue:
+    """Load the flax LSTMCentralValue tree {"params": {"lstm", "ln",
+    "mlp_i", "value"}} into `module`, in place; returns it."""
+    p = _params(tree)
+    _load_lstm_trunk(p, module)
+    _load_dense(module.value, p["value"])
     return module

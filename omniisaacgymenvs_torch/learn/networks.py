@@ -1,21 +1,23 @@
-"""Feed-forward actor-critic networks (PyTorch port of the FF part of the JAX
-package's `learn/networks.py`), mirroring rl_games model/network configs.
+"""Actor-critic networks (PyTorch port of the JAX package's
+`learn/networks.py`), mirroring rl_games model/network configs.
 
 Model `continuous_a2c_logstd`: a shared MLP trunk, a `mu` head, a
 state-independent log-std parameter and a value head; the asymmetric
-setups add a separate central-value MLP on the privileged states.
-Parameters are initialized as flax does it: lecun-normal weights
-(truncated normal, fan_in, scale 1), zero biases, the `mu` head at scale
-0.01. With `dtype=torch.bfloat16` (rl_games mixed_precision) the forward
-runs under autocast, so the matrix products and activations compute in
-bf16 over f32 parameters; `mu` and `value` come back in f32. The recurrent
-networks are not ported yet (ROADMAP A15).
+setups add a separate central-value MLP on the privileged states. The
+recurrent networks put an LSTM (and a LayerNorm) before the MLP
+(rl_games `rnn` block, `before_mlp`). Parameters are initialized as flax
+does it: lecun-normal weights (truncated normal, fan_in, scale 1), zero
+biases, the `mu` head at scale 0.01, the LSTM's recurrent kernel
+orthogonal. With `dtype=torch.bfloat16` (rl_games mixed_precision) the
+forward runs under autocast, so the matrix products and activations
+compute in bf16 over f32 parameters; `mu`, `value` and the LSTM carry
+come back in f32.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -30,6 +32,16 @@ _ACTS = {
 
 # the standard deviation of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
+# flax LayerNorm's epsilon (torch's default is 1e-5)
+LN_EPS = 1e-6
+
+Hidden = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _autocast(x: torch.Tensor, dtype: Optional[torch.dtype]):
+    """bf16 (or `dtype`) compute for a network's forward; off for f32."""
+    return torch.autocast(x.device.type, dtype=dtype or torch.bfloat16,
+                          enabled=dtype is not None)
 
 
 def variance_scaling_(weight: torch.Tensor, scale: float,
@@ -85,8 +97,7 @@ class ActorCritic(nn.Module):
 
     def forward(self, obs: torch.Tensor):
         """(mu (.., A) f32, log_std (A,), value (..,) f32)."""
-        with torch.autocast(obs.device.type, dtype=self.dtype or torch.bfloat16,
-                            enabled=self.dtype is not None):
+        with _autocast(obs, self.dtype):
             x = self.trunk(obs)
             mu, value = self.mu(x), self.value(x)[..., 0]
         return mu.float(), self.log_std, value.float()
@@ -106,11 +117,156 @@ class CentralValue(nn.Module):
         self.value = _dense(units[-1] if units else num_states, 1, 1.0, g)
 
     def forward(self, states: torch.Tensor) -> torch.Tensor:
-        with torch.autocast(states.device.type,
-                            dtype=self.dtype or torch.bfloat16,
-                            enabled=self.dtype is not None):
+        with _autocast(states, self.dtype):
             value = self.value(self.trunk(states))[..., 0]
         return value.float()
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """The logistic function as the JAX package computes it: in bf16 XLA
+    evaluates 1 / (1 + exp(-x)) with each operation rounded to bf16, where
+    torch.sigmoid rounds once; the two differ by a bf16 step in a third of
+    the gates, which the recurrence carries past a step at the outputs."""
+    if x.dtype == torch.bfloat16:
+        return 1.0 / (1.0 + torch.exp(-x))
+    return torch.sigmoid(x)
+
+
+class LSTMCore(nn.Module):
+    """An LSTM layer with fused gate kernels: `wx` (in -> 4H, no bias) and
+    `wh` (H -> 4H, orthogonal, with the bias), gates in flax LSTMCell's
+    order i, f, g, o. Two apply paths: `forward(x, (h, c))`, one step (the
+    rollout), and `seq(x_seq, (h, c), done_seq)`, the BPTT replay of a
+    (B, T, in) sequence: one input projection over all T steps, then T
+    recurrent steps. It runs inside its caller's autocast; the carry comes
+    in f32 and stays f32 (a bf16 gate times the f32 cell promotes)."""
+
+    def __init__(self, n_in: int, features: int, generator: torch.Generator):
+        super().__init__()
+        self.wx = nn.Linear(n_in, 4 * features, bias=False)
+        self.wh = nn.Linear(features, 4 * features)
+        with torch.no_grad():
+            variance_scaling_(self.wx.weight, 1.0, generator)
+            nn.init.orthogonal_(self.wh.weight, generator=generator)
+            self.wh.bias.zero_()
+
+    def _step(self, h, c, x_gates):
+        gates = x_gates + self.wh(h)
+        # the cell's elementwise math in the gates' dtype, on every device
+        # (CUDA's autocast would take exp to f32)
+        with torch.autocast(gates.device.type, enabled=False):
+            i, f, g, o = gates.chunk(4, dim=-1)
+            c2 = _sigmoid(f) * c + _sigmoid(i) * torch.tanh(g)
+            return _sigmoid(o) * torch.tanh(c2), c2
+
+    def forward(self, x: torch.Tensor, hidden: Hidden):
+        h2, c2 = self._step(*hidden, self.wx(x))
+        return h2, (h2.float(), c2.float())
+
+    def seq(self, x_seq: torch.Tensor, hidden: Hidden,
+            done_seq: torch.Tensor) -> torch.Tensor:
+        """x_seq (B, T, in), done_seq (B, T) bool -> outputs (B, T, H). The
+        output at step t is the h before the reset (the action at t came
+        from it); the carry into t + 1 is zeroed where done_seq[:, t] is
+        set, as the rollout zeroes it."""
+        x_gates = self.wx(x_seq)
+        h, c = hidden
+        outs = []
+        for t in range(x_seq.shape[1]):
+            h2, c2 = self._step(h, c, x_gates[:, t])
+            outs.append(h2)
+            d = done_seq[:, t, None]
+            h = torch.where(d, 0.0, h2.float())
+            c = torch.where(d, 0.0, c2.float())
+        return torch.stack(outs, dim=1)
+
+
+class _LSTMNet(nn.Module):
+    """The recurrent trunk: the LSTM, LayerNorm (flax's epsilon) and the
+    MLP `mlp_0`..; `_trunk` runs once on stacked (B, T, H) outputs."""
+
+    def __init__(self, n_in: int, lstm_units: int, units: Sequence[int],
+                 activation: str, layer_norm: bool,
+                 dtype: Optional[torch.dtype], generator: torch.Generator):
+        super().__init__()
+        self.dtype = dtype
+        self.act = _ACTS[activation]
+        self.lstm = LSTMCore(n_in, lstm_units, generator)
+        self.ln = nn.LayerNorm(lstm_units, eps=LN_EPS) if layer_norm else None
+        sizes = [lstm_units, *units]
+        for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:])):
+            self.add_module(f"mlp_{i}", _dense(a, b, 1.0, generator))
+        self.n_mlp = len(units)
+        self.width = sizes[-1]
+
+    def _trunk(self, out: torch.Tensor) -> torch.Tensor:
+        x = self.ln(out) if self.ln is not None else out
+        for i in range(self.n_mlp):
+            x = self.act(getattr(self, f"mlp_{i}")(x))
+        return x
+
+
+class LSTMActorCritic(_LSTMNet):
+    """LSTM-before-MLP actor-critic (rl_games rnn config: units 1024,
+    layer_norm, before_mlp). Carries (h, c) per env: call with obs
+    (N, num_obs) and hidden ((N, units), (N, units))."""
+
+    def __init__(self, num_obs: int, num_actions: int, lstm_units: int = 1024,
+                 units: Sequence[int] = (512, 512, 256, 128),
+                 activation: str = "elu", sigma_init: float = 0.0,
+                 layer_norm: bool = True, dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        g = generator if generator is not None else torch.Generator()
+        super().__init__(num_obs, lstm_units, units, activation, layer_norm,
+                         dtype, g)
+        self.mu = _dense(self.width, num_actions, 0.01, g)
+        self.log_std = nn.Parameter(torch.full((num_actions,), float(sigma_init)))
+        self.value = _dense(self.width, 1, 1.0, g)
+
+    def _heads(self, out):
+        x = self._trunk(out)
+        return self.mu(x).float(), self.log_std, self.value(x)[..., 0].float()
+
+    def forward(self, obs: torch.Tensor, hidden: Hidden):
+        """(mu, log_std, value, hidden after the step)."""
+        with _autocast(obs, self.dtype):
+            out, hidden = self.lstm(obs, hidden)
+            mu, log_std, value = self._heads(out)
+        return mu, log_std, value, hidden
+
+    def seq(self, obs_seq: torch.Tensor, hidden: Hidden, done_seq: torch.Tensor):
+        """BPTT replay: (B, T, obs) -> (mu (B, T, A), log_std (A,),
+        value (B, T))."""
+        with _autocast(obs_seq, self.dtype):
+            return self._heads(self.lstm.seq(obs_seq, hidden, done_seq))
+
+
+class LSTMCentralValue(_LSTMNet):
+    """LSTM-before-MLP central value on the privileged states (rl_games
+    central_value_config with an rnn block: lstm 1024 + mlp [512])."""
+
+    def __init__(self, num_states: int, lstm_units: int = 1024,
+                 units: Sequence[int] = (512,), activation: str = "relu",
+                 layer_norm: bool = True, dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        g = generator if generator is not None else torch.Generator()
+        super().__init__(num_states, lstm_units, units, activation, layer_norm,
+                         dtype, g)
+        self.value = _dense(self.width, 1, 1.0, g)
+
+    def forward(self, states: torch.Tensor, hidden: Hidden):
+        """(value, hidden after the step)."""
+        with _autocast(states, self.dtype):
+            out, hidden = self.lstm(states, hidden)
+            value = self.value(self._trunk(out))[..., 0].float()
+        return value, hidden
+
+    def seq(self, states_seq: torch.Tensor, hidden: Hidden,
+            done_seq: torch.Tensor) -> torch.Tensor:
+        """BPTT replay: (B, T, states) -> values (B, T)."""
+        with _autocast(states_seq, self.dtype):
+            outs = self.lstm.seq(states_seq, hidden, done_seq)
+            return self.value(self._trunk(outs))[..., 0].float()
 
 
 def gaussian_logprob(mu, log_std, action):

@@ -1,13 +1,19 @@
-"""PPO learner on the same device as the simulation (PyTorch port of the FF
-path of the JAX package's `learn/ppo.py`).
+"""PPO learner on the same device as the simulation (PyTorch port of the JAX
+package's `learn/ppo.py`).
 
 An epoch is a rollout of horizon_length control steps through the task's
 batched step (K1 once per control step, K2 at each reset merge on CUDA),
-GAE, then mini_epochs x minibatch SGD on the flattened trajectory, with
-the clipped surrogate, the clipped value loss, the bounds loss, gradient
-clipping by global norm, Adam and the adaptive-KL learning rate. The
-learning rate, the non-finite-gradient guard and every metric stay on the
-device; an epoch's metrics come to the host once, in `train`.
+GAE, then mini_epochs x minibatch SGD on the trajectory, with the clipped
+surrogate, the clipped value loss, the bounds loss, gradient clipping by
+global norm, Adam and the adaptive-KL learning rate. The learning rate,
+the non-finite-gradient guard and every metric stay on the device; an
+epoch's metrics come to the host once, in `train`.
+
+The recurrent learner (`rnn="lstm"`, and `cv_rnn="lstm"` for the central
+value) carries each env's LSTM state through the rollout, zeroes it where
+an episode ends, and stores it only at the start of each chunk of seq_len
+steps; its SGD replays (N * horizon / seq_len) sequences of seq_len steps
+from those states through `LSTMCore.seq`, with the same resets.
 
 Random draws (action noise, minibatch permutations) come from one
 `torch.Generator` on the device, seeded from `seed`. `_rollout` takes an
@@ -15,8 +21,15 @@ optional `noise` (T, N, A) and `_update` / `_cv_update` an optional
 `perms` (mini_epochs, num_slices), so that a test can hand in the JAX
 learner's draws.
 
-Not ported yet: the recurrent policy and central value (`rnn`, `cv_rnn`:
-ROADMAP A15) and checkpoints (`save` / `load`: ROADMAP A10).
+Checkpoints (`save` / `load`) are directories: `model.pt` holds the
+networks, both Adam states, the running norms, the learning rate and the
+epoch; `env.pt`, the sidecar, holds what a resume needs to continue
+rather than restart: the env state, the LSTM states, the episode counters
+and means, the task's statistics, the states of both random generators,
+and the epoch it belongs to. Both are flat dicts of tensors and numbers
+under dotted leaf paths, read with `torch.load(weights_only=True)` onto the
+trainer's device, so a checkpoint written on the card loads on the CPU and
+the other way round.
 """
 
 from __future__ import annotations
@@ -25,13 +38,15 @@ import dataclasses
 import json
 import os
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from omniisaacgymenvs_torch.learn.networks import (
     ActorCritic,
     CentralValue,
+    LSTMActorCritic,
+    LSTMCentralValue,
     gaussian_entropy,
     gaussian_kl,
     gaussian_logprob,
@@ -41,6 +56,10 @@ from omniisaacgymenvs_torch.learn.running_norm import RunningNorm
 # `train(profile_dir=...)` skips this many epochs (allocation, cuBLAS
 # heuristics, the kernels' first builds) before it starts tracing
 PROFILE_START = 3
+# a checkpoint directory's files
+MAIN_FILE, ENV_FILE = "model.pt", "env.pt"
+HIDDEN_KEYS = ("hidden_h", "hidden_c", "cv_hidden_h", "cv_hidden_c")
+
 
 def _pack_dataset(dataset: Dict[str, torch.Tensor]):
     """Pack a flat f32 dataset of (S,) / (S, D) fields into ONE (S, D_total)
@@ -64,6 +83,117 @@ def _pack_dataset(dataset: Dict[str, torch.Tensor]):
                 for k, (a, b, was1d) in cols.items()}
 
     return packed, unpack
+
+
+def _minibatch_taker(dataset: Dict[str, torch.Tensor]) -> Callable:
+    """idx -> minibatch: one wide-row gather of the packed dataset where
+    every field is flat f32 (the FF path), else one gather per field (the
+    recurrent path's (B, seq, ...) fields, bool dones and stored states)."""
+    if all(v.dtype == torch.float32 and v.ndim <= 2 for v in dataset.values()):
+        packed, unpack = _pack_dataset(dataset)
+        return lambda idx: unpack(packed[idx])
+    return lambda idx: {k: v[idx] for k, v in dataset.items()}
+
+
+def reset_where_done(hidden: tuple, done: torch.Tensor) -> tuple:
+    """LSTM states zeroed for the envs whose episode just ended."""
+    return tuple(torch.where(done[:, None], 0.0, x) for x in hidden)
+
+
+def _divisor_at_most(size: int, num_slices: int) -> int:
+    """The minibatch size: `size` slices, at most num_slices, shrunk to a
+    divisor of num_slices."""
+    mb = min(size, num_slices)
+    while num_slices % mb:
+        mb -= 1
+    return mb
+
+
+class CheckpointMismatch(ValueError):
+    """A checkpoint leaf that is missing, extra, or of another shape or
+    type than the trainer's; the message names its dotted path."""
+
+
+def _flatten(tree, prefix: str = "", out: Optional[dict] = None) -> dict:
+    """A nested tree (dicts, dataclasses, tuples, lists) as {dotted leaf
+    path: leaf}; tensors are detached copies, so a view does not drag its
+    whole storage into the file. Parameter names keep their dots."""
+    out = {} if out is None else out
+    join = lambda k: f"{prefix}.{k}" if prefix else str(k)  # noqa: E731
+    leaf = isinstance(tree, (torch.Tensor, bool, int, float))
+    if leaf and prefix in out:
+        raise ValueError(f"two leaves at {prefix!r}")
+    if isinstance(tree, torch.Tensor):
+        out[prefix] = tree.detach().clone()
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            _flatten(getattr(tree, f.name), join(f.name), out)
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(v, join(k), out)
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            _flatten(v, join(i), out)
+    elif leaf:
+        out[prefix] = tree
+    else:
+        raise TypeError(f"{prefix}: cannot checkpoint a {type(tree).__name__}")
+    return out
+
+
+def _describe(x) -> str:
+    if isinstance(x, torch.Tensor):
+        return f"{x.dtype} {tuple(x.shape)}"
+    return type(x).__name__
+
+
+def _restore_like(template, flat: dict, prefix: str = "", used=None):
+    """`template`'s tree with every leaf taken from `flat` (from _flatten)
+    and moved to the template leaf's device. Raises CheckpointMismatch
+    naming the first leaf, in the template's order, that is missing or
+    differs in shape or type; then the first saved leaf left over."""
+    top = used is None
+    used = set() if top else used
+    join = lambda k: f"{prefix}.{k}" if prefix else str(k)  # noqa: E731
+    if dataclasses.is_dataclass(template):
+        out = dataclasses.replace(template, **{
+            f.name: _restore_like(getattr(template, f.name), flat,
+                                  join(f.name), used)
+            for f in dataclasses.fields(template)})
+    elif isinstance(template, dict):
+        out = {k: _restore_like(v, flat, join(k), used) for k, v in template.items()}
+    elif isinstance(template, (tuple, list)):
+        out = type(template)(_restore_like(v, flat, join(i), used)
+                             for i, v in enumerate(template))
+    else:
+        if prefix not in flat:
+            raise CheckpointMismatch(
+                f"{prefix}: missing from the checkpoint (expected "
+                f"{_describe(template)})")
+        saved = flat[prefix]
+        same = (saved.shape == template.shape and saved.dtype == template.dtype
+                if isinstance(template, torch.Tensor) and isinstance(saved, torch.Tensor)
+                else type(saved) is type(template))
+        if not same:
+            raise CheckpointMismatch(f"{prefix}: saved {_describe(saved)}, "
+                                     f"expected {_describe(template)}")
+        used.add(prefix)
+        out = (saved.to(template.device) if isinstance(template, torch.Tensor)
+               else saved)
+    if top:
+        extra = [k for k in flat if k not in used]
+        if extra:
+            raise CheckpointMismatch(f"{extra[0]}: in the checkpoint, not in "
+                                     f"this trainer")
+    return out
+
+
+def _save_atomic(obj, path: str):
+    """torch.save to a temporary name, then rename into place: a write cut
+    short leaves the previous file."""
+    tmp = path + ".part"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
 
 
 @dataclasses.dataclass
@@ -166,14 +296,14 @@ def clip_adam_step(params: Sequence[torch.Tensor], grads: List[torch.Tensor],
 
 @dataclasses.dataclass
 class TrainState:
-    ac: ActorCritic
+    ac: torch.nn.Module         # ActorCritic or LSTMActorCritic
     opt_state: AdamState
     lr: torch.Tensor            # () f32 on the device
     obs_norm: RunningNorm
     value_norm: RunningNorm
     states_norm: RunningNorm    # for the central-value critic input
     es: Any                     # batched EnvState
-    cv: Optional[CentralValue]
+    cv: Optional[torch.nn.Module]   # CentralValue or LSTMCentralValue
     cv_opt_state: Optional[AdamState]
     ep_ret: torch.Tensor        # (N,) running episode reward (raw)
     ep_len: torch.Tensor        # (N,)
@@ -185,32 +315,52 @@ class TrainState:
     epoch: int
     # task-defined cross-env statistics (RLTask.episode_stats_*)
     task_stats: Any = dataclasses.field(default_factory=dict)
+    # the LSTM states (h, c), each (N, units) f32, of the actor and the
+    # central value; () without one
+    hidden: tuple = ()
+    cv_hidden: tuple = ()
 
 
 class PPOTrainer:
     def __init__(self, env, cfg: PPOConfig, seed: int = 42):
-        if cfg.rnn is not None or cfg.cv_rnn is not None:
-            raise NotImplementedError(
-                "the recurrent learner (rnn / cv_rnn) is not ported yet: "
-                "ROADMAP A15")
         self.env = env
         self.cfg = cfg
         self.device = torch.device(env.device)
         self.use_cv = cfg.central_value and env.num_states > 0
+        self.is_rnn = cfg.rnn == "lstm"
+        self.is_cv_rnn = self.use_cv and cfg.cv_rnn == "lstm"
+        if self.is_cv_rnn and not self.is_rnn:
+            raise ValueError("an LSTM central value needs an LSTM actor")
+        if self.is_rnn and cfg.horizon_length % cfg.seq_len:
+            raise ValueError("horizon_length must be divisible by seq_len")
         net_dtype = torch.bfloat16 if cfg.mixed_precision else None
         # parameters are drawn on the CPU, so every device starts from the
         # same ones
         init_gen = torch.Generator().manual_seed(seed)
-        ac = ActorCritic(env.num_obs, env.num_actions, tuple(cfg.units),
-                         cfg.activation, cfg.sigma_init, net_dtype,
-                         init_gen).to(self.device)
-        cv = (CentralValue(env.num_states, tuple(cfg.cv_units),
-                           cfg.cv_activation, net_dtype, init_gen).to(self.device)
-              if self.use_cv else None)
+        if self.is_rnn:
+            ac = LSTMActorCritic(env.num_obs, env.num_actions, cfg.rnn_units,
+                                 tuple(cfg.units), cfg.activation, cfg.sigma_init,
+                                 dtype=net_dtype, generator=init_gen)
+        else:
+            ac = ActorCritic(env.num_obs, env.num_actions, tuple(cfg.units),
+                             cfg.activation, cfg.sigma_init, net_dtype, init_gen)
+        if self.is_cv_rnn:
+            cv = LSTMCentralValue(env.num_states, cfg.cv_rnn_units,
+                                  tuple(cfg.cv_units), cfg.cv_activation,
+                                  dtype=net_dtype, generator=init_gen)
+        elif self.use_cv:
+            cv = CentralValue(env.num_states, tuple(cfg.cv_units),
+                              cfg.cv_activation, net_dtype, init_gen)
+        else:
+            cv = None
+        ac = ac.to(self.device)
+        cv = cv.to(self.device) if cv is not None else None
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         n, dev = env.num_envs, self.device
         es = env.reset(seed=seed)
         zero = lambda: torch.zeros((), device=dev)  # noqa: E731
+        carry = lambda u: (torch.zeros((n, u), device=dev),  # noqa: E731
+                           torch.zeros((n, u), device=dev))
         self.state = TrainState(
             ac=ac,
             opt_state=AdamState.create(list(ac.parameters())),
@@ -226,38 +376,54 @@ class PPOTrainer:
             score_mean=zero(), len_mean=zero(), games=zero(),
             epoch=0,
             task_stats=env.task.episode_stats_init(),
+            hidden=carry(cfg.rnn_units) if self.is_rnn else (),
+            cv_hidden=carry(cfg.cv_rnn_units) if self.is_cv_rnn else (),
         )
 
     # ------------------------------------------------------------------
-    def _policy(self, ts: TrainState, obs, states):
+    def _policy(self, ts: TrainState, obs, states, hidden=(), cv_hidden=()):
         """Actor forward and the value estimate (from the central value on
-        the privileged states where there is one). Returns (mu, log_std,
-        value)."""
+        the privileged states where there is one); the LSTMs step from
+        `hidden` / `cv_hidden`. Returns (mu, log_std, value, hidden,
+        cv_hidden)."""
         x = ts.obs_norm.normalize(obs) if self.cfg.normalize_input else obs
-        mu, log_std, v = ts.ac(x)
+        if self.is_rnn:
+            mu, log_std, v, hidden = ts.ac(x, hidden)
+        else:
+            mu, log_std, v = ts.ac(x)
         if self.use_cv:
             sx = (ts.states_norm.normalize(states) if self.cfg.normalize_input
                   else states)
-            v = ts.cv(sx)
+            if self.is_cv_rnn:
+                v, cv_hidden = ts.cv(sx, cv_hidden)
+            else:
+                v = ts.cv(sx)
         if self.cfg.normalize_value:
             v = ts.value_norm.denormalize(v)
-        return mu, log_std, v
+        return mu, log_std, v, hidden, cv_hidden
 
     @torch.no_grad()
     def _rollout(self, ts: TrainState, noise: Optional[torch.Tensor] = None):
         """horizon_length control steps under the current policy. Returns
         the trajectory (T, N, ...), the bootstrap value of the final state
-        and the window's finished-episode sums; ts's env state and episode
-        counters move on."""
+        and the window's finished-episode sums; ts's env state, LSTM states
+        and episode counters move on. The recurrent trajectory also holds
+        the LSTM states at the start of each chunk of seq_len steps,
+        `hidden_h` / `hidden_c` (and `cv_hidden_*`), (T / seq_len, N, units):
+        what the BPTT replay starts from."""
         cfg = self.cfg
         es = ts.es
+        hidden, cv_hidden = ts.hidden, ts.cv_hidden
         ep_ret, ep_len, task_stats = ts.ep_ret, ts.ep_len, ts.task_stats
         fin_ret = torch.zeros((), device=self.device)
         fin_len = torch.zeros((), device=self.device)
         fin_cnt = torch.zeros((), device=self.device)
-        steps = []
+        steps, starts = [], []
         for t in range(cfg.horizon_length):
-            mu, log_std, value = self._policy(ts, es.obs, es.states)
+            if self.is_rnn and t % cfg.seq_len == 0:
+                starts.append((*hidden, *cv_hidden))
+            mu, log_std, value, hidden, cv_hidden = self._policy(
+                ts, es.obs, es.states, hidden, cv_hidden)
             eps = (noise[t] if noise is not None else torch.randn(
                 mu.shape, generator=self.generator, device=self.device))
             action = mu + torch.exp(log_std) * eps
@@ -268,9 +434,13 @@ class PPOTrainer:
             if cfg.value_bootstrap:
                 # rl_games: rewards += gamma * values * time_outs
                 shaped = shaped + cfg.gamma * value * es2.timeout.float()
+            d = es2.done
+            if self.is_rnn:
+                # an env whose episode ended starts the next from zeros
+                hidden = reset_where_done(hidden, d)
+                cv_hidden = reset_where_done(cv_hidden, d)
             ep_ret = ep_ret + raw_rew
             ep_len = ep_len + 1.0
-            d = es2.done
             fin_ret = fin_ret + torch.where(d, ep_ret, 0.0).sum()
             fin_len = fin_len + torch.where(d, ep_len, 0.0).sum()
             fin_cnt = fin_cnt + d.sum()
@@ -283,8 +453,14 @@ class PPOTrainer:
                 reward=shaped, done=d))
             es = es2
         traj = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
-        _, _, last_value = self._policy(ts, es.obs, es.states)
+        if starts:
+            for i, k in enumerate(HIDDEN_KEYS[:len(starts[0])]):
+                traj[k] = torch.stack([s[i] for s in starts])
+        # the bootstrap value, from the states after the last resets
+        _, _, last_value, _, _ = self._policy(ts, es.obs, es.states, hidden,
+                                              cv_hidden)
         ts.es, ts.ep_ret, ts.ep_len, ts.task_stats = es, ep_ret, ep_len, task_stats
+        ts.hidden, ts.cv_hidden = hidden, cv_hidden
         stats = dict(fin_ret=fin_ret, fin_len=fin_len, fin_cnt=fin_cnt)
         return traj, last_value, stats
 
@@ -320,10 +496,17 @@ class PPOTrainer:
         return (v_pred_n - target_n) ** 2
 
     def _loss(self, ts: TrainState, mb, advs_mean, advs_std):
-        """PPO loss over a minibatch: (total, aux)."""
+        """PPO loss over a minibatch: (total, aux). Recurrent: the fields
+        are (B, seq_len, ...) sequences, replayed through the LSTM from
+        their stored start states with the rollout's resets at mb["done"]."""
         cfg = self.cfg
         x = ts.obs_norm.normalize(mb["obs"]) if cfg.normalize_input else mb["obs"]
-        mu, log_std, v_pred_n = ts.ac(x)
+        if self.is_rnn:
+            mu, log_std, v_pred_n = ts.ac.seq(
+                x, (mb["hidden_h"], mb["hidden_c"]), mb["done"])
+            log_std = log_std.expand_as(mu)
+        else:
+            mu, log_std, v_pred_n = ts.ac(x)
         logp = gaussian_logprob(mu, log_std, mb["action"])
         ratio = torch.exp(logp - mb["logp"])
         adv = mb["adv"]
@@ -360,7 +543,11 @@ class PPOTrainer:
         cfg = self.cfg
         sx = (ts.states_norm.normalize(mb["states"]) if cfg.normalize_input
               else mb["states"])
-        v_pred_n = ts.cv(sx)
+        if self.is_cv_rnn:
+            v_pred_n = ts.cv.seq(sx, (mb["cv_hidden_h"], mb["cv_hidden_c"]),
+                                 mb["done"])
+        else:
+            v_pred_n = ts.cv(sx)
         return 0.5 * torch.mean(
             self._value_loss(v_pred_n, mb["value"], mb["ret"], ts))
 
@@ -372,14 +559,16 @@ class PPOTrainer:
     def _cv_update(self, ts: TrainState, dataset, num_slices: int,
                    perms: Optional[torch.Tensor] = None) -> torch.Tensor:
         """cv_mini_epochs x cv_minibatch SGD on the central value with its
-        own optimizer and a fixed cv_learning_rate. Returns the mean loss."""
+        own optimizer and a fixed cv_learning_rate (cv_minibatch_size counts
+        steps: cv_minibatch_size / seq_len sequences for the LSTM). Returns
+        the mean loss."""
         cfg = self.cfg
         lr = torch.tensor(float(cfg.cv_learning_rate), device=self.device)
-        mb_slices = min(cfg.cv_minibatch_size, num_slices)
-        while num_slices % mb_slices:
-            mb_slices -= 1
+        mb_slices = _divisor_at_most(
+            max(cfg.cv_minibatch_size // cfg.seq_len, 1) if self.is_cv_rnn
+            else cfg.cv_minibatch_size, num_slices)
         num_mb = num_slices // mb_slices
-        packed, unpack = _pack_dataset(dataset)
+        take = _minibatch_taker(dataset)
         if perms is None:
             perms = self._perms(cfg.cv_mini_epochs, num_slices)
         idxs = perms[:, :num_mb * mb_slices].reshape(
@@ -388,8 +577,7 @@ class PPOTrainer:
         losses = []
         for e in range(cfg.cv_mini_epochs):
             for b in range(num_mb):
-                mb = unpack(packed[idxs[e, b]])
-                loss = self._cv_loss(ts, mb)
+                loss = self._cv_loss(ts, take(idxs[e, b]))
                 grads = list(torch.autograd.grad(loss, params))
                 clip_adam_step(params, grads, ts.cv_opt_state, lr, cfg.grad_norm)
                 losses.append(torch.nan_to_num(loss.detach()))
@@ -410,7 +598,7 @@ class PPOTrainer:
         ("legacy": after every minibatch; "standard": once per mini-epoch on
         its mean KL). Returns the means of the losses and the KL."""
         cfg = self.cfg
-        packed, unpack = _pack_dataset(dataset)
+        take = _minibatch_taker(dataset)
         num_mb = num_slices // mb_slices
         if perms is None:
             perms = self._perms(cfg.mini_epochs, num_slices)
@@ -423,9 +611,12 @@ class PPOTrainer:
         for e in range(cfg.mini_epochs):
             kls = []
             for b in range(num_mb):
-                mb = unpack(packed[idxs[e, b]])
-                loss, aux = self._loss(ts, mb, advs_mean, advs_std)
-                grads = list(torch.autograd.grad(loss, params))
+                loss, aux = self._loss(ts, take(idxs[e, b]), advs_mean,
+                                       advs_std)
+                # with a central value and no auxiliary value loss the
+                # actor's value head takes no gradient: zeros, as in JAX
+                grads = list(torch.autograd.grad(loss, params, allow_unused=True,
+                                                 materialize_grads=True))
                 aux = {k: torch.nan_to_num(v.detach()) for k, v in aux.items()}
                 clip_adam_step(params, grads, ts.opt_state, lr, cfg.grad_norm)
                 if adaptive and cfg.schedule_type == "legacy":
@@ -437,6 +628,54 @@ class PPOTrainer:
                 lr = self._adapt_lr(lr, torch.stack(kls).mean())
         ts.lr = lr
         return {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
+
+    def _datasets(self, traj: dict):
+        """(actor dataset, central-value dataset or None, num_slices,
+        mb_slices) of a trajectory with its advantages and returns. FF: the
+        (T * N) transitions. Recurrent: (N * T / seq_len) sequences of
+        seq_len steps, env-major ((nch, seq, N) -> (N, nch, seq)), with the
+        per-step done and the LSTM states at each sequence's start; the
+        minibatch takes minibatch_size / seq_len sequences."""
+        cfg = self.cfg
+        T, N = cfg.horizon_length, self.env.num_envs
+        skip = {"reward", "done", "states", *HIDDEN_KEYS}
+        if self.is_rnn:
+            seq = cfg.seq_len
+            nch = T // seq
+
+            def to_slices(x):
+                x = x.reshape((nch, seq, N) + x.shape[2:]).movedim(2, 0)
+                return x.reshape((N * nch, seq) + x.shape[3:])
+
+            def hid_start(x):   # (nch, N, H) -> (N * nch, H)
+                return x.movedim(1, 0).reshape(N * nch, -1)
+        else:
+            def to_slices(x):
+                return x.reshape((T * N,) + x.shape[2:])
+        dataset = {k: to_slices(v) for k, v in traj.items() if k not in skip}
+        cv_dataset = None
+        if self.use_cv:
+            cv_dataset = {k: to_slices(traj[k]) for k in ("states", "value", "ret")}
+        if self.is_rnn:
+            # the replay resets the LSTM states where the rollout did
+            dataset["done"] = to_slices(traj["done"])
+            for k in ("hidden_h", "hidden_c"):
+                dataset[k] = hid_start(traj[k])
+            if self.is_cv_rnn:
+                cv_dataset["done"] = dataset["done"]
+                for k in ("cv_hidden_h", "cv_hidden_c"):
+                    cv_dataset[k] = hid_start(traj[k])
+        return (dataset, cv_dataset, *self._slices())
+
+    def _slices(self):
+        """(num_slices, mb_slices): the SGD dataset's rows (transitions, or
+        sequences of seq_len steps) and a minibatch's."""
+        cfg = self.cfg
+        steps = cfg.horizon_length * self.env.num_envs
+        if self.is_rnn:
+            return steps // cfg.seq_len, _divisor_at_most(
+                max(cfg.minibatch_size // cfg.seq_len, 1), steps // cfg.seq_len)
+        return steps, _divisor_at_most(cfg.minibatch_size, steps)
 
     # ------------------------------------------------------------------
     def _epoch(self, ts: TrainState, noise: Optional[torch.Tensor] = None,
@@ -461,19 +700,11 @@ class PPOTrainer:
         # ratio starts at exactly 1
         if cfg.normalize_value:
             ts.value_norm = ts.value_norm.update(returns)
-        T, N = cfg.horizon_length, self.env.num_envs
-        flat = lambda x: x.reshape((T * N,) + x.shape[2:])  # noqa: E731
-        skip = {"reward", "done", "states"}
-        dataset = {k: flat(v) for k, v in traj.items() if k not in skip}
-        num_slices = T * N
-        mb_slices = min(cfg.minibatch_size, num_slices)
-        while num_slices % mb_slices:
-            mb_slices -= 1
+        dataset, cv_dataset, num_slices, mb_slices = self._datasets(traj)
         advs_mean = advs.mean()
         advs_std = advs.std(correction=0)
         if self.use_cv:
             # central value first (rl_games train_epoch order), then actor
-            cv_dataset = {k: flat(traj[k]) for k in ("states", "value", "ret")}
             cv_loss = self._cv_update(ts, cv_dataset, num_slices, cv_perms)
         aux = self._update(ts, dataset, advs_mean, advs_std, num_slices,
                            mb_slices, perms)
@@ -518,36 +749,164 @@ class PPOTrainer:
         return metrics
 
     # ------------------------------------------------------------------
+    def _main_tree(self) -> dict:
+        """What `model.pt` holds: the networks, both Adam states (moments
+        under the parameters' names, and the count), the running norms,
+        the learning rate and the epoch."""
+        ts = self.state
+
+        def adam(net, st):
+            names = [k for k, _ in net.named_parameters()]
+            return dict(mu=dict(zip(names, st.mu)), nu=dict(zip(names, st.nu)),
+                        count=st.count)
+
+        tree = dict(ac=dict(ts.ac.named_parameters()),
+                    opt=adam(ts.ac, ts.opt_state), obs_norm=ts.obs_norm,
+                    value_norm=ts.value_norm, states_norm=ts.states_norm,
+                    lr=ts.lr, epoch=ts.epoch)
+        if self.use_cv:
+            tree["cv"] = dict(ts.cv.named_parameters())
+            tree["cv_opt"] = adam(ts.cv, ts.cv_opt_state)
+        return tree
+
+    def _env_state_tree(self) -> dict:
+        """What the sidecar `env.pt` holds besides the generators: the
+        per-env state a resume needs to continue its episodes (mid-episode
+        physics, the task's carry with its randomization draws, the LSTM
+        states, the episode counters and means, the task's statistics), and
+        the epoch it belongs to."""
+        ts = self.state
+        return dict(epoch=ts.epoch, es=ts.es, hidden=ts.hidden,
+                    cv_hidden=ts.cv_hidden, ep_ret=ts.ep_ret, ep_len=ts.ep_len,
+                    score_mean=ts.score_mean, len_mean=ts.len_mean,
+                    games=ts.games, task_stats=ts.task_stats)
+
+    def _generators(self) -> dict:
+        return {"trainer": self.generator, "env": self.env.generator}
+
+    def save(self, path: str):
+        """Write the checkpoint directory `path`: the sidecar first, then
+        the main file, each renamed into place, so a save cut short leaves
+        either the old pair or a sidecar whose epoch the old main file
+        does not share (which `load` ignores)."""
+        os.makedirs(path, exist_ok=True)
+        side = _flatten(self._env_state_tree())
+        side.update({f"rng.{k}": g.get_state()
+                     for k, g in self._generators().items()})
+        _save_atomic(side, os.path.join(path, ENV_FILE))
+        _save_atomic(_flatten(self._main_tree()), os.path.join(path, MAIN_FILE))
+
+    def load(self, path: str, log_fn=print):
+        """Resume from the checkpoint directory `path` (`checkpoint=` of the
+        CLIs), on this trainer's device whatever device wrote it. A main
+        file that does not fit this trainer raises CheckpointMismatch; the
+        sidecar is taken when it fits and shares the main file's epoch,
+        else the envs keep their fresh state."""
+        flat = torch.load(os.path.join(path, MAIN_FILE), map_location=self.device,
+                          weights_only=True)
+        tree = _restore_like(self._main_tree(), flat)
+        ts = self.state
+        with torch.no_grad():
+            for net, key, opt in ((ts.ac, "ac", "opt"), (ts.cv, "cv", "cv_opt")):
+                if net is None:
+                    continue
+                names = [k for k, _ in net.named_parameters()]
+                for k, p in net.named_parameters():
+                    p.copy_(tree[key][k])
+                st = AdamState(mu=[tree[opt]["mu"][k] for k in names],
+                               nu=[tree[opt]["nu"][k] for k in names],
+                               count=tree[opt]["count"])
+                if key == "ac":
+                    ts.opt_state = st
+                else:
+                    ts.cv_opt_state = st
+        for k in ("obs_norm", "value_norm", "states_norm", "lr", "epoch"):
+            setattr(ts, k, tree[k])
+        self._load_env_state(os.path.join(path, ENV_FILE), log_fn)
+
+    def _load_env_state(self, path: str, log_fn):
+        if not os.path.exists(path):
+            log_fn("no env-state sidecar: envs restart fresh")
+            return
+        flat = torch.load(path, map_location=self.device, weights_only=True)
+        if flat.get("epoch") != self.state.epoch:
+            log_fn(f"env-state sidecar ignored: it is of epoch {flat.get('epoch')}, "
+                   f"the checkpoint of epoch {self.state.epoch}; envs restart fresh")
+            return
+        rng = {k: flat.pop(f"rng.{k}", None) for k in self._generators()}
+        try:
+            tree = _restore_like(self._env_state_tree(), flat)
+        except CheckpointMismatch as e:
+            log_fn(f"env-state sidecar ignored ({e}); envs restart fresh")
+            return
+        for k, v in tree.items():
+            setattr(self.state, k, v)
+        kept = []
+        for k, g in self._generators().items():
+            st = rng[k]
+            if st is not None and st.shape == g.get_state().shape:
+                g.set_state(st.cpu())
+                kept.append(k)
+        log_fn(f"env state restored (episodes continue); random generators "
+               f"restored: {kept or 'none, saved on another device type'}")
+
+    # ------------------------------------------------------------------
     def train(
         self,
         max_epochs: Optional[int] = None,
         log_every: int = 10,
         log_fn=print,
         save_dir: Optional[str] = None,
+        save_frequency: int = 50,
+        save_best_after: int = 100,
         writer=None,
         profile_dir: Optional[str] = None,
         profile_epochs: int = 2,
         epochs_per_jit: int = 1,
         history_path: Optional[str] = None,
     ):
-        """The epoch loop. Each epoch's metrics come to the host in one
-        transfer. `profile_dir` traces `profile_epochs` epochs after the
-        first PROFILE_START with torch.profiler (one Chrome trace).
+        """The epoch loop, from the state's epoch (a loaded checkpoint's)
+        to max_epochs. Each epoch's metrics come to the host in one
+        transfer. `save_dir` takes the rl_games checkpoints: `last` at every
+        `save_frequency` epochs, `best` (with `best_meta.json`) when an
+        epoch from `save_best_after` on beats the best mean episode reward.
+        A resumed run keeps `history_path`'s rows before its epoch and the
+        best so far, from those rows and from `best_meta.json`.
+        `profile_dir` traces `profile_epochs` epochs after the first
+        PROFILE_START with torch.profiler (one Chrome trace).
         `epochs_per_jit` is accepted for the JAX CLI's sake and ignored:
         there is no compiled multi-epoch program here, every epoch is its
-        own loop of launches. `save_dir` (checkpoints) is not ported yet."""
+        own loop of launches."""
         del epochs_per_jit
-        if save_dir is not None:
-            raise NotImplementedError(
-                "checkpoints (save_dir) are not ported yet: ROADMAP A10")
         max_epochs = max_epochs or self.cfg.max_epochs
-        history = []
+        start_epoch = self.state.epoch
+        history, best_reward = [], -float("inf")
+        if start_epoch > 0 and history_path and os.path.exists(history_path):
+            try:
+                with open(history_path) as f:
+                    history = [m for m in json.load(f)
+                               if m.get("epoch", 0) < start_epoch]
+            except (json.JSONDecodeError, OSError):
+                history = []
+            best_reward = max([m["mean_ep_reward"] for m in history
+                               if m.get("epoch", 0) >= save_best_after
+                               and m.get("episodes", 1) > 0], default=best_reward)
+        if start_epoch > 0 and save_dir:
+            # the authoritative best so far: the epochs that were candidates
+            # are not all in history.json when log_every > 1
+            try:
+                with open(os.path.join(save_dir, "best_meta.json")) as f:
+                    best_reward = max(best_reward, float(json.load(f)["best_reward"]))
+            except (OSError, json.JSONDecodeError, KeyError, ValueError):
+                pass
+        if start_epoch > 0 and log_fn:
+            log_fn(f"resuming at epoch {start_epoch} ({len(history)} prior rows)")
         steps_per_epoch = self.cfg.horizon_length * self.env.num_envs
         sync = (torch.cuda.synchronize if self.device.type == "cuda"
                 else (lambda: None))
         prof = None
         t_log = time.time()
-        epoch = self.state.epoch
+        epoch = start_epoch
         while epoch < max_epochs:
             if profile_dir is not None and prof is None and epoch >= PROFILE_START:
                 sync()
@@ -589,5 +948,14 @@ class PPOTrainer:
             if history_path:
                 with open(history_path, "w") as f:
                     json.dump(history, f)
+            if save_dir:
+                if (epoch + 1) % save_frequency == 0:
+                    self.save(os.path.join(save_dir, "last"))
+                if (epoch >= save_best_after and m["episodes"] > 0
+                        and m["mean_ep_reward"] > best_reward):
+                    best_reward = m["mean_ep_reward"]
+                    self.save(os.path.join(save_dir, "best"))
+                    with open(os.path.join(save_dir, "best_meta.json"), "w") as f:
+                        json.dump({"best_reward": best_reward, "epoch": epoch}, f)
             epoch += 1
         return history

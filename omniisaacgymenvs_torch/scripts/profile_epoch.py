@@ -9,10 +9,12 @@ Builds the trainer as `scripts/train.py` does (the task's train yaml), runs
 every phase (wall ms per phase, host clock), then `epochs` more with each
 phase under its own torch.profiler window (device ms and kernel launches
 per phase). The phases, in `PPOTrainer._epoch`'s order: rollout (the
-policy, the task's step with K1 and K2, the episode counters), GAE, the
-value norm's update, the central value's SGD (where there is one), the
-actor's SGD, the obs and states norms' update; `other` is the rest of the
-epoch (the dataset's reshapes, the metrics). Prints a table per epoch
+policy, with the LSTMs' steps on the recurrent learner, the task's step
+with K1 and K2, the episode counters), GAE, the value norm's update, the
+central value's SGD (where there is one; BPTT over sequences with an LSTM
+central value), the actor's SGD (BPTT on the recurrent learner), the obs
+and states norms' update; `other` is the rest of the epoch (the dataset's
+reshapes into sequences, the metrics). Prints a table per epoch
 mean, the K1 / K2 launches per epoch from the kernel counters, the device
 busy share of the traced epochs, and the card's name and power limit; the
 last line is the table as JSON. Needs a CUDA card.
@@ -133,9 +135,14 @@ def main(argv=None) -> int:
         device_ms=busy - sum(r["device_ms"] for r in rows.values()),
         launches=total_launches - sum(r["launches"] for r in rows.values()))
     steps = ppo.horizon_length * env.num_envs
+    num_slices, mb_slices = trainer._slices()
+    rows_of = (f"sequences of {ppo.seq_len} steps (LSTM {ppo.rnn_units} units"
+               f"{', central value LSTM' if trainer.is_cv_rnn else ''})"
+               if trainer.is_rnn else "transitions")
     print(f"card: {card} | {cfg['task_name']} {env.num_envs} envs, horizon "
           f"{ppo.horizon_length}, {ppo.mini_epochs} mini-epochs of "
-          f"{steps // min(ppo.minibatch_size, steps)} minibatches, bf16 networks "
+          f"{num_slices // mb_slices} minibatches of {mb_slices} {rows_of}, "
+          f"central value {trainer.use_cv}, bf16 networks "
           f"{ppo.mixed_precision}; {epochs} epochs after {warmup}")
     print(f"{'phase':8s} {'wall ms':>10s} {'device ms':>10s} {'launches':>10s}")
     for name, r in rows.items():

@@ -2,15 +2,20 @@
 
     python -m omniisaacgymenvs_torch.scripts.train task=Humanoid seed=42 \
         [num_envs=4096] [max_iterations=1000] [experiment=NAME] [device=cpu] \
-        [profile=N] [train.params.config.horizon_length=32]
+        [checkpoint=runs/Humanoid/nn/last] [test=True] [profile=N] \
+        [train.params.config.horizon_length=32]
 
 Any nested config key can be overridden with dotted syntax. Writes
 runs/<experiment>/ (experiment defaults to the task's name): config.json,
-history.json (every epoch's metrics), summaries/ (TensorBoard, or a JSONL
-file where TensorBoard does not import) and, with profile=N, trace/ (a
-torch.profiler trace of N epochs after three). Runs on CUDA unless
-device=cpu is given. Checkpoints are not ported yet (ROADMAP A10), so
-`checkpoint=` and `test=True` exit with an error.
+history.json (every epoch's metrics), nn/ (checkpoints: `last` every
+`save_frequency` epochs, `best` after `save_best_after`, as the train yaml
+sets them), summaries/ (TensorBoard, or a JSONL file where TensorBoard does
+not import) and, with profile=N, trace/ (a torch.profiler trace of N epochs
+after three). `checkpoint=` (a local directory or an http(s) archive, see
+utils/paths.py) resumes training at the checkpoint's epoch; with
+`test=True` it is evaluated instead: the mean action over one episode
+length (or `max_iterations` steps), printing the mean episode reward. Runs
+on CUDA unless device=cpu is given.
 """
 
 from __future__ import annotations
@@ -20,42 +25,100 @@ import os
 import sys
 import time
 
+import torch
+
 from omniisaacgymenvs_torch.learn import PPOConfig, PPOTrainer
+from omniisaacgymenvs_torch.learn.ppo import reset_where_done
 from omniisaacgymenvs_torch.scripts.common import build_env_from_cli
-from omniisaacgymenvs_torch.utils.config import parse_cli, ppo_config_kwargs
+from omniisaacgymenvs_torch.utils.config import ppo_config_kwargs
 from omniisaacgymenvs_torch.utils.metrics import make_writer, maybe_init_wandb
+from omniisaacgymenvs_torch.utils.paths import retrieve_checkpoint_path
 
 
-def main(argv=None):
-    argv = sys.argv[1:] if argv is None else argv
-    # refuse what is not ported before building anything
-    wanted = parse_cli(argv)
-    if wanted.get("checkpoint") or wanted.get("test"):
-        raise SystemExit(
-            "checkpoint= and test=True need checkpoints, which are not ported "
-            "yet (ROADMAP A10)")
+@torch.no_grad()
+def evaluate(trainer: PPOTrainer, steps: int = 1000, log_fn=print):
+    """The deterministic (mean-action, clipped to [-1, 1]) policy on freshly
+    reset envs for `steps` control steps, the LSTM states carried from the
+    trainer's and zeroed where an episode ends. Returns (mean reward of the
+    finished episodes, their count); with none finished, the mean running
+    reward and 0. Prints the task's statistics."""
+    env, ts = trainer.env, trainer.state
+    es = env.reset(seed=123)
+    hidden, cv_hidden = ts.hidden, ts.cv_hidden
+    ep_ret = torch.zeros(env.num_envs, device=trainer.device)
+    total = torch.zeros_like(ep_ret)
+    count = torch.zeros_like(ep_ret)
+    stats = env.task.episode_stats_init()
+    for _ in range(steps):
+        mu, _, _, hidden, cv_hidden = trainer._policy(ts, es.obs, es.states,
+                                                      hidden, cv_hidden)
+        es = env.step(es, mu.clamp(-1.0, 1.0))
+        if trainer.is_rnn:
+            hidden = reset_where_done(hidden, es.done)
+            cv_hidden = reset_where_done(cv_hidden, es.done)
+        ep_ret = ep_ret + es.reward
+        total = total + torch.where(es.done, ep_ret, 0.0)
+        count = count + es.done
+        ep_ret = torch.where(es.done, 0.0, ep_ret)
+        stats = env.task.episode_stats_update(stats, es)
+    for k, v in stats.items():
+        log_fn(f"eval: {k} = {float(v):.2f}")
+    n = float(count.sum())
+    if n == 0:
+        return float(ep_ret.mean()), 0
+    return float(total.sum()) / n, int(n)
+
+
+def build_trainer(argv):
+    """(cfg, task, trainer) of the CLI's arguments, the trainer loaded from
+    `checkpoint=` where one is given."""
     cfg, task, env = build_env_from_cli(argv)
     kw = ppo_config_kwargs(cfg["train"])
     if cfg.get("max_iterations"):
         kw["max_epochs"] = int(cfg["max_iterations"])
     trainer = PPOTrainer(env, PPOConfig(**kw), seed=int(cfg["seed"]))
+    if cfg.get("checkpoint"):
+        trainer.load(retrieve_checkpoint_path(cfg["checkpoint"]))
+        print(f"loaded checkpoint {cfg['checkpoint']} (epoch {trainer.state.epoch})",
+              flush=True)
+    return cfg, task, trainer
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    cfg, task, trainer = build_trainer(argv)
+    env = trainer.env
+    if cfg.get("test"):
+        # one whole episode of the task (and the reset step), unless
+        # max_iterations says otherwise
+        steps = int(cfg.get("max_iterations")
+                    or getattr(task, "max_episode_length", 1000) + 1)
+        mean_ret, n = evaluate(trainer, steps=steps)
+        print(f"eval: mean episode reward {mean_ret:.2f} over {n} episodes "
+              f"({steps} steps)", flush=True)
+        return mean_ret, n
 
     experiment = cfg.get("experiment") or cfg["task_name"]
     run_dir = os.path.join("runs", experiment)
-    os.makedirs(run_dir, exist_ok=True)
+    os.makedirs(os.path.join(run_dir, "nn"), exist_ok=True)
     with open(os.path.join(run_dir, "config.json"), "w") as f:
         json.dump(cfg, f, indent=2, default=str)
+    train_c = cfg["train"].get("params", {}).get("config", {})
     writer = make_writer(os.path.join(run_dir, "summaries"))
     wandb_run = maybe_init_wandb(cfg)
     print(f"task={cfg['task_name']} num_envs={env.num_envs} "
           f"device={env.device} seed={cfg['seed']}", flush=True)
     profile_epochs = int(cfg.get("profile", 0) or 0)
+    start = trainer.state.epoch
     history = []
     t0 = time.perf_counter()
     try:
         history = trainer.train(
             log_every=1,
             log_fn=lambda s: print(s, flush=True),
+            save_dir=os.path.join(run_dir, "nn"),
+            save_frequency=int(train_c.get("save_frequency", 50)),
+            save_best_after=int(train_c.get("save_best_after", 100)),
             writer=writer,
             profile_dir=(os.path.join(run_dir, "trace")
                          if profile_epochs else None),
@@ -70,9 +133,11 @@ def main(argv=None):
             with open(os.path.join(run_dir, "history.json"), "w") as f:
                 json.dump(history, f)
     wall = time.perf_counter() - t0
-    steps = history[-1]["env_steps"] if history else 0
-    print(f"trained {len(history)} epochs, {steps} env-steps in {wall:.1f} s: "
-          f"{steps / wall:,.1f} train-steps/s", flush=True)
+    epochs = trainer.state.epoch - start
+    steps = epochs * trainer.cfg.horizon_length * env.num_envs
+    print(f"trained {epochs} epochs ({start} to {trainer.state.epoch}), {steps} "
+          f"env-steps in {wall:.1f} s: {steps / wall:,.1f} train-steps/s",
+          flush=True)
     return history
 
 

@@ -3,8 +3,9 @@ report FK, K3 single substep) against its plain version on the card, on
 the Humanoid, BallBalance, ShadowHand, Anymal and the synthetic pair scene,
 K1 and K3 on AnymalTerrain's contact planes, K1 and K3 under a
 domain-randomization overlay (all four kernel variants), the engine's
-launches with and without the plane refresh, and its refusal of scenes
-beyond the kernels' maxima.
+launches with and without the plane refresh, its refusal of scenes
+beyond the kernels' maxima, and the learner's checkpoints across devices
+(saved on the card and loaded on the CPU, and back, FF and LSTM).
 They skip without a CUDA device. This file imports no JAX, so it also runs
 where JAX is not installed:
 
@@ -14,6 +15,9 @@ where JAX is not installed:
 import pytest
 import torch
 
+from omniisaacgymenvs_torch.envs import VecEnv
+from omniisaacgymenvs_torch.learn import PPOConfig, PPOTrainer
+from omniisaacgymenvs_torch.learn.ppo import _flatten
 from omniisaacgymenvs_torch.models import build_humanoid
 from omniisaacgymenvs_torch.ops import fused_step as fs
 from omniisaacgymenvs_torch.ops import parity
@@ -409,3 +413,46 @@ def test_thread_form_matches_plain_on_card(variant, cuda_device):
                 if "overlay" in kw else None)
         parity.assert_within(f"{variant} {label} thread form",
                              parity.compare(out, ref, names, t, keep), t)
+
+
+def _cartpole_trainer(device, rnn):
+    cfg = PPOConfig(horizon_length=8, minibatch_size=128, mini_epochs=2,
+                    units=(16,), rnn=rnn, rnn_units=16, seq_len=4)
+    return PPOTrainer(VecEnv(get_task("Cartpole", device=device), 64, seed=0),
+                      cfg, seed=0)
+
+
+def _checkpoint_leaves(tr):
+    return _flatten({"main": tr._main_tree(), "env": tr._env_state_tree()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rnn", [None, "lstm"])
+def test_checkpoint_saved_on_card_loads_on_cpu_and_back(rnn, tmp_path, cuda_device):
+    """A checkpoint written on the card loads on the CPU with every leaf
+    bitwise equal (the generators, of another device type, are left as
+    they were), trains on there, and its checkpoint loads on the card."""
+    card = _cartpole_trainer(cuda_device, rnn)
+    card.train(max_epochs=2, log_fn=None)
+    card.save(str(tmp_path / "card"))
+    cpu, msgs = _cartpole_trainer("cpu", rnn), []
+    cpu.load(str(tmp_path / "card"), log_fn=msgs.append)
+    assert "another device type" in msgs[-1], msgs
+    want = _checkpoint_leaves(card)
+    got = _checkpoint_leaves(cpu)
+    assert sorted(got) == sorted(want)
+    for k, v in got.items():
+        if isinstance(v, torch.Tensor):
+            assert v.device.type == "cpu" and torch.equal(v, want[k].cpu()), k
+        else:
+            assert v == want[k], k
+    cpu.train(max_epochs=3, log_fn=None)
+    cpu.save(str(tmp_path / "cpu"))
+    back = _cartpole_trainer(cuda_device, rnn)
+    back.load(str(tmp_path / "cpu"), log_fn=lambda s: None)
+    assert back.state.epoch == 3
+    want = _checkpoint_leaves(cpu)
+    for k, v in _checkpoint_leaves(back).items():
+        ref = want[k]
+        if isinstance(v, torch.Tensor):
+            assert v.device.type == "cuda" and torch.equal(v.cpu(), ref), k

@@ -40,6 +40,15 @@ def test_no_jax_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_scan_covers_the_checkpoint_modules():
+    """The port's own copy of utils/paths.py and its play script are
+    scanned like every other module (the JAX package's utils/paths.py
+    imports no JAX, but the port keeps its own)."""
+    for rel in ("utils/paths.py", "scripts/play.py", "scripts/train.py",
+                "learn/ppo.py", "learn/networks.py"):
+        assert ROOT / "omniisaacgymenvs_torch" / rel in PORT_FILES, rel
+
+
 def test_port_imports_without_jax():
     mods = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(

@@ -426,10 +426,3 @@ def test_epoch_matches_jax_epoch():
                         n_updates)
     np.testing.assert_allclose(np_(tr.state.es.obs), np.asarray(jts.es.obs), **TRAJ)
 
-
-def test_recurrent_and_checkpoints_are_refused():
-    with pytest.raises(NotImplementedError, match="A15"):
-        PPOTrainer(StubEnv(4, 3, 0, 1), PPOConfig(rnn="lstm"))
-    tr = PPOTrainer(StubEnv(4, 3, 0, 1), PPOConfig())
-    with pytest.raises(NotImplementedError, match="A10"):
-        tr.train(max_epochs=1, save_dir="x")

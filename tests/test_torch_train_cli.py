@@ -1,7 +1,9 @@
 """The learner's entry points on the CPU: scripts/train.py (Cartpole, 64
 envs, a few epochs: finite history.json and config.json under
-runs/<experiment>/), its refusal of checkpoint= and test=True (not ported
-yet), bench_torch.py at a few envs (bench.py's JSON keys and the train
+runs/<experiment>/, checkpoints under nn/, `checkpoint=` resuming at the
+saved epoch, `test=True` evaluating), `evaluate` against a step loop of the
+port (with the LSTM states reset where episodes end), scripts/play.py's
+recording, bench_torch.py at a few envs (bench.py's JSON keys and the train
 keys), VecEnv.step_rl and the metrics writers."""
 
 import json
@@ -11,11 +13,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from omniisaacgymenvs_torch.envs import VecEnv
-from omniisaacgymenvs_torch.scripts import train
+from omniisaacgymenvs_torch.learn import PPOConfig, PPOTrainer
+from omniisaacgymenvs_torch.learn.ppo import MAIN_FILE
+from omniisaacgymenvs_torch.scripts import play, train
 from omniisaacgymenvs_torch.tasks import get_task
 from omniisaacgymenvs_torch.utils import metrics
 
@@ -41,12 +46,105 @@ def test_train_cartpole_on_cpu(tmp_path, monkeypatch):
     assert (run / "summaries").is_dir()
 
 
-@pytest.mark.parametrize("arg", ["checkpoint=runs/x/nn/last", "test=True"])
-def test_train_refuses_what_is_not_ported(arg, tmp_path, monkeypatch):
+CLI = ["task=Cartpole", "num_envs=64", "device=cpu", "seed=1",
+       "train.params.config.save_frequency=2", "train.params.config.save_best_after=1"]
+
+
+def test_train_writes_last_and_best(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match="A10"):
-        train.main(["task=Cartpole", "num_envs=8", "device=cpu", arg])
-    assert not (tmp_path / "runs").exists()
+    train.main(CLI + ["max_iterations=3", "experiment=ck"])
+    nn = tmp_path / "runs" / "ck" / "nn"
+    assert sorted(os.listdir(nn)) == ["best", "best_meta.json", "last"]
+    for d in ("last", "best"):
+        assert sorted(os.listdir(nn / d)) == ["env.pt", "model.pt"]
+    assert torch.load(nn / "last" / MAIN_FILE, weights_only=True)["epoch"] == 2
+    assert json.loads((nn / "best_meta.json").read_text())["epoch"] >= 1
+
+
+def test_checkpoint_resumes_at_the_saved_epoch(tmp_path, monkeypatch, capsys):
+    """A run killed after its save at epoch 2 (history up to epoch 2) and
+    resumed from nn/last: history.json holds epochs 0-4 once each."""
+    monkeypatch.chdir(tmp_path)
+    train.main(CLI + ["max_iterations=3", "experiment=ck"])
+    capsys.readouterr()
+    hist = train.main(CLI + ["max_iterations=5", "experiment=ck",
+                             "checkpoint=runs/ck/nn/last"])
+    out = capsys.readouterr().out
+    assert "loaded checkpoint runs/ck/nn/last (epoch 2)" in out
+    assert "resuming at epoch 2 (2 prior rows)" in out
+    assert "trained 3 epochs (2 to 5)" in out
+    rows = json.loads((tmp_path / "runs" / "ck" / "history.json").read_text())
+    assert [r["epoch"] for r in rows] == [h["epoch"] for h in hist] == [0, 1, 2, 3, 4]
+    assert torch.load(tmp_path / "runs" / "ck" / "nn" / "last" / MAIN_FILE,
+                      weights_only=True)["epoch"] == 4
+
+
+def test_test_mode_prints_the_eval_line(tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    train.main(CLI + ["max_iterations=2", "experiment=ck"])
+    capsys.readouterr()
+    mean_ret, n = train.main(CLI + ["test=True", "checkpoint=runs/ck/nn/last"])
+    out = capsys.readouterr().out
+    # one episode length and the reset step: every env ends an episode
+    assert f"eval: mean episode reward {mean_ret:.2f} over {n} episodes (501 steps)" in out
+    assert n >= 64 and math.isfinite(mean_ret)
+
+
+def test_play_records_the_jax_keys(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    train.main(CLI + ["max_iterations=2", "experiment=ck"])
+    out = play.main(["task=Cartpole", "num_envs=8", "device=cpu",
+                     "checkpoint=runs/ck/nn/last", "record=traj.npz",
+                     "max_iterations=12"])
+    assert out == "traj.npz"
+    rec = np.load(tmp_path / "traj.npz")
+    assert sorted(rec.files) == sorted(["q", "body_pos", "parents", "rewards", "task",
+                                        "body_names", "dof_names"])
+    assert rec["q"].shape == (12, 2) and rec["body_pos"].shape == (12, 3, 3)
+    assert rec["rewards"].shape == (12,) and str(rec["task"]) == "Cartpole"
+    assert list(rec["parents"]) == [-1, 0, 1] and len(rec["dof_names"]) == 2
+    assert np.isfinite(rec["q"]).all()
+
+
+@pytest.mark.parametrize("rnn", [None, "lstm"])
+def test_evaluate_equals_a_step_loop(rnn):
+    """`evaluate` against the port's own loop: a fresh reset of seed 123,
+    the mean action clipped, the LSTM states zeroed where an episode ends;
+    episodes of 5 steps end inside the 12."""
+    def trainer():
+        task = get_task("Cartpole", device="cpu")
+        task.max_episode_length = 5
+        return PPOTrainer(VecEnv(task, 16, seed=0),
+                          PPOConfig(units=(16,), rnn=rnn, rnn_units=8), seed=0)
+
+    tr = trainer()
+    if rnn:
+        tr.state.hidden = tuple(0.5 * torch.ones(16, 8) for _ in range(2))
+    mean_ret, n = train.evaluate(tr, steps=12, log_fn=lambda s: None)
+
+    ref = trainer()
+    ts, env = ref.state, ref.env
+    es = env.reset(seed=123)
+    h = tuple(0.5 * torch.ones(16, 8) for _ in range(2)) if rnn else ()
+    ep_ret, finished, count, zeroed = torch.zeros(16), [], 0, 0
+    for _ in range(12):
+        x = ts.obs_norm.normalize(es.obs)
+        if rnn:
+            mu, _, _, h = ts.ac(x, h)
+        else:
+            mu, _, _ = ts.ac(x)
+        es = env.step(es, torch.clamp(mu, -1.0, 1.0))
+        if rnn:
+            h = tuple(x * (~es.done[:, None]) for x in h)
+            zeroed += int(es.done.sum())
+        ep_ret += es.reward
+        finished += ep_ret[es.done].tolist()
+        count += int(es.done.sum())
+        ep_ret[es.done] = 0.0
+    assert count == n and count >= 16
+    np.testing.assert_allclose(mean_ret, sum(finished) / count, rtol=1e-6)
+    if rnn:
+        assert zeroed > 0
 
 
 def _bench(extra_env, timeout=600):

@@ -30,6 +30,26 @@ def to_numpy_tree(v):
     return v
 
 
+def lstm_named_arrays(tree, n_mlp: int, actor: bool = True) -> dict:
+    """A flax LSTMActorCritic (actor) or LSTMCentralValue tree, parameters
+    or their gradients, as {port parameter name: numpy array in the port's
+    layout} (flax kernels (in, out), torch weights (out, in))."""
+    p = tree["params"] if "params" in tree else tree
+    out = {"lstm.wx.weight": p["lstm"]["wx"]["kernel"].T,
+           "lstm.wh.weight": p["lstm"]["wh"]["kernel"].T,
+           "lstm.wh.bias": p["lstm"]["wh"]["bias"],
+           "ln.weight": p["ln"]["scale"], "ln.bias": p["ln"]["bias"]}
+    for i in range(n_mlp):
+        out[f"mlp_{i}.weight"] = p[f"mlp_{i}"]["kernel"].T
+        out[f"mlp_{i}.bias"] = p[f"mlp_{i}"]["bias"]
+    for name in (("mu", "value") if actor else ("value",)):
+        out[f"{name}.weight"] = p[name]["kernel"].T
+        out[f"{name}.bias"] = p[name]["bias"]
+    if actor:
+        out["log_std"] = p["log_std"]
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
 def np_(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
