@@ -107,6 +107,26 @@ CHECK_PROFILES = {
     "PairScene": dict(root_pos=0.005, root_rot=0.2, drop=0.02, effort=1.0,
                       anchors=((0.0, 0.0, 0.575), (0.5, 0.0, 0.755),
                                (-0.6, 0.0, 0.705), (0.0, 0.7, 0.705))),
+    # every other env holds the drawer's handle bar between the finger
+    # pads: the arm's angles put the grasp frame on the bar's axis, gripper
+    # forward along the drawer's inward axis and its up along world z (a
+    # damped least-squares solve of the plain FK), the fingers closed to
+    # 18 mm, so the pads sit up to 4 mm deep in the bar (well off its
+    # axis); the props dropped 6-12 mm onto the drawer's tray, less than
+    # its half thickness of 1 cm
+    "FrankaCabinet": dict(joint=0.002, root_pos=0.003, root_rot=0.02,
+                          drop_min=0.006, drop=0.012,
+                          curl={"panda_joint1": 1.914, "panda_joint2": -1.3624,
+                                "panda_joint3": -0.9355, "panda_joint4": -1.8869,
+                                "panda_joint5": -2.2875, "panda_joint6": 2.188,
+                                "panda_joint7": -0.6408,
+                                "panda_finger_joint1": 0.018,
+                                "panda_finger_joint2": 0.018}),
+    # the cube 4.5 mm above the tilted palm at default_q, tilted by some 15
+    # degrees and lowered by up to 1 cm onto it, less than the palm's half
+    # thickness of 1.5 cm; efforts within the fingers' cap of 0.7
+    "AllegroHand": dict(joint=0.1, root_pos=0.002, root_rot=0.15, drop=0.01,
+                        effort=0.5, target=0.3),
 }
 
 
@@ -260,7 +280,10 @@ def overlay_inputs(model, n: int, seed: int, device) -> dict:
 # a 5 cm coordinate
 TIE_MARGIN = 1e-5
 # a state too close to a tie has its FREE roots moved by this much (m): a
-# direction that is no box's axis, so the two face distances part
+# direction that is no box's axis, so the two face distances part; the
+# nudges after the first take its components in turn (the AllegroHand's
+# rotated cube can hold a point whose two face distances this direction
+# moves alike)
 TIE_NUDGE = (5e-5, 1.15e-4, 3e-5)
 
 
@@ -269,7 +292,8 @@ def clear_box_ties(engine, q: torch.Tensor, qd: torch.Tensor,
     """`q` with the envs moved off the ties of two box faces: where a contact
     point inside a box surface (under the overlay's `geom_scale`) lies
     within TIE_MARGIN of having two nearest faces, every FREE root of that
-    env is moved by TIE_NUDGE, up to eight times. On such a tie the contact
+    env is moved by TIE_NUDGE (its components rolled by one more place at
+    each try), up to eight times. On such a tie the contact
     normal is discontinuous: kernel and plain version, which round the
     point's box coordinates differently, would push it out through
     different faces. A model without box pairs comes back as it is."""
@@ -279,9 +303,9 @@ def clear_box_ties(engine, q: torch.Tensor, qd: torch.Tensor,
     if not len(engine.pair_groups.box["pt"]):
         return q
     gs = (overlay or {}).get("geom_scale")
-    nudge = q.new_tensor(TIE_NUDGE)
     q = q.clone()
-    for _ in range(8):
+    for k in range(8):
+        nudge = q.new_tensor(np.roll(TIE_NUDGE, k))
         kin = dynamics.kinematics(m, q, qd)
         near = contacts.box_face_ties(m, engine.pair_groups, kin.pw, kin.Rw,
                                       gs) < TIE_MARGIN
@@ -455,6 +479,30 @@ def cond_nudge(x: torch.Tensor, direction: str) -> torch.Tensor:
         1000 + int(direction[1:]) + x.shape[1])
     sign = torch.randint(0, 2, x.shape, generator=g, device=x.device) * 2 - 1
     return x + step * sign
+
+
+# The AllegroHand at its yaml's 16 substeps per K1 launch (a 71 g cube on a
+# tilted palm, twice the ShadowHand's depth) is ill conditioned in some envs
+# with no overlay at all. Over all 8229 envs of its check states the sound
+# kernel (both forms alike) read 4.35 of the limits on body_avel
+# (chip_smoke.py); on seeds 0-3 the plain step of 108-142 envs (1.3-1.7%)
+# moved by more than COND_SHARE of the limits under a COND_EPS change of the
+# state, the largest gap (1.32) was in such an env, and the envs kept read at
+# most 0.81 (tools/conditioning_probe.py task=AllegroHand, PERF.md Findings),
+# while a dropped substep, a dropped pair or a box 1 mm larger read 5766 and
+# more (scripts/tolerance_controls.py task=AllegroHand). Its K1 checks judge
+# the well-conditioned envs, as the overlay checks do, and fail if more than
+# this share of the envs falls out.
+COND_MAX_EXCLUDED_BY_MODEL = {"AllegroHand": 0.02}
+
+
+def check_keep(model, run_plain, q, qd, refs, names, tol):
+    """The envs an unrandomized K1 check judges: all (None), or on a model of
+    COND_MAX_EXCLUDED_BY_MODEL `well_conditioned`'s at the model's share."""
+    cap = COND_MAX_EXCLUDED_BY_MODEL.get(model.name)
+    if cap is None:
+        return None
+    return well_conditioned(run_plain, q, qd, refs, names, tol, max_excluded=cap)
 
 
 def well_conditioned(run_plain, q, qd, refs, names, tol,

@@ -319,6 +319,11 @@ class ModelBuilder:
                  not receive)
             )
 
+    def add_contact_point(self, body: int, pos, radius: float = 0.0,
+                          friction: float = 1.0):
+        """A bare contact point (a finger pad), with no surface."""
+        self._cp.append((body, np.asarray(pos, dtype=np.float64), radius, friction))
+
     def add_force_sensor(self, body: int):
         """Register a contact wrench sensor on `body`."""
         self._sensors.append(body)

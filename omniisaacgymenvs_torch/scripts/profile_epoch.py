@@ -34,7 +34,7 @@ from torch.profiler import ProfilerActivity, profile
 from omniisaacgymenvs_torch.learn import PPOConfig, PPOTrainer
 from omniisaacgymenvs_torch.learn import running_norm
 from omniisaacgymenvs_torch.scripts.common import build_env_from_cli
-from omniisaacgymenvs_torch.scripts.profile_rollout import _device_us
+from omniisaacgymenvs_torch.scripts.profile_rollout import _device_us, settle
 from omniisaacgymenvs_torch.utils.config import ppo_config_kwargs
 
 PHASES = ("rollout", "gae", "norms", "cv_sgd", "sgd", "other")
@@ -63,8 +63,9 @@ class _PhaseClock:
                 self.wall[name] += (time.perf_counter() - t0) * 1e3
                 return out
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                settle()
                 out = fn(*a, **kw)
-                torch.cuda.synchronize()
+                settle()
             for e in prof.key_averages():
                 if e.device_type == torch.autograd.DeviceType.CUDA:
                     self.device[name] += _device_us(e) / 1e3
@@ -115,10 +116,12 @@ def main(argv=None) -> int:
         # the whole epoch under one profiler: device busy and all launches
         clock.mode = None
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            settle()
             t1 = time.perf_counter()
             trainer._epoch(trainer.state)
             torch.cuda.synchronize()
             traced_wall = (time.perf_counter() - t1) * 1e3
+            settle()
         kernels = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(_device_us(e) for e in kernels) / 1e3

@@ -43,14 +43,28 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+# A trace whose launches started as it started lost up to 11 of 20 kernel
+# records; one that waited this long on an idle card first kept them all
+# (NVIDIA H100 80GB HBM3, chip_smoke.py). A trace waits so at both ends.
+SETTLE_S = 0.1
+
+
+def settle(seconds: float = SETTLE_S) -> None:
+    """Wait for the card, then `seconds` more: at each end of a trace."""
+    torch.cuda.synchronize()
+    time.sleep(seconds)
+
+
 def _trace(fn, reps: int):
     """(wall us, kernel events) of `reps` calls of fn under the profiler."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        settle()
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        settle()
     return wall_us, [e for e in prof.key_averages()
                      if e.device_type == torch.autograd.DeviceType.CUDA]
 

@@ -7,8 +7,9 @@ learning in the loop, and print reward statistics and throughput.
 Tasks: Humanoid, Ant, Cartpole, BallBalance, ShadowHand, Anymal,
 AnymalTerrain, ShadowHandOpenAI_FF and ShadowHandOpenAI_LSTM (the hand under
 its yaml's domain randomization; ShadowHand takes
-`task.domain_randomization.randomize=True`). Runs on CUDA unless
-`device=cpu` is given.
+`task.domain_randomization.randomize=True`), FrankaCabinet, AllegroHand,
+Ingenuity, Quadcopter and Crazyflie: every reference task but Custom. Runs
+on CUDA unless `device=cpu` is given.
 """
 
 from __future__ import annotations

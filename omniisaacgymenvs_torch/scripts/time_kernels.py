@@ -67,23 +67,50 @@ OPCODES = ("LDS", "STS", "LD", "ST", "LDG", "STG", "LDL", "STL", "WARPSYNC",
            "BAR", "FFMA", "FMUL", "FADD", "IMAD", "BRA")
 
 
-def kernel_device_ms(fn, reps: int = 20) -> float:
+# the wait at each end of kernel_device_ms's trace (`profile_rollout.settle`):
+# four times longer after a trace that lost a launch, for the process's life
+TRACE_PAD_S = [0.1]
+# small kernels launched at each end of that trace: late in a long process
+# its traces held 16-18 of 20 launches whatever the wait (chip_smoke.py)
+TRACE_FILLER = 32
+
+
+def _filler() -> None:
+    x = torch.zeros(1, device=DEV)
+    for _ in range(TRACE_FILLER):
+        x.add_(1.0)
+
+
+def kernel_device_ms(fn, reps: int = 20, tries: int = 3) -> float:
     """Device time per launch of the port's kernels (`step_kernel`,
-    `fk_kernel`) over `reps` calls of fn, from the profiler's trace: the
-    kernel alone, where the CUDA-event time of a small launch can be the
-    host's time per call."""
-    from omniisaacgymenvs_torch.scripts.profile_rollout import _device_us
+    `fk_kernel`) over `reps` calls of fn, each of which launches one, from
+    the profiler's trace: the kernel alone, where the CUDA-event time of a
+    small launch can be the host's time per call. Traces again with a longer
+    wait at its ends while the trace lacks a launch, and raises after
+    `tries` or if it holds more launches than fn made."""
+    from omniisaacgymenvs_torch.scripts.profile_rollout import _device_us, settle
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in prof.key_averages()
-             if "step_kernel" in e.key or "fk_kernel" in e.key)
-    return us / reps / 1e3
+    held = []
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            settle(TRACE_PAD_S[0])
+            _filler()
+            for _ in range(reps):
+                fn()
+            _filler()
+            settle(TRACE_PAD_S[0])
+        ours = [e for e in prof.key_averages()
+                if "step_kernel" in e.key or "fk_kernel" in e.key]
+        held.append(sum(e.count for e in ours))
+        if held[-1] == reps:
+            return sum(_device_us(e) for e in ours) / reps / 1e3
+        if held[-1] > reps:
+            break
+        TRACE_PAD_S[0] *= 4
+    raise RuntimeError(f"the profiler's traces held {held} of {reps} launches")
 
 
 def sass_counts(path) -> dict:

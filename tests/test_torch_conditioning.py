@@ -5,7 +5,8 @@ part, as a light cube in stick-slip contact does. The one direction the test
 took before keeps such an env; the six directions of `parity.COND_DIRECTIONS`
 leave it out (where one of the four random sign patterns parts the two
 coordinates: each does so with probability 1/2), and the cap of 1% left out
-still holds."""
+still holds. `parity.check_keep` applies the test to the AllegroHand's
+unrandomized checks (a cap of 2%), and judges every env of other models."""
 
 import torch
 
@@ -83,6 +84,28 @@ def test_cap_of_one_percent_still_holds():
     assert (~keep).nonzero().flatten().tolist() == chattering
 
 
+def test_check_keep_by_model():
+    """A model outside COND_MAX_EXCLUDED_BY_MODEL: every env is judged. The
+    AllegroHand's checks take its own 2% cap."""
+    from types import SimpleNamespace
+
+    chattering = [3, 7, 120]           # 1.5% of the envs
+    q, qd = _states(chattering)
+    run = _chattering_plain(chattering)
+    ref = run(q, qd)
+    hand = SimpleNamespace(name="ShadowHand")
+    allegro = SimpleNamespace(name="AllegroHand")
+    assert parity.check_keep(hand, run, q, qd, ref, NAMES, TOL) is None
+    keep = parity.check_keep(allegro, run, q, qd, ref, NAMES, TOL)
+    assert (~keep).nonzero().flatten().tolist() == chattering
+    assert parity.COND_MAX_EXCLUDED_BY_MODEL["AllegroHand"] == 0.02
+    more = list(range(0, 10))        # 5%: over the AllegroHand's cap too
+    q, qd = _states(more)
+    run = _chattering_plain(more)
+    with pytest.raises(AssertionError, match="ill conditioned"):
+        parity.check_keep(allegro, run, q, qd, run(q, qd), NAMES, TOL)
+
+
 def test_conditioning_probe_dry_run_on_cpu(tmp_path, capsys):
     """tools/conditioning_probe.py at a tiny size with device=cpu (the
     plain version on both sides, so every gap reads 0): the criteria lines
@@ -107,3 +130,24 @@ def test_conditioning_probe_dry_run_on_cpu(tmp_path, capsys):
     assert (rows["all six (well_conditioned)"]["left_out"]
             >= rows["+ (current)"]["left_out"])
     assert len(summary["seeds"]["1"]["growth"]) == 12
+
+
+def test_conditioning_probe_dry_run_without_overlay(tmp_path, capsys):
+    """The probe on a task that does not randomize (the AllegroHand): no
+    overlay on either side."""
+    import importlib.util
+    import json
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / "conditioning_probe.py"
+    spec = importlib.util.spec_from_file_location("conditioning_probe", path)
+    conditioning_probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(conditioning_probe)
+
+    out = tmp_path / "probe.json"
+    assert conditioning_probe.main(["task=AllegroHand", "device=cpu", "num_envs=8",
+                                    "seeds=0", "top=1", f"out={out}"]) == 0
+    assert "cube:" not in capsys.readouterr().out
+    summary = json.loads(out.read_text())
+    assert summary["seeds"]["0"]["top"][0]["overlay"] == {}
+    assert len(summary["seeds"]["0"]["growth"]) == 16

@@ -4,8 +4,11 @@ the Humanoid, BallBalance, ShadowHand, Anymal and the synthetic pair scene,
 K1 and K3 on AnymalTerrain's contact planes, K1 and K3 under a
 domain-randomization overlay (all four kernel variants), the engine's
 launches with and without the plane refresh, its refusal of scenes
-beyond the kernels' maxima, and the learner's checkpoints across devices
-(saved on the card and loaded on the CPU, and back, FF and LSTM).
+beyond the kernels' maxima, the learner's checkpoints across devices
+(saved on the card and loaded on the CPU, and back, FF and LSTM), and
+FrankaCabinet, AllegroHand, Ingenuity, Quadcopter and Crazyflie (K1 in
+both forms and K2 at their yamls' depths, a rollout's launches, a fifth
+Franka prop refused).
 They skip without a CUDA device. This file imports no JAX, so it also runs
 where JAX is not installed:
 
@@ -456,3 +459,76 @@ def test_checkpoint_saved_on_card_loads_on_cpu_and_back(rnn, tmp_path, cuda_devi
         ref = want[k]
         if isinstance(v, torch.Tensor):
             assert v.device.type == "cuda" and torch.equal(v.cpu(), ref), k
+
+
+# the arm, the second hand and the flyers, each under its yaml
+ARM_HAND_FLYERS = ("FrankaCabinet", "AllegroHand", "Ingenuity", "Quadcopter", "Crazyflie")
+
+
+def _yaml_task(name, device):
+    from omniisaacgymenvs_torch.utils.config import load_config
+    return get_task(name, load_config({"task": name})["task"], device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ARM_HAND_FLYERS)
+def test_arm_hand_flyer_kernels_match_plain_in_both_forms(name, cuda_device):
+    """K1 in both forms, forced with `design=`, and K2 against their plain
+    versions on the card at the yaml's depth: FrankaCabinet's four FREE
+    props on the tray and pads on the handle bar, the flyers' forces on
+    their rotor bodies (centres of mass off the origins); the AllegroHand's
+    K1 on its well-conditioned envs (`parity.check_keep`)."""
+    task = _yaml_task(name, cuda_device)
+    eng, m = task.engine, task.model
+    n, seed = 515, 6
+    n_sub = task.decimation * eng.params.substeps
+    q, qd, eff = parity.check_inputs(m, n, seed=seed, device=cuda_device)
+    q = parity.clear_box_ties(eng, q, qd)
+    ptg = parity.check_targets(m, q, seed)
+    z = torch.zeros((n, m.njd), device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    fa = 0.05 * torch.randn((n, m.nb, 6), device=cuda_device, generator=gen)
+    if len(m.pair_surf):
+        assert parity.active_contacts(eng, q, qd)["pairs"] > 0
+    tol = parity.step_tol(m)
+
+    def run_plain(q_, qd_):
+        return fs.step_plain(eng, q_, qd_, eff, ptg, z, fa, n_sub)
+
+    ref = run_plain(q, qd)
+    keep = parity.check_keep(m, run_plain, q, qd, ref, parity.STEP_NAMES, tol)
+    assert (keep is None) == (name != "AllegroHand")
+    for d in fs.DESIGNS:
+        out = fs.step(eng, q, qd, eff, ptg, z, fa, n_sub, design=d)
+        parity.assert_within(f"{name} K1 {d}", parity.compare(
+            out, ref, parity.STEP_NAMES, tol, keep), tol)
+    parity.assert_within(f"{name} K2", parity.compare(
+        fs.fk(eng, q, qd), fs.fk_plain(m, q, qd), parity.FK_NAMES,
+        parity.FK_TOL), parity.FK_TOL)
+    torch.cuda.synchronize()
+    assert eng.kernels.thread_launches["step"] == 1
+    assert eng.kernels.launches["step"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ARM_HAND_FLYERS)
+def test_arm_hand_flyer_rollout_launches_k1_once_per_step(name, cuda_device):
+    task = _yaml_task(name, cuda_device)
+    env = VecEnv(task, 256, seed=0)
+    es = env.reset(seed=0)
+    kern = task.engine.kernels
+    kern.reset_counts()
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for _ in range(4):
+        a = 2 * torch.rand((256, task.num_actions), device=cuda_device, generator=g) - 1
+        es = env.step(es, a)
+    torch.cuda.synchronize()
+    assert kern.launches["step"] == 4 and kern.launches["substep"] == 0
+    assert kern.launches["fk"] >= 4
+    assert torch.isfinite(es.obs).all() and torch.isfinite(es.phys.q).all()
+
+
+@pytest.mark.cuda
+def test_fifth_franka_prop_is_refused_on_card(cuda_device):
+    with pytest.raises(NotImplementedError, match="FREE roots"):
+        get_task("FrankaCabinet", {"env": {"numProps": 5}}, device=cuda_device)

@@ -372,6 +372,35 @@ def test_task_registry_refuses_randomization_and_unported_tasks():
                     device="cpu")
     assert task._dr_on
     assert get_task("ShadowHandOpenAI_FF", device="cpu").num_obs == 42
-    for name in ("AllegroHand", "FrankaCabinet"):
-        with pytest.raises(KeyError, match="ported so far"):
-            get_task(name, device="cpu")
+    with pytest.raises(KeyError, match="A16"):
+        get_task("Custom", device="cpu")
+    with pytest.raises(KeyError, match="ported so far"):
+        get_task("NoSuchTask", device="cpu")
+
+
+def test_registry_holds_the_fourteen_reference_names():
+    """The port registers the 14 reference names of the JAX package's
+    registry; the one more name there, Custom, is not ported yet and
+    raises naming its ROADMAP item."""
+    from omniisaacgymenvs_torch import tasks as ttasks
+    from omniisaacgymenvs_tpu import tasks as jtasks
+
+    assert len(ttasks._registry()) == 14
+    assert set(ttasks.NOT_PORTED) == {"Custom"}
+    assert set(ttasks._registry()) | {"Custom"} == set(jtasks._registry())
+
+
+@pytest.mark.parametrize("name", ["FrankaCabinet", "Crazyflie", "Quadcopter",
+                                  "Ingenuity", "AllegroHand"])
+def test_arm_hand_and_flyer_tasks_run_on_cuda_by_default(name):
+    """A task builds on the card unless the CPU is asked for, and raises
+    where there is no card; device="cpu" builds it on the CPU."""
+    from omniisaacgymenvs_torch.tasks import get_task
+
+    if torch.cuda.is_available():
+        assert get_task(name).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            get_task(name)
+    task = get_task(name, device="cpu")
+    assert task.device.type == "cpu" and task.model.default_q.device.type == "cpu"

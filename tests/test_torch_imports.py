@@ -49,6 +49,16 @@ def test_scan_covers_the_checkpoint_modules():
         assert ROOT / "omniisaacgymenvs_torch" / rel in PORT_FILES, rel
 
 
+def test_scan_covers_the_task_modules():
+    """FrankaCabinet, AllegroHand and the flyers, their models and the view
+    API are scanned like every other module."""
+    for rel in ("envs/views.py", "models/flyers.py", "models/franka_cabinet.py",
+                "models/allegro_hand.py", "tasks/ingenuity.py",
+                "tasks/quadcopter.py", "tasks/crazyflie.py",
+                "tasks/franka_cabinet.py", "tasks/allegro_hand.py"):
+        assert ROOT / "omniisaacgymenvs_torch" / rel in PORT_FILES, rel
+
+
 def test_port_imports_without_jax():
     mods = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(

@@ -13,8 +13,11 @@ working-set layout, schedule table and shared-memory copy of the float
 table (`staged_index`) the card uses; the thread form runs its env
 function per env as a thread does. The results go through `ops/parity.py`
 `compare` with the card's tolerances: the Humanoid, the synthetic pair
-scene, AnymalTerrain on its terrain planes and the ShadowHand under a
-randomization overlay, each in both forms. Skips where there is no g++.
+scene, AnymalTerrain on its terrain planes, the ShadowHand under a
+randomization overlay, FrankaCabinet (four FREE props, finger pads on the
+handle bar) and the Quadcopter (forces on its rotors, whose centres of
+mass are off their origins), each in both forms. Skips where there is no
+g++.
 """
 
 import ctypes
@@ -205,15 +208,16 @@ def host_fk(host, eng, q, qd):
 
 
 def _check(lib, eng, n, seed, n_steps, planes=None, overlay=None, q=None,
-           qd=None, eff=None):
+           qd=None, eff=None, fa=None):
     m = eng.model
     if q is None:
         q, qd, eff = parity.check_inputs(m, n, seed=seed, device="cpu")
     q = parity.clear_box_ties(eng, q, qd, overlay)
     ptg = parity.check_targets(m, q, seed)
     z = torch.zeros((n, m.njd))
-    fa = 0.05 * torch.from_numpy(
-        np.random.default_rng(seed).standard_normal((n, m.nb, 6)).astype(np.float32))
+    if fa is None:
+        fa = 0.05 * torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            (n, m.nb, 6)).astype(np.float32))
     args = (q, qd, eff, ptg, z, fa)
     out = host_step(lib, eng, *args, n_steps, planes, overlay)
     ref = fs.step_plain(eng, *args, n_steps, planes=planes, overlay=overlay)
@@ -260,3 +264,27 @@ def test_host_kernel_shadow_hand_overlay(host_lib):
     eng = get_task("ShadowHand", device="cpu").engine
     ov = parity.overlay_inputs(eng.model, 64, seed=3, device="cpu")
     _check(host_lib, eng, 64, seed=3, n_steps=4, overlay=ov)
+
+
+def test_host_kernel_franka_cabinet(host_lib):
+    """Four FREE roots in one env (NFREE_MAX), the pads on the handle bar
+    in every other env, the props on the drawer's tray."""
+    eng = get_task("FrankaCabinet", {"env": {"numProps": 4}}, device="cpu").engine
+    assert fs.n_free_roots(eng.model) == fs.NFREE_MAX
+    q, qd, eff = parity.check_inputs(eng.model, 32, seed=4, device="cpu")
+    active = parity.active_contacts(eng, q, qd)
+    assert active["capsule"] > 0 and active["box"] > 0, active
+    _check(host_lib, eng, 32, seed=4, n_steps=4, q=q, qd=qd, eff=eff)
+
+
+def test_host_kernel_quadcopter_rotor_forces(host_lib):
+    """1 N on each rotor, applied at the rotor's origin, 8 cm from its
+    centre of mass."""
+    eng = get_task("Quadcopter", device="cpu").engine
+    m = eng.model
+    n = 32
+    rotors = [m.body_index(f"rotor_{i}") for i in range(4)]
+    f = np.random.default_rng(5).standard_normal((n, 4, 3)).astype(np.float32)
+    fa = torch.zeros((n, m.nb, 6))
+    fa[:, rotors, 3:6] = torch.from_numpy(f / np.linalg.norm(f, axis=-1, keepdims=True))
+    _check(host_lib, eng, n, seed=5, n_steps=1, fa=fa)

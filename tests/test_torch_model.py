@@ -11,13 +11,21 @@ import torch
 import yaml
 
 from omniisaacgymenvs_torch import convert
-from omniisaacgymenvs_torch.models import (build_ant, build_anymal,
-                                           build_balance_bot, build_cartpole,
-                                           build_humanoid, build_shadow_hand)
+from omniisaacgymenvs_torch.models import (build_allegro_hand, build_ant,
+                                           build_anymal, build_balance_bot,
+                                           build_cartpole, build_crazyflie,
+                                           build_franka_cabinet, build_humanoid,
+                                           build_ingenuity, build_quadcopter,
+                                           build_shadow_hand)
 from omniisaacgymenvs_torch.physics import contacts as tcontacts
 from omniisaacgymenvs_torch.physics.model import Model
 from omniisaacgymenvs_torch.utils.config import CFG_DIR, load_config
 from omniisaacgymenvs_tpu.models import build_ant as jbuild_ant
+from omniisaacgymenvs_tpu.models import flyers as jflyers
+from omniisaacgymenvs_tpu.models.allegro_hand import (
+    build_allegro_hand as jbuild_allegro_hand)
+from omniisaacgymenvs_tpu.models.franka_cabinet import (
+    build_franka_cabinet as jbuild_franka_cabinet)
 from omniisaacgymenvs_tpu.models import build_humanoid as jbuild_humanoid
 from omniisaacgymenvs_tpu.models.anymal import build_anymal as jbuild_anymal
 from omniisaacgymenvs_tpu.models.balance_bot import (
@@ -39,7 +47,14 @@ BUILDERS = {"Humanoid": (build_humanoid, jbuild_humanoid),
             # AnymalTerrain's model: its drive gains and a second contact
             # point per foot
             "AnymalTerrain": (functools.partial(build_anymal, **_TERRAIN_KW),
-                              functools.partial(jbuild_anymal, **_TERRAIN_KW))}
+                              functools.partial(jbuild_anymal, **_TERRAIN_KW)),
+            "Ingenuity": (build_ingenuity, jflyers.build_ingenuity),
+            "Quadcopter": (build_quadcopter, jflyers.build_quadcopter),
+            "Crazyflie": (build_crazyflie, jflyers.build_crazyflie),
+            # the yaml's four props (the builder also returns the drawer)
+            "FrankaCabinet": (lambda: build_franka_cabinet(4)[0],
+                              lambda: jbuild_franka_cabinet(4)[0]),
+            "AllegroHand": (build_allegro_hand, jbuild_allegro_hand)}
 
 
 def _assert_model_equal(pm: Model, jf: dict):

@@ -23,7 +23,11 @@ from torch_parity import (assert_step_close, jax_model_from_port, jax_step,
 
 N = 6
 N_STEPS = 4
-TASKS = ("Cartpole", "BallBalance", "ShadowHand")
+TASKS = ("Cartpole", "BallBalance", "ShadowHand", "FrankaCabinet",
+         "AllegroHand", "Ingenuity", "Quadcopter", "Crazyflie")
+# FrankaCabinet with its yaml's four props: four FREE roots, the kernels'
+# maximum
+TASK_CFGS = {"FrankaCabinet": {"env": {"numProps": 4}}}
 KINDS = ("fixed_root", "prismatic", "tendon", "gravity_comp", "forest", "pairs")
 
 
@@ -63,7 +67,9 @@ def engines(name):
     """(port engine, JAX engine) of a task's scene, the pair scene or a
     one-feature scene, on the CPU."""
     if name in TASKS:
-        return get_task(name, device="cpu").engine, jget_task(name).engine
+        cfg = TASK_CFGS.get(name)
+        return (get_task(name, cfg, device="cpu").engine,
+                jget_task(name, cfg).engine)
     pm = (parity.build_pair_scene() if name == "PairScene"
           else one_feature_scene(name))
     return (PhysicsEngine(pm, SimParams(dt=1.0 / 120.0, substeps=2)),
@@ -89,7 +95,8 @@ def test_step_n_matches_jax(name):
                         torch.zeros(N, eng.model.njd), t(fa), N_STEPS)
     # the Humanoid step_n tolerances (torch_parity.STEP_N_TOL), unchanged
     assert_step_close(out, jax_step(jeng, q, qd, eff, ptg, fa, N_STEPS))
-    if name in ("BallBalance", "ShadowHand", "PairScene", "pairs"):
+    if name in ("BallBalance", "ShadowHand", "PairScene", "pairs",
+                "FrankaCabinet", "AllegroHand"):
         active = parity.active_contacts(eng, t(q), t(qd))
         assert active["pairs"] > 0, "the check states must put pairs in contact"
 
@@ -138,3 +145,52 @@ def test_sensors_exclude_applied_forces_and_gravity_compensation():
     b = fs.substep_plain(eng, q, qd, eff, ptg, z, 100.0 * fa)
     torch.testing.assert_close(a[2], b[2], rtol=0, atol=0)
     assert not torch.equal(a[1], b[1])
+
+
+def _off_com_scene():
+    """One FREE body whose centre of mass sits 8 cm out along x from its
+    origin (a Quadcopter rotor's offset), with no contact."""
+    b = ModelBuilder("off_com")
+    b.add_body("body", parent=-1, joint_type=JointType.FREE, mass=0.5,
+               com=(0.08, 0.0, 0.0), inertia=(1e-3, 2e-3, 3e-3),
+               default_pos=(0.0, 0.0, 1.0))
+    return b.finalize()
+
+
+@pytest.mark.parametrize("name", ["off_com", "Quadcopter"])
+def test_applied_force_acts_at_the_body_origin(name):
+    """`body_force` acts at each body's origin, not at its centre of mass:
+    on a body whose centre of mass is off its origin a force turns it. The
+    port's step_n against the JAX engine's with forces of 1 N on such
+    bodies only (the off-centre body; the Quadcopter's four rotors)."""
+    if name == "off_com":
+        pm = _off_com_scene()
+        eng = PhysicsEngine(pm, SimParams(dt=0.01, substeps=1, gravity=(0, 0, 0)))
+        jeng = JPhysicsEngine(jax_model_from_port(pm),
+                              JSimParams(dt=0.01, substeps=1, gravity=(0, 0, 0)))
+        bodies = [0]
+    else:
+        eng, jeng = engines(name)
+        pm = eng.model
+        bodies = [pm.body_index(f"rotor_{i}") for i in range(4)]
+    m = eng.model
+    q = np.tile(np_(m.default_q), (N, 1))
+    qd = np.zeros((N, m.nv), np.float32)
+    z = np.zeros((N, m.njd), np.float32)
+    rng = np.random.default_rng(8)
+    fa = np.zeros((N, m.nb, 6), np.float32)
+    f = rng.standard_normal((N, len(bodies), 3)).astype(np.float32)
+    fa[:, bodies, 3:6] = f / np.linalg.norm(f, axis=-1, keepdims=True)
+    t = torch.as_tensor
+    out = fs.step_plain(eng, t(q), t(qd), t(z), t(z), t(z), t(fa), N_STEPS)
+    assert_step_close(out, jax_step(jeng, q, qd, z, z, fa, N_STEPS))
+    if name == "off_com":
+        # the body turns at alpha = I^-1 ((origin - com) x F) about its
+        # centre of mass; at the centre of mass the same force would not
+        # turn it (a few degrees in 4 substeps: to 5%)
+        arm = np.array([-0.08, 0.0, 0.0])
+        torque = np.cross(arm, fa[:, 0, 3:6])
+        inertia = np.array([1e-3, 2e-3, 3e-3])
+        want = torque / inertia * N_STEPS * 0.01
+        np.testing.assert_allclose(np_(out[5])[:, 0], want, rtol=0.05,
+                                   atol=0.02 * np.abs(want).max())

@@ -1,14 +1,15 @@
-"""The envs behind a kernel-vs-plain reading under a randomization overlay,
-and how their plain step moves under small changes of the state.
+"""The envs behind a kernel-vs-plain reading (under a randomization overlay
+where the task randomizes), and how their plain step moves under small
+changes of the state.
 
     python tools/conditioning_probe.py \
-        [task=ShadowHandOpenAI_FF] [num_envs=8229] [seeds=0,1,2,3] [top=6]
+        [task=ShadowHandOpenAI_FF|AllegroHand] [num_envs=8229] [seeds=0,1,2,3] [top=6]
 
 Needs a CUDA card (`device=cpu` runs the plain version on both sides, a dry
 run of the script). For each seed, on the check states and overlay that
 `scripts/tolerance_controls.py` uses (`parity.check_inputs`,
-`parity.overlay_inputs`, `parity.clear_box_ties`), K1 at the main path's
-depth against its plain version, per env:
+`parity.overlay_inputs` where the task randomizes, `parity.clear_box_ties`),
+K1 at the main path's depth against its plain version, per env:
   gap        the kernel's tolerance use against the plain step;
   nudge d    the plain step's own tolerance use when the state moves by
              `parity.COND_EPS` of its size in direction d
@@ -79,7 +80,7 @@ def main(argv=None) -> int:
           flush=True)
     summary = {"card": card, "task": task_name, "num_envs": n, "seeds": {}}
     for seed in seeds:
-        ov = parity.overlay_inputs(m, n, seed, dev)
+        ov = parity.overlay_inputs(m, n, seed, dev) if task._dr_on else None
         q, qd, eff = parity.check_inputs(m, n, seed, dev)
         q = parity.clear_box_ties(eng, q, qd, ov)
         ptg = parity.check_targets(m, q, seed)
@@ -140,7 +141,7 @@ def main(argv=None) -> int:
                        **{d: float(nud_f[d][i, e]) for d in parity.COND_DIRECTIONS}}
                 for i, name in enumerate(names)}
             ov_e = {key: [round(float(x), 4) for x in v[e].tolist()]
-                    for key, v in ov.items()}
+                    for key, v in (ov or {}).items()}
             envs.append({"env": e, "gap": float(gap[e]),
                          "nudge": {d: float(nud[d][e]) for d in parity.COND_DIRECTIONS},
                          "kernel_nudge": float(k_self[e]), "fields": fields,
@@ -151,6 +152,8 @@ def main(argv=None) -> int:
             for name, f in fields.items():
                 print(f"    {name:13s} gap {f['gap']:.4f} | "
                       + " ".join(f"{d} {f[d]:.4f}" for d in parity.COND_DIRECTIONS), flush=True)
+            if ov is None:
+                continue
             # the FREE cube is the model's last body
             print("    cube: " + ", ".join(
                 f"{key} {ov_e[key][-1]}" for key in
