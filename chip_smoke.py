@@ -92,7 +92,34 @@ Phases (any failure exits non-zero):
      3-step rollout on the card against the plain path on the CPU with the
      step's control draws shared (AllegroHand's judged where the plain
      rollout is well conditioned); and 2 epochs through `PPOTrainer.train`
-     under the task's train yaml, as in phase 8.
+     under the task's train yaml, as in phase 8;
+ 11. Custom on imported robots (Custom.yaml, 4 substeps per K1 launch):
+     examples/double_pendulum.urdf with a FIXED and a FREE base (the FREE
+     one lowered into the ground) and the MJCF chain carried below as a
+     string (hinge and slide joints, a body with two joints, degree angles,
+     a <default> class, sphere, capsule and box geoms; its foot in the
+     ground): K1 in both forms and K2 against their plain versions at
+     512 + N_PAD and at 32768 + N_PAD envs, then at 512 and 32768 two
+     launches of each bitwise equal and their times (events and profiler
+     device time) beside the plain version's, the bound and the launch
+     configuration; for the FIXED example and the chain the random-policy
+     main path of 64 steps at 512 envs (K1 once per control step, K2 at
+     least as often, no plain physics), 3 steps against the CPU and 2
+     epochs through `PPOTrainer.train` under CustomPPO.yaml; then the JAX
+     package's learning bar through scripts/train.py: the double pendulum,
+     120 epochs of 256 envs, seed 3, episodes of 100 steps,
+     mean_ep_reward above 20;
+ 12. distributed training on the one card: (a) `torchrun --standalone
+     --nproc_per_node=1 -m omniisaacgymenvs_torch.scripts.train
+     task=Humanoid distributed=True num_envs=4096 max_iterations=2` (NCCL,
+     world size 1) exits 0 with finite metrics; (b) two ranks on cuda:0
+     under gloo (NCCL refuses two ranks on one card), Humanoid at 2 x 2048
+     envs, the worker of tests/test_torch_distributed.py: one f32 learner
+     epoch on a stored rollout equals the 1-rank epoch with the ranks'
+     permutations composed (every parameter within LEARNER_ATOL), then 2
+     epochs through `PPOTrainer.train` with K1 once per control step in
+     each rank and a checkpoint resumed at world size 2 bit for bit. Every
+     child process has a timeout of its own, and its failure fails the run.
 Tolerances and check states come from omniisaacgymenvs_torch/ops/parity.py.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -113,6 +140,7 @@ import time
 
 import torch
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and FP32
 # outside the tensor cores, FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -151,6 +179,18 @@ LSTM_CPU_ENVS = 512
 # phases 8 and 9: one f32 learner epoch, card vs CPU, every parameter (the
 # two read within 3e-8 of each other on an H100 in phase 8)
 LEARNER_ATOL = 1e-5
+# phase 11: Custom.yaml's numEnvs, a width that fills the card, training
+# epochs, and the learning bar of the JAX package's
+# tests/test_custom_robot.py (the double pendulum, 120 epochs of 256 envs,
+# seed 3, episodes of 100 steps: mean_ep_reward above 20)
+CUSTOM_ENVS = 512
+CUSTOM_WIDE = 32768
+CUSTOM_EPOCHS = 2
+CUSTOM_LEARN = dict(envs=256, seed=3, episode_length=100, epochs=120, bar=20.0)
+# phase 12: the task and its envs over all ranks (2 ranks x 2048 under
+# gloo), each child process's timeout
+DIST_TASK = ("Humanoid", 4096)
+DIST_TIMEOUT_S = 600
 # phase 10: the arm, the second hand and the flyers at their yamls' numEnvs
 ARM_HAND_FLYERS = {"FrankaCabinet": 4096, "Crazyflie": 4096, "Quadcopter": 4096,
           "Ingenuity": 4096, "AllegroHand": 8192}
@@ -159,6 +199,43 @@ ARM_HAND_FLYERS_EPOCHS = 2
 SOURCES = {"group": "omniisaacgymenvs_torch/ops/csrc/fused_step.cu",
            "thread": "omniisaacgymenvs_torch/ops/csrc/fused_step_thread.cu"}
 TPU_FILE = "omniisaacgymenvs_tpu/ops/fused_substep.py"
+# phase 11: the Custom task's robots. The URDF example with a FIXED and a
+# FREE base, and an MJCF chain: hinge and slide joints, a body with two
+# joints (expanded into a chain through a body of 1e-4 kg), degree angles,
+# a <default> class, sphere, capsule and box geoms; its foot's sphere and box
+# sit 1 cm in the ground (parity.CHECK_PROFILES "mjcf_chain")
+URDF_EXAMPLE = "examples/double_pendulum.urdf"
+MJCF_CHAIN = """<mujoco model="mjcf_chain">
+  <compiler angle="degree"/>
+  <default>
+    <joint damping="0.1" armature="0.01"/>
+    <geom density="600"/>
+    <default class="slider">
+      <joint type="slide" damping="2.0" range="-0.1 0.1"/>
+    </default>
+  </default>
+  <worldbody>
+    <body name="base" pos="0 0 0.64">
+      <geom type="box" size="0.1 0.1 0.05"/>
+      <body name="upper" pos="0 0 -0.05" euler="0 0 30">
+        <joint name="hip" type="hinge" axis="0 1 0" range="-90 90"/>
+        <geom type="capsule" fromto="0 0 0 0 0 -0.3" size="0.04"/>
+        <body name="lower" pos="0 0 -0.3">
+          <joint name="knee" axis="0 1 0" range="-120 0"/>
+          <joint name="shin" class="slider" axis="0 0 1"/>
+          <geom type="capsule" fromto="0 0 0 0 0 -0.25" size="0.03"/>
+          <body name="foot" pos="0 0 -0.25">
+            <joint name="ankle" axis="1 0 0" range="-45 45"/>
+            <geom type="sphere" size="0.05"/>
+            <geom type="box" pos="0.05 0 -0.03" size="0.08 0.04 0.02"/>
+          </body>
+        </body>
+      </body>
+    </body>
+  </worldbody>
+  <actuator><motor name="hip_motor" joint="hip" gear="50"/></actuator>
+</mujoco>
+"""
 
 
 def log(*a):
@@ -349,9 +426,12 @@ def main() -> int:
     # ---- 3./4./5. the main paths ----
     launches = {}
 
-    def main_path(name: str, n: int, e2e_envs: int, e2e_cfg=None):
+    def main_path(name: str, n: int, e2e_envs: int, e2e_cfg=None, extra=(),
+                  key=None):
+        """`name`'s random-policy main path at n envs (`extra`: more CLI
+        overrides), its launches kept under launches[key or name]."""
         argv = [f"task={name}", f"num_envs={n}", f"max_iterations={STEPS}",
-                "seed=0", "device=cuda"]
+                "seed=0", "device=cuda", *extra]
         cfg, mtask, env = build_env_from_cli(argv)
         kern = mtask.engine.kernels
         form = kern.config(n, mtask.engine.has_terrain, mtask._dr_on)[0]["design"]
@@ -359,27 +439,28 @@ def main() -> int:
         with plain_physics_counted() as plain:
             stats = random_policy.drive(cfg, env)
         assert plain["n"] == 0, "the main path ran the plain physics"
-        launches[name] = dict(kern.launches)
+        key = key or name
+        launches[key] = dict(kern.launches)
         # under randomization every K1 launch reads an overlay, else none;
         # every K1 launch takes the form launch_config picks for the path
         assert kern.overlay_launches == {
-            "step": launches[name]["step"] if mtask._dr_on else 0,
+            "step": launches[key]["step"] if mtask._dr_on else 0,
             "substep": 0}, kern.overlay_launches
         assert kern.thread_launches == {
-            "step": launches[name]["step"] if form == "thread" else 0,
+            "step": launches[key]["step"] if form == "thread" else 0,
             "substep": 0}, kern.thread_launches
-        log(f"main path: {card} | {name} {n} envs x {STEPS} steps: "
+        log(f"main path: {card} | {key} {n} envs x {STEPS} steps: "
             f"{stats['env_steps_per_s']:.1f} env-steps/s, "
             f"{stats['seconds'] * 1e3 / STEPS:.3f} ms per control step, "
             f"mean reward {stats['mean_reward']:.4f}, done rate "
-            f"{stats['done_rate']:.4f}, launches {launches[name]}, K1 in the "
+            f"{stats['done_rate']:.4f}, launches {launches[key]}, K1 in the "
             f"{form} form")
         # K1 once per control step, or once per substep with the plane
         # refresh; K2 at every reset (each step computes one for the merge)
         per_step = mtask.engine.k1_launches(mtask.decimation)
-        assert launches[name]["step"] == STEPS * per_step, launches
-        assert launches[name]["fk"] >= STEPS, launches
-        assert launches[name]["substep"] == 0, launches
+        assert launches[key]["step"] == STEPS * per_step, launches
+        assert launches[key]["fk"] >= STEPS, launches
+        assert launches[key]["substep"] == 0, launches
         es = stats["state"]
         obs, rew, done = stats["trajectory"]
         assert obs.shape == (STEPS, n, mtask.num_obs), obs.shape
@@ -405,7 +486,7 @@ def main() -> int:
             rates.append(r["env_steps_per_s"])
             del r
         rs = sorted(rates)
-        log(f"main path rate: {card} | {name} {RATE_RUNS} more rollouts of "
+        log(f"main path rate: {card} | {key} {RATE_RUNS} more rollouts of "
             f"{STEPS} steps: env-steps/s min {rs[0]:.1f}, median "
             f"{rs[len(rs) // 2]:.1f}, max {rs[-1]:.1f} "
             f"({', '.join(f'{x:.1f}' for x in rates)})")
@@ -471,7 +552,7 @@ def main() -> int:
         err = (ges.obs.cpu()[keep] - ces.obs[keep]).abs()
         assert keep.sum() > e2e_envs // 2
         assert float(obs_use(ges.obs.cpu())[keep].max()) <= 1.0, float(err.max())
-        log(f"end to end vs CPU plain path: {name} {int(keep.sum())} envs x 3 "
+        log(f"end to end vs CPU plain path: {key} {int(keep.sum())} envs x 3 "
             f"steps{left_out}, obs max abs err {float(err.max()):.3e} (rtol "
             f"{rtol}, atol {atol})")
 
@@ -761,11 +842,17 @@ def main() -> int:
         return {k: lc[k] for k in ("design", "group", "envs_per_block", "blocks",
                                    "smem_bytes", "env_bytes")}
 
-    for name, n in ARM_HAND_FLYERS.items():
+    def kernel_rows(name: str, n: int, first: dict, label_tail: str = "",
+                    on_path: bool = True):
+        """Phase 10's and 11's timing: `name`'s K1 in both forms and K2 held
+        against their plain versions again at n envs (seed 1), two launches
+        of each bitwise equal, then each timed (events and profiler device
+        time) beside its plain version and bound, one row each for the
+        kernels line; `first`: the errors of the first check. Rows of the
+        form launch_config picks carry the main path's launch counts, unless
+        `on_path` is False (a width no main path runs)."""
         eng = engines[name]
         m = eng.model
-        first = phase10_check(name, n + N_PAD, seed=0)
-        main_path(name, n, 128)
         again = phase10_check(name, n, seed=1)
         ins = phase10_inputs(name, n, seed=1)
         runs = {d: (lambda d=d: fs.step(eng, *ins, n_sub[name], design=d))
@@ -787,10 +874,10 @@ def main() -> int:
             lc = eng.kernels.config(n, fk=fk, design=None if fk else key)[0]
             kind = "fk" if fk else "step"
             bound_ms, bound_by = bound(n, nbytes[kind], fk_ops if fk else ops[kind])
-            on_path = fk or key == picked
-            n_launch = launches[name][kind] if on_path else 0
+            counted = on_path and (fk or key == picked)
+            n_launch = launches[name][kind] if counted else 0
             label = ("report_fk_k2" if fk else
-                     "fused_step_k1" + ("" if on_path else f"_{key}_form"))
+                     "fused_step_k1" + ("" if fk or key == picked else f"_{key}_form"))
             log(f"{label} {name}{'' if fk else f' ({key} form)'}: {card} | {n} envs"
                 f"{'' if fk else f', {n_sub[name]} substeps'}: {ms:.4f} ms "
                 f"({device_ms:.4f} ms of device time per launch, profiler), plain "
@@ -799,17 +886,33 @@ def main() -> int:
                 f"per env), {bound_ms / ms * 100:.2f}% of roofline, {n_launch} "
                 f"launches on the main path; launch {fs.describe_config(lc)}")
             rows.append(dict(
-                name=f"{label}_{name.lower()}", model=name, route="cuda",
-                source=SOURCES["group" if fk else key],
+                name=f"{label}_{name.lower().replace('/', '_')}{label_tail}",
+                model=name, route="cuda", source=SOURCES["group" if fk else key],
                 replaces=f"{TPU_FILE}:{943 if fk else 1016}", launches=n_launch,
-                **({} if on_path else {"on_main_path": False}),
+                **({} if counted else {"on_main_path": False}),
                 max_abs_err=max(first[key], again[key]), ms=ms,
                 plain_ms=plain[kind], bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, device_ms=device_ms, launch=launch_keys(lc)))
+                library_ms=None, device_ms=device_ms, envs=n,
+                launch=launch_keys(lc)))
         del ins, runs
+
+    for name, n in ARM_HAND_FLYERS.items():
+        first = phase10_check(name, n + N_PAD, seed=0)
+        main_path(name, n, 128)
+        kernel_rows(name, n, first)
         trainer, task, _ = train_on_card(name, n, ARM_HAND_FLYERS_EPOCHS, card)
         del trainer, task
         torch.cuda.synchronize()
+
+    # ---- 11. Custom on imported robots ----
+    with tempfile.TemporaryDirectory() as tmp:
+        custom_phase(tmp, engines, n_sub, phase10_check, main_path, kernel_rows,
+                     card)
+    torch.cuda.synchronize()
+
+    # ---- 12. distributed on the one card ----
+    distributed_phase(card)
+
     # K1 and K2 carry each main path; K3 is a launch mode no product path
     # takes, held against its plain version above
     for r in rows:
@@ -869,7 +972,7 @@ def plain_physics_counted():
             setattr(owner, name, fn)
 
 
-def train_on_card(name, n, epochs, card, **train_kw):
+def train_on_card(name, n, epochs, card, extra=(), **train_kw):
     """(trainer, task, history): `name` built as the CLI builds it, at n
     envs under its train yaml, trained `epochs` epochs through
     PPOTrainer.train; the launch counts read around the training (K1 once
@@ -882,7 +985,7 @@ def train_on_card(name, n, epochs, card, **train_kw):
     from omniisaacgymenvs_torch.utils.config import ppo_config_kwargs
 
     cfg, task, env = build_env_from_cli(
-        [f"task={name}", f"num_envs={n}", "seed=0", "device=cuda"])
+        [f"task={name}", f"num_envs={n}", "seed=0", "device=cuda", *extra])
     ppo = PPOConfig(**ppo_config_kwargs(cfg["train"]))
     trainer = PPOTrainer(env, ppo, seed=0)
     kern = task.engine.kernels
@@ -1094,6 +1197,188 @@ def learner_card_vs_cpu(trainer, card):
         f"element), largest per-tensor |card - cpu| / |cpu change| {worst_rel:.3e} "
         f"(bound 1e-3); lr {gm['lr']:.4e} / {cm['lr']:.4e}; kl {gm['kl']:.6f} / "
         f"{cm['kl']:.6f}")
+
+
+def custom_phase(tmp, engines, n_sub, phase10_check, main_path, kernel_rows,
+                 card):
+    """Phase 11: Custom on imported robots (module docstring)."""
+    from omniisaacgymenvs_torch.ops import parity
+    from omniisaacgymenvs_torch.scripts import train
+    from omniisaacgymenvs_torch.tasks import get_task
+    from omniisaacgymenvs_torch.utils.config import load_config, parse_cli
+
+    chain = os.path.join(tmp, "chain.xml")
+    with open(chain, "w") as f:
+        f.write(MJCF_CHAIN)
+    urdf = os.path.join(ROOT, URDF_EXAMPLE)
+    robots = {"Custom/fixed": [f"task.env.robot={urdf}"],
+              "Custom/floating": [f"task.env.robot={urdf}",
+                                  "task.env.floatingBase=True"],
+              "Custom/mjcf": [f"task.env.robot={chain}"]}
+    dev = torch.device("cuda")
+    for key, extra in robots.items():
+        task = get_task("Custom", load_config({"task": "Custom", **parse_cli(extra)})[
+            "task"], device=dev)
+        eng, m = task.engine, task.model
+        engines[key] = eng
+        n_sub[key] = task.decimation * eng.params.substeps
+        q, qd, _ = parity.check_inputs(m, CUSTOM_ENVS, seed=0, device=dev)
+        active = parity.active_contacts(eng, q, qd)
+        log(f"{key}: {m.name}, {m.nb} bodies ({', '.join(m.body_names)}), "
+            f"{m.njd} dofs, {m.ncp} contact points, root "
+            f"{'FREE' if m.root_free else 'FIXED'}, {n_sub[key]} substeps per K1 "
+            f"launch; check states' contacts {active}")
+        if key != "Custom/fixed":
+            assert active["ground"] > 0, "no contact point in the ground"
+        del task
+    for key, extra in robots.items():
+        # the FREE example starts at z = 0, below terminationHeight: every
+        # env ends at every step, so it runs no main path of its own
+        on_path = key != "Custom/floating"
+        first = phase10_check(key, CUSTOM_ENVS + N_PAD, seed=0)
+        if on_path:
+            main_path("Custom", CUSTOM_ENVS, 128, extra=extra, key=key)
+        kernel_rows(key, CUSTOM_ENVS, first, on_path=on_path)
+        wide = phase10_check(key, CUSTOM_WIDE + N_PAD, seed=0)
+        kernel_rows(key, CUSTOM_WIDE, wide, label_tail=f"_{CUSTOM_WIDE}",
+                    on_path=False)
+        if on_path:
+            trainer, task, _ = train_on_card("Custom", CUSTOM_ENVS, CUSTOM_EPOCHS,
+                                             card, extra=extra)
+            del trainer, task
+        torch.cuda.synchronize()
+    # the JAX package's learning bar, through the train CLI
+    lr = CUSTOM_LEARN
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        with plain_physics_counted() as plain:
+            t0 = time.perf_counter()
+            hist = train.main(["task=Custom", *robots["Custom/fixed"],
+                               f"task.env.episodeLength={lr['episode_length']}",
+                               f"num_envs={lr['envs']}", f"seed={lr['seed']}",
+                               f"max_iterations={lr['epochs']}", "experiment=custom",
+                               "device=cuda"])
+            dt = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    assert plain["n"] == 0, "the trainer ran the plain physics"
+    assert len(hist) == lr["epochs"], len(hist)
+    final = hist[-1]["mean_ep_reward"]
+    steps = hist[-1]["env_steps"]
+    log(f"Custom learning: {card} | double pendulum, {lr['epochs']} epochs of "
+        f"{lr['envs']} envs, seed {lr['seed']}, episodes of {lr['episode_length']} "
+        f"steps: mean_ep_reward {hist[0]['mean_ep_reward']:.4f} at epoch 0, "
+        f"{hist[len(hist) // 2]['mean_ep_reward']:.4f} at epoch {len(hist) // 2}, "
+        f"{final:.4f} at epoch {len(hist) - 1} (bar {lr['bar']}); {dt:.1f} s, "
+        f"{steps / dt:.1f} train-steps/s")
+    assert final > lr["bar"], f"the imported robot did not learn: {final}"
+
+
+def run_child(cmd, cwd, timeout, env=None):
+    """Run cmd in a session of its own; (exit code, output). Past `timeout`
+    the whole session is killed and the call raises."""
+    import signal
+
+    p = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        raise AssertionError(f"{cmd[:6]} outlived its {timeout} s")
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    return p.returncode, out
+
+
+def distributed_phase(card, nccl_ranks=1, ranks=2, backend="gloo", device="cuda:0"):
+    """Phase 12: distributed training (module docstring): torchrun with
+    `nccl_ranks` processes, then `ranks` worker processes on `device` under
+    `backend` (on the one card: 2 gloo ranks on cuda:0; on several cards,
+    tools/multi_gpu_check.py: NCCL, cuda:LOCAL_RANK)."""
+    from omniisaacgymenvs_torch.parallel import mesh
+    from omniisaacgymenvs_torch.utils.config import load_config, ppo_config_kwargs
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_distributed as tdist
+
+    name, n = DIST_TASK
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    # (a) NCCL at world size 1, through torchrun and the train CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={nccl_ranks}", "-m", "omniisaacgymenvs_torch.scripts.train",
+               f"task={name}", "distributed=True", f"num_envs={n}",
+               "max_iterations=2"]
+        t0 = time.perf_counter()
+        rc, out = run_child(cmd, tmp, DIST_TIMEOUT_S, env)
+        dt = time.perf_counter() - t0
+        assert rc == 0, f"torchrun exited {rc}:\n{out[-4000:]}"
+        with open(os.path.join(tmp, "runs", name, "history.json")) as f:
+            hist = json.load(f)
+        assert len(hist) == 2, len(hist)
+        bad = [k for m in hist for k, v in m.items() if not math.isfinite(v)]
+        assert not bad, f"non-finite metrics {bad}"
+        log(f"torchrun NCCL world size {nccl_ranks}: {card} | {name} {n} envs, 2 epochs through "
+            f"scripts/train.py distributed=True in {dt:.1f} s (process start "
+            f"included), finite metrics; last epoch mean_step_reward "
+            f"{hist[-1]['mean_step_reward']:.4f}, {hist[-1]['steps_per_sec']:.1f} "
+            f"train-steps/s")
+    # (b) worker ranks: on one card two under gloo (NCCL refuses two ranks
+    # on one device)
+    cfg = load_config({"task": name})
+    spec = dict(task=name, task_cfg=cfg["task"], num_envs=n, seed=0,
+                ppo=dict(ppo_config_kwargs(cfg["train"]), mixed_precision=False),
+                device=device, backend=backend)
+    if backend == "gloo":
+        log(f"gloo on CUDA tensors: all_reduce and broadcast on the card, "
+            f"{', '.join(mesh.GLOO_HOST_STAGED)} staged through host copies")
+    label = f"{ranks} {backend or 'NCCL'} ranks"
+    r_envs = n // ranks
+    with tempfile.TemporaryDirectory() as tmp:
+        spec_l = dict(spec, mode="learn")
+        tr = tdist.make_trainer(spec_l, "cuda")
+        traj, last_value, stats, _, _ = tdist.store_rollout(tr, tmp)
+        t0 = time.perf_counter()
+        results = tdist.run_ranks(tmp, spec_l, world=ranks, timeout=DIST_TIMEOUT_S)
+        dt2 = time.perf_counter() - t0
+        ref, dt1 = tdist.one_rank_reference(tr, traj, last_value, stats, results)
+        worst = tdist.check_learner(tr, ref, results, LEARNER_ATOL)
+        S, mb = tr._slices()
+        per_rank = " / ".join(f"{r['learn_s'] * 1e3:.1f}" for r in results)
+        log(f"learner epoch, {label} vs 1: {card} | {name} {n} envs ({ranks} x "
+            f"{r_envs}), f32 networks, {S} samples in minibatches of {mb} ({ranks} x "
+            f"{mb // ranks}): parameters max abs diff {worst:.3e} (bound "
+            f"{LEARNER_ATOL:.0e}), the ranks bitwise equal; kl {ref['kl']:.6f}; "
+            f"epoch {per_rank} ms per rank, {dt1 * 1e3:.1f} ms at 1 rank (each "
+            f"after a first epoch on a copy of the state); "
+            f"the {ranks}-rank run {dt2:.1f} s with process start")
+        del tr, traj, last_value, stats
+    with tempfile.TemporaryDirectory() as tmp:
+        spec_c = dict(spec, mode="checkpoint")
+        t0 = time.perf_counter()
+        results = tdist.run_ranks(tmp, spec_c, world=ranks, timeout=DIST_TIMEOUT_S)
+        dt = time.perf_counter() - t0
+        T = spec["ppo"]["horizon_length"]
+        for r, res in enumerate(results):
+            got = res["launches"]
+            assert got["step"] == 2 * T and got["fk"] >= 2 * T and got["substep"] == 0, (
+                r, got)
+            assert res["bad"] == [], (r, res["bad"][:5])
+            assert res["num_envs"] == r_envs
+        bad = [k for m in results[0]["history"] for k, v in m.items()
+               if not math.isfinite(v)]
+        assert not bad, f"non-finite metrics {bad}"
+        log(f"{label} through PPOTrainer.train: {card} | {name} {ranks} x {r_envs} "
+            f"envs, 2 epochs, K1 launches per rank "
+            f"{[r['launches']['step'] for r in results]} (once per control step), K2 "
+            f"{[r['launches']['fk'] for r in results]}; a checkpoint at epoch 2 resumed "
+            f"at world size {ranks} and one more epoch: every leaf of every rank bitwise "
+            f"equal to the uninterrupted run; {dt:.1f} s with process start")
 
 
 if __name__ == "__main__":

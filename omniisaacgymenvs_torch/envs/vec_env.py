@@ -4,22 +4,34 @@
 Every env lives on the task's device; one `torch.Generator` on that device
 per VecEnv draws the reset noise and, in `rollout`, is handed to the
 policy.
+
+Under a process group of W ranks (`parallel/mesh.py`) the `num_envs`
+argument counts the envs of all ranks: this process holds its rank's
+contiguous `num_envs / W` of them (`mesh.env_range`; `self.num_envs`
+counts those), and its generator is seeded from (seed, rank). The JAX
+package draws from one key per env, so its 8-device run equals its
+1-device run; the port draws from one generator per VecEnv, so a W-rank
+run draws other resets than a 1-rank run. The learner's reductions over
+the env axis are global and exact.
 """
 
 from __future__ import annotations
 
 import torch
 
+from omniisaacgymenvs_torch.parallel import mesh
 from omniisaacgymenvs_torch.tasks.base import EnvState, RLTask
 
 
 class VecEnv:
     def __init__(self, task: RLTask, num_envs: int, seed: int = 0):
         self.task = task
-        self.num_envs = num_envs
+        self.rank, world = mesh.rank(), mesh.world_size()
+        mesh.env_range(num_envs, self.rank, world)   # refuses an uneven split
+        self.num_envs = num_envs // world
         self.device = task.device
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.generator.manual_seed(mesh.rank_seed(seed, self.rank))
 
     @property
     def num_obs(self) -> int:
@@ -35,7 +47,7 @@ class VecEnv:
 
     # ------------------------------------------------------------------
     def reset(self, seed: int = 0) -> EnvState:
-        self.generator.manual_seed(seed)
+        self.generator.manual_seed(mesh.rank_seed(seed, self.rank))
         return self.task.reset(self.num_envs, self.generator)
 
     def step(self, es: EnvState, actions: torch.Tensor) -> EnvState:

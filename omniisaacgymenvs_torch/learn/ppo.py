@@ -30,6 +30,19 @@ and the epoch it belongs to. Both are flat dicts of tensors and numbers
 under dotted leaf paths, read with `torch.load(weights_only=True)` onto the
 trainer's device, so a checkpoint written on the card loads on the CPU and
 the other way round.
+
+Under a process group of W ranks (`parallel/mesh.py`, one process per GPU)
+each rank rolls out its own envs and holds the whole learner, its initial
+parameters broadcast from rank 0. Every reduction over the env axis is
+global: the window's episode sums, the norms' moments, the advantages'
+mean and deviation, the metrics. A minibatch is rank-local: each rank
+permutes its own rows with its own generator (seeded from (seed, rank))
+and takes minibatch_size / W of them; the ranks' gradients and loss terms
+are averaged before the clipping and Adam, so every rank takes the same
+step, the step the 1-rank learner takes on the union of the ranks'
+minibatches. Only rank 0 writes files: `model.pt` as at one rank, and
+`env.pt` with the per-env state gathered along the env axis, every rank's
+generator states and the world size, which a resume must share.
 """
 
 from __future__ import annotations
@@ -52,6 +65,7 @@ from omniisaacgymenvs_torch.learn.networks import (
     gaussian_logprob,
 )
 from omniisaacgymenvs_torch.learn.running_norm import RunningNorm
+from omniisaacgymenvs_torch.parallel import mesh
 
 # `train(profile_dir=...)` skips this many epochs (allocation, cuBLAS
 # heuristics, the kernels' first builds) before it starts tracing
@@ -59,6 +73,8 @@ PROFILE_START = 3
 # a checkpoint directory's files
 MAIN_FILE, ENV_FILE = "model.pt", "env.pt"
 HIDDEN_KEYS = ("hidden_h", "hidden_c", "cv_hidden_h", "cv_hidden_c")
+# the sidecar's subtrees with a leading env axis, gathered over the ranks
+ENV_AXIS_KEYS = ("es", "hidden", "cv_hidden", "ep_ret", "ep_len")
 
 
 def _pack_dataset(dataset: Dict[str, torch.Tensor]):
@@ -326,6 +342,9 @@ class PPOTrainer:
         self.env = env
         self.cfg = cfg
         self.device = torch.device(env.device)
+        # this process's rank among `world` (parallel/mesh.py); env holds
+        # this rank's envs
+        self.rank, self.world = mesh.rank(), mesh.world_size()
         self.use_cv = cfg.central_value and env.num_states > 0
         self.is_rnn = cfg.rnn == "lstm"
         self.is_cv_rnn = self.use_cv and cfg.cv_rnn == "lstm"
@@ -355,7 +374,10 @@ class PPOTrainer:
             cv = None
         ac = ac.to(self.device)
         cv = cv.to(self.device) if cv is not None else None
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        mesh.broadcast_([p.data for net in (ac, cv) if net is not None
+                         for p in net.parameters()])
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            mesh.rank_seed(seed, self.rank))
         n, dev = env.num_envs, self.device
         es = env.reset(seed=seed)
         zero = lambda: torch.zeros((), device=dev)  # noqa: E731
@@ -461,7 +483,9 @@ class PPOTrainer:
                                               cv_hidden)
         ts.es, ts.ep_ret, ts.ep_len, ts.task_stats = es, ep_ret, ep_len, task_stats
         ts.hidden, ts.cv_hidden = hidden, cv_hidden
-        stats = dict(fin_ret=fin_ret, fin_len=fin_len, fin_cnt=fin_cnt)
+        # the window's episode sums over every rank's envs
+        fin = mesh.all_reduce_sum(torch.stack([fin_ret, fin_len, fin_cnt]))
+        stats = dict(fin_ret=fin[0], fin_len=fin[1], fin_cnt=fin[2])
         return traj, last_value, stats
 
     def _gae(self, traj, last_value):
@@ -551,6 +575,23 @@ class PPOTrainer:
         return 0.5 * torch.mean(
             self._value_loss(v_pred_n, mb["value"], mb["ret"], ts))
 
+    @staticmethod
+    def _mean_over_ranks(grads: List[torch.Tensor], terms: dict):
+        """The ranks' gradients and loss terms (0-dim) averaged, in one
+        all_reduce of one flat buffer: each rank's are means over its local
+        minibatch, and the ranks' minibatches are of equal size, so the
+        average is the union minibatch's. Without a group: as they are."""
+        if not mesh.active():
+            return grads, terms
+        keys = list(terms)
+        flat = mesh.mean_(torch.cat([g.reshape(-1) for g in grads] + [
+            torch.stack([terms[k].detach().float() for k in keys])]))
+        out, off = [], 0
+        for g in grads:
+            out.append(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
+        return out, dict(zip(keys, flat[off:].unbind()))
+
     def _perms(self, rounds: int, num_slices: int) -> torch.Tensor:
         return torch.stack([
             torch.randperm(num_slices, generator=self.generator,
@@ -564,9 +605,10 @@ class PPOTrainer:
         the mean loss."""
         cfg = self.cfg
         lr = torch.tensor(float(cfg.cv_learning_rate), device=self.device)
-        mb_slices = _divisor_at_most(
+        _, mb_slices = self._split(
+            num_slices * self.world,
             max(cfg.cv_minibatch_size // cfg.seq_len, 1) if self.is_cv_rnn
-            else cfg.cv_minibatch_size, num_slices)
+            else cfg.cv_minibatch_size)
         num_mb = num_slices // mb_slices
         take = _minibatch_taker(dataset)
         if perms is None:
@@ -578,9 +620,10 @@ class PPOTrainer:
         for e in range(cfg.cv_mini_epochs):
             for b in range(num_mb):
                 loss = self._cv_loss(ts, take(idxs[e, b]))
-                grads = list(torch.autograd.grad(loss, params))
+                grads, red = self._mean_over_ranks(
+                    list(torch.autograd.grad(loss, params)), {"loss": loss})
                 clip_adam_step(params, grads, ts.cv_opt_state, lr, cfg.grad_norm)
-                losses.append(torch.nan_to_num(loss.detach()))
+                losses.append(torch.nan_to_num(red["loss"].detach()))
         return torch.stack(losses).mean()
 
     def _adapt_lr(self, lr, kl):
@@ -596,7 +639,8 @@ class PPOTrainer:
                 perms: Optional[torch.Tensor] = None) -> dict:
         """mini_epochs x minibatch SGD with the adaptive-KL learning rate
         ("legacy": after every minibatch; "standard": once per mini-epoch on
-        its mean KL). Returns the means of the losses and the KL."""
+        its mean KL). Returns the means of the losses and the KL.
+        num_slices and mb_slices count this rank's rows (`_slices`)."""
         cfg = self.cfg
         take = _minibatch_taker(dataset)
         num_mb = num_slices // mb_slices
@@ -617,6 +661,8 @@ class PPOTrainer:
                 # actor's value head takes no gradient: zeros, as in JAX
                 grads = list(torch.autograd.grad(loss, params, allow_unused=True,
                                                  materialize_grads=True))
+                grads, aux = self._mean_over_ranks(grads, dict(aux, loss=loss))
+                loss = aux.pop("loss")
                 aux = {k: torch.nan_to_num(v.detach()) for k, v in aux.items()}
                 clip_adam_step(params, grads, ts.opt_state, lr, cfg.grad_norm)
                 if adaptive and cfg.schedule_type == "legacy":
@@ -668,14 +714,26 @@ class PPOTrainer:
         return (dataset, cv_dataset, *self._slices())
 
     def _slices(self):
-        """(num_slices, mb_slices): the SGD dataset's rows (transitions, or
-        sequences of seq_len steps) and a minibatch's."""
+        """(num_slices, mb_slices): this rank's rows of the SGD dataset
+        (transitions, or sequences of seq_len steps) and of a minibatch."""
         cfg = self.cfg
-        steps = cfg.horizon_length * self.env.num_envs
+        steps = cfg.horizon_length * self.env.num_envs * self.world
         if self.is_rnn:
-            return steps // cfg.seq_len, _divisor_at_most(
-                max(cfg.minibatch_size // cfg.seq_len, 1), steps // cfg.seq_len)
-        return steps, _divisor_at_most(cfg.minibatch_size, steps)
+            return self._split(steps // cfg.seq_len,
+                               max(cfg.minibatch_size // cfg.seq_len, 1))
+        return self._split(steps, cfg.minibatch_size)
+
+    def _split(self, num_slices: int, mb_size: int):
+        """(this rank's rows, this rank's minibatch rows) of a dataset of
+        num_slices rows over all ranks whose minibatch takes mb_size rows:
+        the 1-rank minibatch (`_divisor_at_most`) split evenly over the
+        ranks; refuses a minibatch that does not split."""
+        mb = _divisor_at_most(mb_size, num_slices)
+        world = self.world
+        if mb % world:
+            raise ValueError(f"a minibatch of {mb} rows (minibatch_size "
+                             f"{mb_size}) does not split over {world} ranks")
+        return num_slices // world, mb // world
 
     # ------------------------------------------------------------------
     def _epoch(self, ts: TrainState, noise: Optional[torch.Tensor] = None,
@@ -701,8 +759,8 @@ class PPOTrainer:
         if cfg.normalize_value:
             ts.value_norm = ts.value_norm.update(returns)
         dataset, cv_dataset, num_slices, mb_slices = self._datasets(traj)
-        advs_mean = advs.mean()
-        advs_std = advs.std(correction=0)
+        advs_mean, advs_var = mesh.moments(advs.reshape(-1))
+        advs_std = torch.sqrt(advs_var)
         if self.use_cv:
             # central value first (rl_games train_epoch order), then actor
             cv_loss = self._cv_update(ts, cv_dataset, num_slices, cv_perms)
@@ -732,17 +790,18 @@ class PPOTrainer:
             mean_ep_reward=ts.score_mean,
             mean_ep_length=ts.len_mean,
             episodes=cnt,
-            mean_step_reward=traj["reward"].mean(),
+            mean_step_reward=mesh.env_mean(traj["reward"]),
             # critic quality: EV of the rollout values against the returns
-            explained_variance=1.0 - (traj["ret"] - traj["value"]).var(correction=0)
-            / (traj["ret"].var(correction=0) + 1e-8),
+            explained_variance=1.0 - mesh.moments(
+                (traj["ret"] - traj["value"]).reshape(-1))[1]
+            / (mesh.moments(traj["ret"].reshape(-1))[1] + 1e-8),
             lr=ts.lr,
             **aux,
         )
         # the task's episode metrics (mean over envs), and its cross-env
         # statistics
         for k, v in ts.es.metrics.items():
-            metrics[k if "/" in k else "Episode/" + k] = v.float().mean()
+            metrics[k if "/" in k else "Episode/" + k] = mesh.env_mean(v.float())
         if isinstance(ts.task_stats, dict):
             for k, v in ts.task_stats.items():
                 metrics[k if "/" in k else "Episode/" + k] = v
@@ -784,24 +843,47 @@ class PPOTrainer:
     def _generators(self) -> dict:
         return {"trainer": self.generator, "env": self.env.generator}
 
+    def _sidecar(self) -> dict:
+        """The sidecar's flat dict: the env-state tree with its per-env
+        leaves gathered along the env axis over the ranks, the world size,
+        and every rank's generator states stacked, (world, state bytes).
+        A collective: every rank calls it."""
+        side = _flatten(self._env_state_tree())
+        n = self.env.num_envs
+        if mesh.active():
+            for k, v in side.items():
+                if k.split(".")[0] in ENV_AXIS_KEYS and isinstance(v, torch.Tensor):
+                    if v.ndim == 0 or v.shape[0] != n:
+                        raise ValueError(f"{k}: {tuple(v.shape)} has no env axis "
+                                         f"of {n}")
+                    side[k] = mesh.gather_envs(v)
+        side["world_size"] = self.world
+        side.update({f"rng.{k}": mesh.gather_envs(g.get_state()[None])
+                     for k, g in self._generators().items()})
+        return side
+
     def save(self, path: str):
         """Write the checkpoint directory `path`: the sidecar first, then
         the main file, each renamed into place, so a save cut short leaves
         either the old pair or a sidecar whose epoch the old main file
-        does not share (which `load` ignores)."""
+        does not share (which `load` ignores). Every rank calls it (the
+        sidecar gathers the ranks' envs); rank 0 writes."""
+        side = self._sidecar()
+        if not mesh.is_main():
+            return
         os.makedirs(path, exist_ok=True)
-        side = _flatten(self._env_state_tree())
-        side.update({f"rng.{k}": g.get_state()
-                     for k, g in self._generators().items()})
         _save_atomic(side, os.path.join(path, ENV_FILE))
         _save_atomic(_flatten(self._main_tree()), os.path.join(path, MAIN_FILE))
 
-    def load(self, path: str, log_fn=print):
+    def load(self, path: str, log_fn=print, resume: bool = True):
         """Resume from the checkpoint directory `path` (`checkpoint=` of the
         CLIs), on this trainer's device whatever device wrote it. A main
         file that does not fit this trainer raises CheckpointMismatch; the
         sidecar is taken when it fits and shares the main file's epoch,
-        else the envs keep their fresh state."""
+        else the envs keep their fresh state. A sidecar of another world
+        size raises CheckpointMismatch naming both sizes, unless `resume`
+        is False (an evaluation, which needs the main file only): then it
+        is skipped."""
         flat = torch.load(os.path.join(path, MAIN_FILE), map_location=self.device,
                           weights_only=True)
         tree = _restore_like(self._main_tree(), flat)
@@ -822,18 +904,35 @@ class PPOTrainer:
                     ts.cv_opt_state = st
         for k in ("obs_norm", "value_norm", "states_norm", "lr", "epoch"):
             setattr(ts, k, tree[k])
-        self._load_env_state(os.path.join(path, ENV_FILE), log_fn)
+        self._load_env_state(os.path.join(path, ENV_FILE), log_fn, resume)
 
-    def _load_env_state(self, path: str, log_fn):
+    def _load_env_state(self, path: str, log_fn, resume: bool):
         if not os.path.exists(path):
             log_fn("no env-state sidecar: envs restart fresh")
             return
         flat = torch.load(path, map_location=self.device, weights_only=True)
+        saved_world, world = flat.pop("world_size", 1), self.world
+        if saved_world != world:
+            msg = (f"env-state sidecar of world size {saved_world}, this run has "
+                   f"world size {world}")
+            if resume:
+                raise CheckpointMismatch(msg)
+            log_fn(f"{msg}: skipped, envs start fresh")
+            return
         if flat.get("epoch") != self.state.epoch:
             log_fn(f"env-state sidecar ignored: it is of epoch {flat.get('epoch')}, "
                    f"the checkpoint of epoch {self.state.epoch}; envs restart fresh")
             return
         rng = {k: flat.pop(f"rng.{k}", None) for k in self._generators()}
+        if world > 1:
+            # this rank's envs of the gathered leaves (a leaf of another
+            # env count is left whole, and _restore_like names it)
+            n = self.env.num_envs
+            sl = slice(self.rank * n, (self.rank + 1) * n)
+            for k, v in flat.items():
+                if (k.split(".")[0] in ENV_AXIS_KEYS and isinstance(v, torch.Tensor)
+                        and v.ndim > 0 and v.shape[0] == n * world):
+                    flat[k] = v[sl]
         try:
             tree = _restore_like(self._env_state_tree(), flat)
         except CheckpointMismatch as e:
@@ -843,7 +942,9 @@ class PPOTrainer:
             setattr(self.state, k, v)
         kept = []
         for k, g in self._generators().items():
-            st = rng[k]
+            # a row of the stacked states, copied: set_state reads its
+            # storage from the start
+            st = None if rng[k] is None else rng[k][self.rank].clone()
             if st is not None and st.shape == g.get_state().shape:
                 g.set_state(st.cpu())
                 kept.append(k)
@@ -876,7 +977,9 @@ class PPOTrainer:
         PROFILE_START with torch.profiler (one Chrome trace).
         `epochs_per_jit` is accepted for the JAX CLI's sake and ignored:
         there is no compiled multi-epoch program here, every epoch is its
-        own loop of launches."""
+        own loop of launches. Under a process group every rank runs the
+        loop (its metrics are global, so every rank decides alike when to
+        save); rank 0 alone logs, traces and writes files."""
         del epochs_per_jit
         max_epochs = max_epochs or self.cfg.max_epochs
         start_epoch = self.state.epoch
@@ -899,9 +1002,18 @@ class PPOTrainer:
                     best_reward = max(best_reward, float(json.load(f)["best_reward"]))
             except (OSError, json.JSONDecodeError, KeyError, ValueError):
                 pass
+        main = mesh.is_main()
+        if mesh.active():
+            # rank 0's files decide when `best` is saved, on every rank
+            best = torch.tensor(best_reward, dtype=torch.float64, device=self.device)
+            mesh.broadcast_([best])
+            best_reward = float(best)
+        log_fn = log_fn if main else None
+        if not main:
+            writer = profile_dir = history_path = None
         if start_epoch > 0 and log_fn:
             log_fn(f"resuming at epoch {start_epoch} ({len(history)} prior rows)")
-        steps_per_epoch = self.cfg.horizon_length * self.env.num_envs
+        steps_per_epoch = self.cfg.horizon_length * self.env.num_envs * self.world
         sync = (torch.cuda.synchronize if self.device.type == "cuda"
                 else (lambda: None))
         prof = None
@@ -955,7 +1067,8 @@ class PPOTrainer:
                         and m["mean_ep_reward"] > best_reward):
                     best_reward = m["mean_ep_reward"]
                     self.save(os.path.join(save_dir, "best"))
-                    with open(os.path.join(save_dir, "best_meta.json"), "w") as f:
-                        json.dump({"best_reward": best_reward, "epoch": epoch}, f)
+                    if main:
+                        with open(os.path.join(save_dir, "best_meta.json"), "w") as f:
+                            json.dump({"best_reward": best_reward, "epoch": epoch}, f)
             epoch += 1
         return history

@@ -4,7 +4,9 @@ normalize_value in cfg/train/*PPO.yaml.
 
 `update` returns a new RunningNorm and leaves the old one as it was: the
 epoch relies on which statistics each phase sees. Variances are population
-variances (correction 0).
+variances (correction 0). Under a process group the batch's count, mean
+and variance are those of every rank's batch together (two passes,
+`parallel.mesh.moments`), so every rank holds the same statistics.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import dataclasses
 import math
 
 import torch
+
+from omniisaacgymenvs_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,11 +32,11 @@ class RunningNorm:
                    count=torch.tensor(1e-4, device=device))
 
     def update(self, batch: torch.Tensor) -> "RunningNorm":
-        """Welford parallel update with a batch flattened over leading axes."""
+        """Welford parallel update with a batch flattened over leading axes
+        (over every rank's batch under a process group)."""
         x = batch.reshape((-1,) + tuple(self.mean.shape))
-        b_mean = x.mean(0)
-        b_var = x.var(0, correction=0)
-        b_count = x.shape[0]
+        b_mean, b_var = mesh.moments(x, 0)
+        b_count = x.shape[0] * mesh.world_size()
         delta = b_mean - self.mean
         tot = self.count + b_count
         mean = self.mean + delta * b_count / tot

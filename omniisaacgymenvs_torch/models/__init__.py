@@ -10,4 +10,6 @@ from omniisaacgymenvs_torch.models.flyers import (build_crazyflie,
                                                   build_ingenuity,
                                                   build_quadcopter)
 from omniisaacgymenvs_torch.models.humanoid import build_humanoid
+from omniisaacgymenvs_torch.models.pendulum import (build_double_pendulum,
+                                                    build_pendulum)
 from omniisaacgymenvs_torch.models.shadow_hand import build_shadow_hand

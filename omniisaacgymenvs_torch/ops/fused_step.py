@@ -708,6 +708,7 @@ def _launch_step(k, key, ins, planes, dr, outs, n_steps, design):
     N, dev = ins[0].shape[0], ins[0].device
     lc, cfg = k.config(N, planes is not None, dr is not None, design=design)
     lib = library()
+    lib.claim(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     thread = lc["design"] == "thread"
     itab = (k.thread_itab if thread else k.itab).data_ptr()
@@ -790,7 +791,9 @@ def fk(engine, q, qd):
     outs = (e((N, m.nb, 3), device=dev), e((N, m.nb, 4), device=dev),
             e((N, m.nb, 3), device=dev), e((N, m.nb, 3), device=dev))
     _, cfg = k.config(N, fk=True)
-    err = library().lib.oige_fk(
+    lib = library()
+    lib.claim(dev)
+    err = lib.lib.oige_fk(
         k.ftab.data_ptr(), k.itab.data_ptr(), k.dims,
         q.data_ptr(), qd.data_ptr(), *[x.data_ptr() for x in outs], N,
         torch.cuda.current_stream(dev).cuda_stream, cfg,
@@ -974,6 +977,23 @@ class _Library:
         self.build_s = build_s
         self.path = path
         self.thread_path = thread_path
+        self.device = None
+
+    def claim(self, dev: torch.device):
+        """Refuse a launch on another card than the first launch's, or on
+        a card that is not the current device: each kernel raises its
+        shared-memory limit once per process, on the current device
+        (csrc/fused_step.cu allow_max_smem), so one process drives one card
+        (one process per GPU under torchrun)."""
+        idx = torch.cuda.current_device() if dev.index is None else dev.index
+        if idx != torch.cuda.current_device():
+            raise RuntimeError(f"launch on cuda:{idx}, but the current device "
+                               f"is cuda:{torch.cuda.current_device()}")
+        if self.device is None:
+            self.device = idx
+        elif idx != self.device:
+            raise RuntimeError(f"launch on cuda:{idx} in a process whose kernels "
+                               f"run on cuda:{self.device}: one process per GPU")
 
 
 _LIBRARY = None

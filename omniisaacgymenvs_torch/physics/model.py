@@ -328,6 +328,45 @@ class ModelBuilder:
         """Register a contact wrench sensor on `body`."""
         self._sensors.append(body)
 
+    @property
+    def dof_names(self) -> List[str]:
+        """Names of the 1-dof (revolute / prismatic) joint bodies in
+        topological order: the names `set_drive` takes, in the finalized
+        Model's dof order."""
+        return [b.name for b in self._bodies
+                if b.jtype in (JointType.REVOLUTE, JointType.PRISMATIC)]
+
+    def set_drive(
+        self,
+        dof_name: str,
+        stiffness: Optional[float] = None,
+        damping: Optional[float] = None,
+        max_effort: Optional[float] = None,
+        max_velocity: Optional[float] = None,
+        armature: Optional[float] = None,
+        default_q: Optional[float] = None,
+    ):
+        """Set a joint's drive after construction, by dof name (an imported
+        URDF or MJCF model carries no PD gains). `damping` sets the DRIVE
+        damping, not the passive joint damping. Raises KeyError for an
+        unknown name."""
+        for b in self._bodies:
+            if b.parent != -1 and b.name == dof_name:
+                if stiffness is not None:
+                    b.stiffness = float(stiffness)
+                if damping is not None:
+                    b.drive_damping = float(damping)
+                if max_effort is not None:
+                    b.max_effort = float(max_effort)
+                if max_velocity is not None:
+                    b.max_velocity = float(max_velocity)
+                if armature is not None:
+                    b.armature = float(armature)
+                if default_q is not None:
+                    b.default_q = float(default_q)
+                return
+        raise KeyError(f"no dof named {dof_name!r}")
+
     def add_fixed_tendon(
         self,
         dof_a: str,

@@ -5,6 +5,13 @@
         [checkpoint=runs/Humanoid/nn/last] [test=True] [profile=N] \
         [train.params.config.horizon_length=32]
 
+    torchrun --standalone --nproc_per_node=NGPU \
+        -m omniisaacgymenvs_torch.scripts.train task=Humanoid distributed=True
+
+`distributed=True` runs one process per GPU (parallel/mesh.py): num_envs
+counts every rank's envs, the learner's reductions and gradients are
+global, rank 0 alone logs and writes.
+
 Any nested config key can be overridden with dotted syntax. Writes
 runs/<experiment>/ (experiment defaults to the task's name): config.json,
 history.json (every epoch's metrics), nn/ (checkpoints: `last` every
@@ -15,7 +22,8 @@ after three). `checkpoint=` (a local directory or an http(s) archive, see
 utils/paths.py) resumes training at the checkpoint's epoch; with
 `test=True` it is evaluated instead: the mean action over one episode
 length (or `max_iterations` steps), printing the mean episode reward. Runs
-on CUDA unless device=cpu is given.
+on CUDA unless device=cpu is given (under distributed=True on the CPU:
+gloo).
 """
 
 from __future__ import annotations
@@ -26,22 +34,25 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from omniisaacgymenvs_torch.learn import PPOConfig, PPOTrainer
 from omniisaacgymenvs_torch.learn.ppo import reset_where_done
+from omniisaacgymenvs_torch.parallel import mesh
 from omniisaacgymenvs_torch.scripts.common import build_env_from_cli
 from omniisaacgymenvs_torch.utils.config import ppo_config_kwargs
-from omniisaacgymenvs_torch.utils.metrics import make_writer, maybe_init_wandb
+from omniisaacgymenvs_torch.utils.metrics import log, make_writer, maybe_init_wandb
 from omniisaacgymenvs_torch.utils.paths import retrieve_checkpoint_path
 
 
 @torch.no_grad()
-def evaluate(trainer: PPOTrainer, steps: int = 1000, log_fn=print):
+def evaluate(trainer: PPOTrainer, steps: int = 1000, log_fn=log):
     """The deterministic (mean-action, clipped to [-1, 1]) policy on freshly
     reset envs for `steps` control steps, the LSTM states carried from the
     trainer's and zeroed where an episode ends. Returns (mean reward of the
-    finished episodes, their count); with none finished, the mean running
-    reward and 0. Prints the task's statistics."""
+    finished episodes, their count), over every rank's envs; with none
+    finished, the mean running reward and 0. Prints the task's
+    statistics."""
     env, ts = trainer.env, trainer.state
     es = env.reset(seed=123)
     hidden, cv_hidden = ts.hidden, ts.cv_hidden
@@ -63,10 +74,10 @@ def evaluate(trainer: PPOTrainer, steps: int = 1000, log_fn=print):
         stats = env.task.episode_stats_update(stats, es)
     for k, v in stats.items():
         log_fn(f"eval: {k} = {float(v):.2f}")
-    n = float(count.sum())
+    n = float(mesh.env_sum(count))
     if n == 0:
-        return float(ep_ret.mean()), 0
-    return float(total.sum()) / n, int(n)
+        return float(mesh.env_mean(ep_ret)), 0
+    return float(mesh.env_sum(total)) / n, int(n)
 
 
 def build_trainer(argv):
@@ -78,14 +89,23 @@ def build_trainer(argv):
         kw["max_epochs"] = int(cfg["max_iterations"])
     trainer = PPOTrainer(env, PPOConfig(**kw), seed=int(cfg["seed"]))
     if cfg.get("checkpoint"):
-        trainer.load(retrieve_checkpoint_path(cfg["checkpoint"]))
-        print(f"loaded checkpoint {cfg['checkpoint']} (epoch {trainer.state.epoch})",
-              flush=True)
+        # an evaluation needs the main file only, at any world size
+        trainer.load(retrieve_checkpoint_path(cfg["checkpoint"]), log_fn=log,
+                     resume=not cfg.get("test"))
+        log(f"loaded checkpoint {cfg['checkpoint']} (epoch {trainer.state.epoch})")
     return cfg, task, trainer
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
+    try:
+        return _main(argv)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _main(argv):
     cfg, task, trainer = build_trainer(argv)
     env = trainer.env
     if cfg.get("test"):
@@ -94,20 +114,23 @@ def main(argv=None):
         steps = int(cfg.get("max_iterations")
                     or getattr(task, "max_episode_length", 1000) + 1)
         mean_ret, n = evaluate(trainer, steps=steps)
-        print(f"eval: mean episode reward {mean_ret:.2f} over {n} episodes "
-              f"({steps} steps)", flush=True)
+        log(f"eval: mean episode reward {mean_ret:.2f} over {n} episodes "
+            f"({steps} steps)")
         return mean_ret, n
 
     experiment = cfg.get("experiment") or cfg["task_name"]
     run_dir = os.path.join("runs", experiment)
-    os.makedirs(os.path.join(run_dir, "nn"), exist_ok=True)
-    with open(os.path.join(run_dir, "config.json"), "w") as f:
-        json.dump(cfg, f, indent=2, default=str)
+    main_rank = mesh.is_main()
+    if main_rank:
+        os.makedirs(os.path.join(run_dir, "nn"), exist_ok=True)
+        with open(os.path.join(run_dir, "config.json"), "w") as f:
+            json.dump(cfg, f, indent=2, default=str)
     train_c = cfg["train"].get("params", {}).get("config", {})
     writer = make_writer(os.path.join(run_dir, "summaries"))
     wandb_run = maybe_init_wandb(cfg)
-    print(f"task={cfg['task_name']} num_envs={env.num_envs} "
-          f"device={env.device} seed={cfg['seed']}", flush=True)
+    num_envs = env.num_envs * trainer.world
+    log(f"task={cfg['task_name']} num_envs={num_envs} device={env.device} "
+        f"seed={cfg['seed']}" + (f" ranks={trainer.world}" if trainer.world > 1 else ""))
     profile_epochs = int(cfg.get("profile", 0) or 0)
     start = trainer.state.epoch
     history = []
@@ -115,7 +138,7 @@ def main(argv=None):
     try:
         history = trainer.train(
             log_every=1,
-            log_fn=lambda s: print(s, flush=True),
+            log_fn=log,
             save_dir=os.path.join(run_dir, "nn"),
             save_frequency=int(train_c.get("save_frequency", 50)),
             save_best_after=int(train_c.get("save_best_after", 100)),
@@ -129,15 +152,14 @@ def main(argv=None):
         writer.close()
         if wandb_run is not None:
             wandb_run.finish()
-        if history:
+        if history and main_rank:
             with open(os.path.join(run_dir, "history.json"), "w") as f:
                 json.dump(history, f)
     wall = time.perf_counter() - t0
     epochs = trainer.state.epoch - start
-    steps = epochs * trainer.cfg.horizon_length * env.num_envs
-    print(f"trained {epochs} epochs ({start} to {trainer.state.epoch}), {steps} "
-          f"env-steps in {wall:.1f} s: {steps / wall:,.1f} train-steps/s",
-          flush=True)
+    steps = epochs * trainer.cfg.horizon_length * num_envs
+    log(f"trained {epochs} epochs ({start} to {trainer.state.epoch}), {steps} "
+        f"env-steps in {wall:.1f} s: {steps / wall:,.1f} train-steps/s")
     return history
 
 

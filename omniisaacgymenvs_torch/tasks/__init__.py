@@ -1,12 +1,7 @@
-"""Task registry: string name -> task class (the 14 reference names of
-the JAX package's registry). Its one more name, `Custom` (a robot from a
-URDF or MJCF file), is not ported yet and raises `KeyError`."""
+"""Task registry: string name -> task class (the JAX package's 15 names:
+the 14 reference tasks and `Custom`, a robot from a URDF or MJCF file)."""
 
 from omniisaacgymenvs_torch.tasks.base import EnvState, RLTask
-
-
-# the reference tasks not ported yet, with the ROADMAP item that ports them
-NOT_PORTED = {"Custom": "A16 (Custom and the URDF/MJCF importers)"}
 
 
 def _registry():
@@ -17,6 +12,7 @@ def _registry():
     from omniisaacgymenvs_torch.tasks.ball_balance import BallBalanceTask
     from omniisaacgymenvs_torch.tasks.cartpole import CartpoleTask
     from omniisaacgymenvs_torch.tasks.crazyflie import CrazyflieTask
+    from omniisaacgymenvs_torch.tasks.custom import CustomRobotTask
     from omniisaacgymenvs_torch.tasks.franka_cabinet import FrankaCabinetTask
     from omniisaacgymenvs_torch.tasks.humanoid import HumanoidLocomotionTask
     from omniisaacgymenvs_torch.tasks.ingenuity import IngenuityTask
@@ -37,7 +33,8 @@ def _registry():
     return {"AllegroHand": AllegroHandTask, "Ant": AntLocomotionTask,
             "Anymal": AnymalTask, "AnymalTerrain": AnymalTerrainTask,
             "BallBalance": BallBalanceTask, "Cartpole": CartpoleTask,
-            "Crazyflie": CrazyflieTask, "FrankaCabinet": FrankaCabinetTask,
+            "Crazyflie": CrazyflieTask, "Custom": CustomRobotTask,
+            "FrankaCabinet": FrankaCabinetTask,
             "Humanoid": HumanoidLocomotionTask, "Ingenuity": IngenuityTask,
             "Quadcopter": QuadcopterTask, "ShadowHand": ShadowHandTask,
             "ShadowHandOpenAI_FF": openai_variant,
@@ -47,13 +44,8 @@ def _registry():
 def get_task(name: str, cfg: dict | None = None, device=None) -> RLTask:
     """Build task `name` on `device` (default CUDA; raises without it)."""
     task_map = _registry()
-    if name in NOT_PORTED:
-        raise KeyError(f"task {name!r} is not ported yet: ROADMAP "
-                       f"{NOT_PORTED[name]}")
     if name not in task_map:
-        raise KeyError(
-            f"unknown task {name!r}; ported so far: {sorted(task_map)}"
-        )
+        raise KeyError(f"unknown task {name!r}; known: {sorted(task_map)}")
     from omniisaacgymenvs_torch.utils.domain_randomization import Randomizer
 
     task = task_map[name](cfg, device=device)

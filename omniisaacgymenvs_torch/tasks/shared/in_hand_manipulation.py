@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from omniisaacgymenvs_torch.envs.views import RigidPrimView
+from omniisaacgymenvs_torch.parallel import mesh
 from omniisaacgymenvs_torch.physics import rotations as rot
 from omniisaacgymenvs_torch.tasks.base import EnvState, RLTask
 
@@ -123,10 +124,11 @@ class InHandManipulationTask(RLTask):
     def episode_stats_update(self, stats, es: EnvState):
         """Average of the successes of the episodes that ended this step,
         blended into the running value with `averFactor`: a reduction over
-        all envs of the post-step state."""
+        all envs of the post-step state, every rank's under a process group
+        (one collective for both sums)."""
         resets = es.done.float()
-        num_resets = resets.sum()
-        finished = (es.metrics["successes"] * resets).sum()
+        num_resets, finished = mesh.all_reduce_sum(torch.stack(
+            [resets.sum(), (es.metrics["successes"] * resets).sum()])).unbind()
         cons = stats["consecutive_successes"]
         cons = torch.where(
             num_resets > 0,

@@ -3,6 +3,8 @@ package's `utils/metrics.py`).
 
 The writer is TensorBoard's SummaryWriter where it imports, else a JSONL
 file; W&B is off unless `wandb_activate` is set and the module imports.
+Under a process group only rank 0 logs: the other ranks get a writer that
+writes nothing, no W&B run, and `log` prints nothing there.
 """
 
 from __future__ import annotations
@@ -10,6 +12,24 @@ from __future__ import annotations
 import json
 import os
 import time
+
+from omniisaacgymenvs_torch.parallel import mesh
+
+
+def log(*args):
+    """print, flushed, on rank 0 only."""
+    if mesh.is_main():
+        print(*args, flush=True)
+
+
+class NullWriter:
+    """The writer of a rank other than 0."""
+
+    def add_scalar(self, tag: str, value, step):
+        pass
+
+    def close(self):
+        pass
 
 
 class JsonlWriter:
@@ -29,7 +49,10 @@ class JsonlWriter:
 
 
 def make_writer(logdir: str):
-    """TensorBoard SummaryWriter if it imports, else JSONL."""
+    """TensorBoard SummaryWriter if it imports, else JSONL; a NullWriter on
+    a rank other than 0."""
+    if not mesh.is_main():
+        return NullWriter()
     try:
         from torch.utils.tensorboard import SummaryWriter
     except ImportError:
@@ -38,8 +61,9 @@ def make_writer(logdir: str):
 
 
 def maybe_init_wandb(cfg: dict):
-    """W&B run if `wandb_activate` is set and wandb imports, else None."""
-    if not cfg.get("wandb_activate", False):
+    """W&B run if `wandb_activate` is set and wandb imports (rank 0 only),
+    else None."""
+    if not cfg.get("wandb_activate", False) or not mesh.is_main():
         return None
     try:
         import wandb

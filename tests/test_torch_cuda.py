@@ -8,7 +8,10 @@ beyond the kernels' maxima, the learner's checkpoints across devices
 (saved on the card and loaded on the CPU, and back, FF and LSTM), and
 FrankaCabinet, AllegroHand, Ingenuity, Quadcopter and Crazyflie (K1 in
 both forms and K2 at their yamls' depths, a rollout's launches, a fifth
-Franka prop refused).
+Franka prop refused), and Custom on imported robots (the URDF example
+with a FIXED and a FREE base, chip_smoke.py's MJCF chain: K1 in both forms
+and K2, a rollout's launches, a chain beyond NB_MAX refused) and the
+refusal of a launch on a second device in one process.
 They skip without a CUDA device. This file imports no JAX, so it also runs
 where JAX is not installed:
 
@@ -532,3 +535,105 @@ def test_arm_hand_flyer_rollout_launches_k1_once_per_step(name, cuda_device):
 def test_fifth_franka_prop_is_refused_on_card(cuda_device):
     with pytest.raises(NotImplementedError, match="FREE roots"):
         get_task("FrankaCabinet", {"env": {"numProps": 5}}, device=cuda_device)
+
+
+# Custom on imported robots: the URDF example (FIXED and FREE base) and
+# chip_smoke.py's MJCF chain
+CUSTOM_CASES = ("fixed", "floating", "mjcf")
+
+
+def _custom_task(case, tmp_path, device):
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    from chip_smoke import MJCF_CHAIN, URDF_EXAMPLE
+
+    env = {"robot": os.path.join(root, URDF_EXAMPLE),
+           "floatingBase": case == "floating"}
+    if case == "mjcf":
+        env["robot"] = str(tmp_path / "chain.xml")
+        (tmp_path / "chain.xml").write_text(MJCF_CHAIN)
+    from omniisaacgymenvs_torch.utils.config import load_config
+    cfg = load_config({"task": "Custom"})["task"]
+    return get_task("Custom", {**cfg, "env": {**cfg["env"], **env}}, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CUSTOM_CASES)
+def test_custom_kernels_match_plain_in_both_forms(case, tmp_path, cuda_device):
+    """K1 in both forms and K2 against their plain versions on the card at
+    Custom.yaml's depth (4 substeps), on check states that put the FREE
+    example's and the chain's contact points in the ground."""
+    task = _custom_task(case, tmp_path, cuda_device)
+    eng, m = task.engine, task.model
+    n, seed = 515, 6
+    n_sub = task.decimation * eng.params.substeps
+    q, qd, eff = parity.check_inputs(m, n, seed=seed, device=cuda_device)
+    ptg = parity.check_targets(m, q, seed)
+    z = torch.zeros((n, m.njd), device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    fa = 0.05 * torch.randn((n, m.nb, 6), device=cuda_device, generator=gen)
+    if case != "fixed":
+        assert parity.active_contacts(eng, q, qd)["ground"] > 0
+    tol = parity.step_tol(m)
+
+    def run_plain(q_, qd_):
+        return fs.step_plain(eng, q_, qd_, eff, ptg, z, fa, n_sub)
+
+    ref = run_plain(q, qd)
+    keep = parity.check_keep(m, run_plain, q, qd, ref, parity.STEP_NAMES, tol)
+    for d in fs.DESIGNS:
+        out = fs.step(eng, q, qd, eff, ptg, z, fa, n_sub, design=d)
+        parity.assert_within(f"Custom {case} K1 {d}", parity.compare(
+            out, ref, parity.STEP_NAMES, tol, keep), tol)
+    parity.assert_within(f"Custom {case} K2", parity.compare(
+        fs.fk(eng, q, qd), fs.fk_plain(m, q, qd), parity.FK_NAMES,
+        parity.FK_TOL), parity.FK_TOL)
+    torch.cuda.synchronize()
+    assert eng.kernels.launches["step"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CUSTOM_CASES)
+def test_custom_rollout_launches_k1_once_per_step(case, tmp_path, cuda_device):
+    task = _custom_task(case, tmp_path, cuda_device)
+    env = VecEnv(task, 256, seed=0)
+    es = env.reset(seed=0)
+    kern = task.engine.kernels
+    kern.reset_counts()
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for _ in range(4):
+        a = 2 * torch.rand((256, task.num_actions), device=cuda_device, generator=g) - 1
+        es = env.step(es, a)
+    torch.cuda.synchronize()
+    assert kern.launches["step"] == 4 and kern.launches["substep"] == 0
+    assert kern.launches["fk"] >= 4
+    assert torch.isfinite(es.obs).all() and torch.isfinite(es.phys.q).all()
+
+
+@pytest.mark.cuda
+def test_custom_chain_beyond_the_kernel_maximum_is_refused_on_card(tmp_path,
+                                                                   cuda_device):
+    n = fs.NB_MAX + 1
+    links = "".join(f'<link name="l{i}"><inertial><mass value="1"/>'
+                    f'<inertia ixx="0.01" iyy="0.01" izz="0.01"/></inertial></link>'
+                    for i in range(n))
+    joints = "".join(f'<joint name="j{i}" type="revolute"><parent link="l{i - 1}"/>'
+                     f'<child link="l{i}"/><axis xyz="0 1 0"/></joint>'
+                     for i in range(1, n))
+    path = tmp_path / "long.urdf"
+    path.write_text(f'<robot name="long">{links}{joints}</robot>')
+    with pytest.raises(NotImplementedError, match=f"{n} bodies > kernel maximum"):
+        get_task("Custom", {"env": {"robot": str(path)}}, device=cuda_device)
+
+
+@pytest.mark.cuda
+def test_launch_on_a_second_device_is_refused(cuda_device):
+    """The kernels raise their shared-memory limit once per process, on the
+    current device: a launch elsewhere is refused."""
+    lib = fs.library()
+    other = torch.device("cuda", torch.cuda.current_device() + 1)
+    with pytest.raises(RuntimeError, match="current device"):
+        lib.claim(other)

@@ -364,30 +364,29 @@ def test_scope_rejects_beyond_kernel_maxima(what):
 
 
 def test_task_registry_refuses_randomization_and_unported_tasks():
-    """Randomization and the OpenAI names are ported; the registry refuses
-    the tasks that are not."""
+    """Randomization and the OpenAI names are ported; Custom without a robot
+    raises as the JAX package's does; an unknown name raises KeyError."""
     from omniisaacgymenvs_torch.tasks import get_task
 
     task = get_task("ShadowHand", {"domain_randomization": {"randomize": True}},
                     device="cpu")
     assert task._dr_on
     assert get_task("ShadowHandOpenAI_FF", device="cpu").num_obs == 42
-    with pytest.raises(KeyError, match="A16"):
+    with pytest.raises(ValueError, match="robot"):
         get_task("Custom", device="cpu")
-    with pytest.raises(KeyError, match="ported so far"):
+    with pytest.raises(KeyError, match="unknown task"):
         get_task("NoSuchTask", device="cpu")
 
 
 def test_registry_holds_the_fourteen_reference_names():
-    """The port registers the 14 reference names of the JAX package's
-    registry; the one more name there, Custom, is not ported yet and
-    raises naming its ROADMAP item."""
+    """The port registers the JAX package's 15 names: the 14 reference
+    tasks and Custom."""
     from omniisaacgymenvs_torch import tasks as ttasks
     from omniisaacgymenvs_tpu import tasks as jtasks
 
-    assert len(ttasks._registry()) == 14
-    assert set(ttasks.NOT_PORTED) == {"Custom"}
-    assert set(ttasks._registry()) | {"Custom"} == set(jtasks._registry())
+    assert len(ttasks._registry()) == 15
+    assert not hasattr(ttasks, "NOT_PORTED")
+    assert set(ttasks._registry()) == set(jtasks._registry())
 
 
 @pytest.mark.parametrize("name", ["FrankaCabinet", "Crazyflie", "Quadcopter",

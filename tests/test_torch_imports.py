@@ -59,6 +59,14 @@ def test_scan_covers_the_task_modules():
         assert ROOT / "omniisaacgymenvs_torch" / rel in PORT_FILES, rel
 
 
+def test_scan_covers_the_importer_and_parallel_modules():
+    """The importers, the Custom task and the multi-GPU modules are scanned
+    like every other module."""
+    for rel in ("models/importers.py", "models/pendulum.py", "tasks/custom.py",
+                "parallel/__init__.py", "parallel/mesh.py"):
+        assert ROOT / "omniisaacgymenvs_torch" / rel in PORT_FILES, rel
+
+
 def test_port_imports_without_jax():
     mods = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(

@@ -24,7 +24,7 @@ from torch_parity import np_
 TRAIN_TASKS = ("Humanoid", "Ant", "Cartpole", "BallBalance", "Anymal",
                "AnymalTerrain", "ShadowHand", "ShadowHandOpenAI_FF",
                "ShadowHandOpenAI_LSTM", "FrankaCabinet", "Crazyflie",
-               "Quadcopter", "Ingenuity", "AllegroHand")
+               "Quadcopter", "Ingenuity", "AllegroHand", "Custom")
 # float32 in another summation order: (rtol, atol)
 F32 = dict(rtol=1e-5, atol=1e-6)
 # bf16 matrix products and activations: both packages return bf16 values

@@ -17,11 +17,13 @@ from omniisaacgymenvs_torch.models import (build_allegro_hand, build_ant,
                                            build_franka_cabinet, build_humanoid,
                                            build_ingenuity, build_quadcopter,
                                            build_shadow_hand)
+from omniisaacgymenvs_torch.models import importers
 from omniisaacgymenvs_torch.physics import contacts as tcontacts
 from omniisaacgymenvs_torch.physics.model import Model
 from omniisaacgymenvs_torch.utils.config import CFG_DIR, load_config
 from omniisaacgymenvs_tpu.models import build_ant as jbuild_ant
 from omniisaacgymenvs_tpu.models import flyers as jflyers
+from omniisaacgymenvs_tpu.models import importers as jimporters
 from omniisaacgymenvs_tpu.models.allegro_hand import (
     build_allegro_hand as jbuild_allegro_hand)
 from omniisaacgymenvs_tpu.models.franka_cabinet import (
@@ -38,6 +40,17 @@ from torch_parity import jax_fields, np_
 
 _TERRAIN_KW = dict(drive=dict(stiffness=80.0, drive_damping=2.0, max_effort=80.0),
                    dual_foot_contacts=True)
+
+
+def _custom_model(from_urdf):
+    """The Custom task's model of examples/double_pendulum.urdf: the file
+    imported, Custom.yaml's drive on every dof."""
+    b = from_urdf(os.path.join(os.path.dirname(__file__), "..", "examples",
+                               "double_pendulum.urdf"))
+    for dof in b.dof_names:
+        b.set_drive(dof, stiffness=40.0, damping=2.0, max_effort=100.0)
+    return b.finalize()
+
 BUILDERS = {"Humanoid": (build_humanoid, jbuild_humanoid),
             "Ant": (build_ant, jbuild_ant),
             "Cartpole": (build_cartpole, jbuild_cartpole),
@@ -54,7 +67,9 @@ BUILDERS = {"Humanoid": (build_humanoid, jbuild_humanoid),
             # the yaml's four props (the builder also returns the drawer)
             "FrankaCabinet": (lambda: build_franka_cabinet(4)[0],
                               lambda: jbuild_franka_cabinet(4)[0]),
-            "AllegroHand": (build_allegro_hand, jbuild_allegro_hand)}
+            "AllegroHand": (build_allegro_hand, jbuild_allegro_hand),
+            "Custom": (lambda: _custom_model(importers.from_urdf),
+                       lambda: _custom_model(jimporters.from_urdf))}
 
 
 def _assert_model_equal(pm: Model, jf: dict):
