@@ -119,7 +119,23 @@ Phases (any failure exits non-zero):
      permutations composed (every parameter within LEARNER_ATOL), then 2
      epochs through `PPOTrainer.train` with K1 once per control step in
      each rank and a checkpoint resumed at world size 2 bit for bit. Every
-     child process has a timeout of its own, and its failure fails the run.
+     child process has a timeout of its own, and its failure fails the run;
+ 13. the demos and the regression harness on the card: (a) `python -m
+     omniisaacgymenvs_torch.scripts.gpu_regression` in a process of its own
+     exits 0 with "ok" true, each check's numbers logged; (b) K1, K2 and K3
+     against their plain versions at the demos' widths, never launched
+     before: Anymal at 1 env, AnymalTerrain at 1 and 4 envs on terrain
+     planes, with their launch configurations; (c) the interactive demo's
+     selftest (200 control steps, 1 env) for task=Anymal and
+     task=AnymalTerrain: K1 exactly once per control step (AnymalTerrain:
+     four), K2 at least once, no plain physics, a finite displacement; and
+     its first 3 steps from a reset held against the same steps on the CPU
+     with the card's weights (f32 networks, no observation noise); (d) the
+     AnymalTerrain demo, 700 steps and 2800 K1 launches, its .npz with the
+     JAX demo's keys and shapes; (e) `scripts/play.py record=` of Anymal and
+     its keys (the viewer needs matplotlib: it is tested on the CPU); then K1
+     and K2 at the demos' widths held again and timed beside their plain
+     versions and bounds, their launches those of the demos' runs.
 Tolerances and check states come from omniisaacgymenvs_torch/ops/parity.py.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -191,6 +207,15 @@ CUSTOM_LEARN = dict(envs=256, seed=3, episode_length=100, epochs=120, bar=20.0)
 # gloo), each child process's timeout
 DIST_TASK = ("Humanoid", 4096)
 DIST_TIMEOUT_S = 600
+# phase 13: the regression harness's timeout; the demos' widths, held and
+# timed (the interactive demo's 1 env, the AnymalTerrain demo's 4); the
+# interactive selftest's control steps; the demo steps held card vs CPU, at
+# tests/test_torch_anymal.py's tolerances (obs rtol, atol; rewards)
+REGRESSION_TIMEOUT_S = 600
+DEMO_WIDTHS = (("Anymal", 1), ("AnymalTerrain", 1), ("AnymalTerrain", 4))
+SELFTEST_STEPS = 200
+DEMO_CPU_STEPS = 3
+DEMO_OBS_TOL, DEMO_REW_TOL = (2e-3, 2e-3), 1e-3
 # phase 10: the arm, the second hand and the flyers at their yamls' numEnvs
 ARM_HAND_FLYERS = {"FrankaCabinet": 4096, "Crazyflie": 4096, "Quadcopter": 4096,
           "Ingenuity": 4096, "AllegroHand": 8192}
@@ -325,11 +350,13 @@ def main() -> int:
         q, qd, eff = parity.terrain_check_inputs(tasks[name], n, seed, dev)
         return q, qd, eff, {"planes": eng._contact_planes(eng.init_state(q, qd))}
 
-    def check(name: str, n: int, seed: int, overlay: bool = False) -> dict:
+    def check(name: str, n: int, seed: int, overlay: bool = False,
+              cover: bool = True) -> dict:
         """K1, K2 and K3 of `name`'s engine against their plain versions on
         n check states; the largest abs error per kernel. With `overlay`,
         K1 and K3 under a randomization overlay of every key the model has
-        a size for."""
+        a size for. `cover`: the states must put a point on every terrain
+        feature (not asked of the demos' 1 and 4 envs)."""
         eng = engines[name]
         m = eng.model
         ov = parity.overlay_inputs(m, n, seed, dev) if overlay else None
@@ -347,7 +374,7 @@ def main() -> int:
             f"{n} envs, {n_sub[name]} substeps, active contacts {active}")
         if name == "Humanoid":
             assert active["ground"] > 0, "no contact point in the ground"
-        if terrain:
+        if terrain and cover:
             assert min(active.values()) > 0, f"a terrain feature is not hit: {active}"
         if len(m.pair_surf):
             assert active["pairs"] > 0, "no pair in contact"
@@ -913,6 +940,12 @@ def main() -> int:
     # ---- 12. distributed on the one card ----
     distributed_phase(card)
 
+    # ---- 13. the demos and the regression harness ----
+    with tempfile.TemporaryDirectory() as tmp:
+        demos_phase(tmp, card, rows, check, check_states, bound, device_ms_of,
+                    engines, n_sub)
+    torch.cuda.synchronize()
+
     # K1 and K2 carry each main path; K3 is a launch mode no product path
     # takes, held against its plain version above
     for r in rows:
@@ -1379,6 +1412,179 @@ def distributed_phase(card, nccl_ranks=1, ranks=2, backend="gloo", device="cuda:
             f"{[r['launches']['fk'] for r in results]}; a checkpoint at epoch 2 resumed "
             f"at world size {ranks} and one more epoch: every leaf of every rank bitwise "
             f"equal to the uninterrupted run; {dt:.1f} s with process start")
+
+
+def demos_phase(tmp, card, rows, check, check_states, bound, device_ms_of,
+                engines, n_sub):
+    """Phase 13: the demos and the regression harness (module docstring);
+    appends the K1 and K2 rows of the demos' widths to `rows`."""
+    import numpy as np
+
+    from omniisaacgymenvs_torch.demos import anymal_terrain, interactive
+    from omniisaacgymenvs_torch.ops import fused_step as fs
+    from omniisaacgymenvs_torch.ops import parity
+    from omniisaacgymenvs_torch.scripts import play
+    from omniisaacgymenvs_torch.scripts.train import build_trainer
+
+    dev = torch.device("cuda")
+    # (a) the regression harness, as a user runs it after a kernel change
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    rc, out = run_child([sys.executable, "-m", "omniisaacgymenvs_torch.scripts.gpu_regression"],
+                        ROOT, REGRESSION_TIMEOUT_S, env)
+    lines = [ln for ln in out.splitlines() if ln.startswith('{"ok"')]
+    assert rc == 0 and lines, f"gpu_regression exited {rc}:\n{out[-4000:]}"
+    res = json.loads(lines[-1])
+    assert res["ok"] is True and len(res["checks"]) == 5, res
+    for name, c in res["checks"].items():
+        log(f"gpu_regression {name}: {card} | {json.dumps(c)}")
+    log(f"gpu_regression: ok, 5 checks in {time.perf_counter() - t0:.1f} s (process "
+        f"start included)")
+
+    # (b) the kernels at the demos' widths against their plain versions
+    errs = {}
+    for name, n in DEMO_WIDTHS:
+        errs[(name, n)] = check(name, n, seed=0, cover=False)
+        eng = engines[name]
+        for key in ("step", "fk"):
+            lc = eng.kernels.config(n, eng.has_terrain and key == "step", False,
+                                    key == "fk")[0]
+            log(f"  {name} {n} env(s), {'K1' if key == 'step' else 'K2'}: launch "
+                f"{fs.describe_config(lc)}")
+
+    # (c) the interactive demo's selftest, and its first steps against the CPU
+    launches = {}
+    cmds, cmd = [], np.zeros(3, np.float32)
+    for key, n_press in interactive.SELFTEST_SCRIPT:
+        for _ in range(n_press):
+            interactive.apply_keys(cmd, [key])
+            cmds.append(torch.as_tensor(cmd.copy()))
+    for name in ("Anymal", "AnymalTerrain"):
+        with plain_physics_counted() as plain:
+            t0 = time.perf_counter()
+            res = interactive.main(["selftest=1", f"task={name}", "device=cuda"])
+            dt = time.perf_counter() - t0
+        task = res["task"]
+        got = dict(task.engine.kernels.launches)
+        per_step = task.engine.k1_launches(task.decimation)
+        assert plain["n"] == 0, "the demo ran the plain physics"
+        assert res["steps"] == SELFTEST_STEPS, res["steps"]
+        assert got["step"] == SELFTEST_STEPS * per_step and got["substep"] == 0, got
+        assert got["fk"] >= 1, got
+        assert math.isfinite(res["displacement"]) and np.isfinite(res["heights"]).all()
+        launches[(name, 1)] = got
+        log(f"interactive selftest: {card} | {name} 1 env, {res['steps']} steps in "
+            f"{dt:.1f} s (task build included), launches {got} ({per_step} K1 a "
+            f"step), displacement {res['displacement']:.4f} m, base height min "
+            f"{min(res['heights']):.4f} mean {np.mean(res['heights']):.4f} final "
+            f"{res['heights'][-1]:.4f} m (untrained policy)")
+        del res, task
+        # the same steps on the card and the CPU from one reset, with the
+        # card's weights; f32 networks (the card's and the CPU's bf16 round
+        # apart) and no observation noise (two generators)
+        argv = [f"task={name}", "num_envs=1", "test=True"]
+        if name == "AnymalTerrain":
+            argv.append("task.env.learn.addNoise=False")
+        _, _, gtr = build_trainer(argv + ["device=cuda"])
+        _, _, ctr = build_trainer(argv + ["device=cpu"])
+        ctr.state = _state_to(gtr.state, "cpu")
+        gtr.state.ac.dtype = ctr.state.ac.dtype = None
+        ges = gtr.env.reset(seed=0)
+        ces = _state_to(ges, "cpu")
+        rtol, atol = DEMO_OBS_TOL
+        worst = {"obs": 0.0, "reward": 0.0}
+        for k in range(DEMO_CPU_STEPS):
+            ges = interactive.demo_step(gtr, gtr.env, ges, cmds[k])
+            ces = interactive.demo_step(ctr, ctr.env, ces, cmds[k])
+            go, gr = ges.obs.cpu(), ges.reward.cpu()
+            assert torch.equal(ges.done.cpu(), ces.done), k
+            assert bool(((go - ces.obs).abs() <= atol + rtol * ces.obs.abs()).all()), k
+            assert bool(((gr - ces.reward).abs()
+                         <= DEMO_REW_TOL + DEMO_REW_TOL * ces.reward.abs()).all()), k
+            worst["obs"] = max(worst["obs"], float((go - ces.obs).abs().max()))
+            worst["reward"] = max(worst["reward"], float((gr - ces.reward).abs().max()))
+        log(f"demo steps, card vs CPU: {card} | {name} 1 env x {DEMO_CPU_STEPS} steps "
+            f"under the selftest's commands: obs max abs err {worst['obs']:.3e} (rtol "
+            f"{rtol}, atol {atol}), reward {worst['reward']:.3e} (rtol, atol "
+            f"{DEMO_REW_TOL}), dones equal")
+        del gtr, ctr, ges, ces
+
+    # (d) the AnymalTerrain demo
+    path = os.path.join(tmp, "demo.npz")
+    with plain_physics_counted() as plain:
+        t0 = time.perf_counter()
+        res = anymal_terrain.main([f"out={path}", "device=cuda"])
+        dt = time.perf_counter() - t0
+    task = res["task"]
+    got = dict(task.engine.kernels.launches)
+    steps = sum(int(sec / task.dt) for sec, _ in anymal_terrain.COMMAND_SCRIPT)
+    assert plain["n"] == 0, "the demo ran the plain physics"
+    assert res["steps"] == steps == 700, (res["steps"], steps)
+    assert got["step"] == steps * task.engine.k1_launches(task.decimation) == 2800, got
+    assert got["fk"] >= 1 and got["substep"] == 0, got
+    rec = np.load(path)
+    assert sorted(rec.files) == ["commands", "dof_names", "q"], rec.files
+    assert rec["q"].shape == (steps, task.model.nq) and rec["q"].dtype == np.float32
+    assert rec["commands"].shape == (steps, 3) and rec["commands"].dtype == np.float64
+    assert list(rec["dof_names"]) == list(task.model.dof_names)
+    assert np.isfinite(rec["q"]).all(), "non-finite q"
+    launches[("AnymalTerrain", anymal_terrain.DEMO_ENVS)] = got
+    log(f"AnymalTerrain demo: {card} | {anymal_terrain.DEMO_ENVS} envs, {steps} steps "
+        f"in {dt:.1f} s (task build included), launches {got}; .npz q "
+        f"{rec['q'].shape}, commands {rec['commands'].shape}, {len(rec['dof_names'])} "
+        f"dof names; displacement {res['displacement']:.4f} m (untrained policy)")
+    del res, task, rec
+
+    # (e) a recording for the viewer
+    path = os.path.join(tmp, "traj.npz")
+    play.main(["task=Anymal", "num_envs=64", "device=cuda", f"record={path}",
+               "max_iterations=32"])
+    rec = np.load(path)
+    assert sorted(rec.files) == sorted(["q", "body_pos", "parents", "rewards", "task",
+                                        "body_names", "dof_names"]), rec.files
+    assert rec["body_pos"].shape[:1] == rec["q"].shape[:1] == rec["rewards"].shape == (32,)
+    assert str(rec["task"]) == "Anymal" and np.isfinite(rec["body_pos"]).all()
+    log(f"play.py record=: {card} | Anymal, 32 steps of env 0, keys {sorted(rec.files)}")
+
+    # K1 and K2 at the demos' widths again, and timed
+    for name, n in DEMO_WIDTHS:
+        again = check(name, n, seed=1, cover=False)
+        eng = engines[name]
+        m = eng.model
+        terrain = eng.has_terrain
+        q, qd, eff, pl = check_states(name, n, seed=1)
+        ptg = parity.check_targets(m, q, 1)
+        z = torch.zeros((n, m.njd), device=dev)
+        fa = torch.zeros((n, m.nb, 6), device=dev)
+        runs = {"step": (lambda: fs.step(eng, q, qd, eff, ptg, z, fa, n_sub[name], **pl),
+                         lambda: fs.step_plain(eng, q, qd, eff, ptg, z, fa, n_sub[name],
+                                               **pl)),
+                "fk": (lambda: fs.fk(eng, q, qd), lambda: fs.fk_plain(m, q, qd))}
+        for key, (run_k, run_p) in runs.items():
+            fk = key == "fk"
+            ms = time_ms(run_k, 20)
+            device_ms = device_ms_of(run_k, ms)
+            plain_ms = time_ms(run_p, 2)
+            lc = eng.kernels.config(n, terrain and not fk, False, fk)[0]
+            ops = (fs.op_count(m, 1)["fk"] if fk
+                   else fs.op_count(m, n_sub[name], planes=terrain)["step"])
+            bound_ms, bound_by = bound(n, fs.io_bytes(m, planes=terrain and not fk)[key],
+                                       ops)
+            n_launch = launches[(name, n)][key]
+            label = "report_fk_k2" if fk else "fused_step_k1"
+            log(f"{label} {name}: {card} | {n} env(s): {ms:.4f} ms ({device_ms:.4f} ms "
+                f"of device time per launch, profiler), plain {plain_ms:.3f} ms, bound "
+                f"{bound_ms:.6f} ms by {bound_by}, {n_launch} launches on the demo's "
+                f"path; launch {fs.describe_config(lc)}")
+            rows.append(dict(
+                name=f"{label}_{name.lower()}_{n}env", model=name, route="cuda",
+                source=SOURCES[lc["design"]],
+                replaces=f"{TPU_FILE}:{943 if fk else 1016}", launches=n_launch,
+                max_abs_err=max(errs[(name, n)][key], again[key]), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, device_ms=device_ms, envs=n,
+                launch={k: lc[k] for k in ("design", "group", "envs_per_block",
+                                           "blocks", "smem_bytes", "env_bytes")}))
 
 
 if __name__ == "__main__":

@@ -402,6 +402,47 @@ def build_pair_scene(device="cpu"):
     return b.finalize(device)
 
 
+REST_SURFACES = ("sphere", "capsule", "box")
+
+
+def build_rest_scene(surface: str, device="cpu"):
+    """(model, engine) of a ball resting on a receiver: a FIXED base 0.5 m
+    up, a revolute holder carrying a `surface` receiver ("sphere",
+    "capsule" or "box"; the surface's body is not a root, as a palm, a tray
+    or a drawer is not), and a FREE 0.5 kg "ball" with one contact point of
+    radius 0.03 at its origin; dt 1/60 in 4 substeps. The box's top lies at
+    z = 0.54, so a ball centre below it is a point inside the box: the
+    branch decided on the squared distance (scripts/gpu_regression.py)."""
+    from omniisaacgymenvs_torch.physics.engine import PhysicsEngine, SimParams
+    from omniisaacgymenvs_torch.physics.model import JointType, ModelBuilder
+
+    if surface not in REST_SURFACES:
+        raise ValueError(f"surface {surface!r}: one of {REST_SURFACES}")
+    b = ModelBuilder(f"pair_{surface}")
+    root = b.add_body("base", parent=-1, joint_type=JointType.FIXED,
+                      joint_pos=(0.0, 0.0, 0.5))
+    holder = b.add_body(
+        "holder", parent=root, joint_type=JointType.REVOLUTE,
+        joint_axis=(0, 0, 1), mass=2.0, inertia=(0.02, 0.02, 0.02),
+        stiffness=100.0, drive_damping=10.0, limit=(-1.0, 1.0),
+    )
+    if surface == "sphere":
+        b.add_sphere_collider(holder, (0, 0, 0), 0.12, receive=True)
+    elif surface == "capsule":
+        b.add_capsule_collider(holder, (-0.1, 0, 0), (0.1, 0, 0), 0.08,
+                               receive=True)
+    else:
+        b.add_box_collider(holder, (0, 0, 0), (0.15, 0.15, 0.04),
+                           receive=True)
+    ball = b.add_body(
+        "ball", parent=-1, joint_type=JointType.FREE, mass=0.5,
+        inertia=(0.001, 0.001, 0.001), default_pos=(0.0, 0.02, 0.75),
+    )
+    b.add_contact_point(ball, (0, 0, 0), radius=0.03)
+    m = b.finalize(device)
+    return m, PhysicsEngine(m, SimParams(dt=1 / 60, substeps=4))
+
+
 def sign_align(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a with each quaternion's sign flipped to agree with b (q and -q are
     one rotation)."""

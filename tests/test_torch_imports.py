@@ -67,6 +67,16 @@ def test_scan_covers_the_importer_and_parallel_modules():
         assert ROOT / "omniisaacgymenvs_torch" / rel in PORT_FILES, rel
 
 
+def test_scan_covers_the_demo_and_harness_modules():
+    """The demos, the viewer (the port's own copy: the JAX package's
+    imports no JAX) and the GPU regression harness are scanned like every
+    other module."""
+    for rel in ("demos/__init__.py", "demos/interactive.py",
+                "demos/anymal_terrain.py", "scripts/viewer.py",
+                "scripts/gpu_regression.py"):
+        assert ROOT / "omniisaacgymenvs_torch" / rel in PORT_FILES, rel
+
+
 def test_port_imports_without_jax():
     mods = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(

@@ -106,6 +106,31 @@ def test_play_records_the_jax_keys(tmp_path, monkeypatch):
     assert np.isfinite(rec["q"]).all()
 
 
+def test_viewer_renders_the_jax_viewers_frames(tmp_path, monkeypatch):
+    """A Cartpole recording of the port's play.py rendered by the port's
+    viewer and by the JAX package's (which imports no JAX): the decoded GIF
+    frames are equal, pixel for pixel."""
+    from PIL import Image, ImageSequence
+
+    from omniisaacgymenvs_torch.scripts import viewer
+    from omniisaacgymenvs_tpu.scripts import viewer as jviewer
+
+    monkeypatch.chdir(tmp_path)
+    play.main(["task=Cartpole", "num_envs=4", "device=cpu", "record=traj.npz",
+               "max_iterations=8"])
+    viewer.main(["traj.npz", "port.gif", "fps=10", "stride=2", "azim=30"])
+    jviewer.main(["traj.npz", "jax.gif", "fps=10", "stride=2", "azim=30"])
+    frames = []
+    for name in ("port.gif", "jax.gif"):
+        with Image.open(tmp_path / name) as im:
+            frames.append([np.asarray(f.convert("RGB")) for f in ImageSequence.Iterator(im)])
+    port, ref = frames
+    assert len(port) == len(ref) == 4
+    for a, b in zip(port, ref):
+        np.testing.assert_array_equal(a, b)
+    assert len({a.tobytes() for a in port}) > 1  # the figure moves
+
+
 @pytest.mark.parametrize("rnn", [None, "lstm"])
 def test_evaluate_equals_a_step_loop(rnn):
     """`evaluate` against the port's own loop: a fresh reset of seed 123,
