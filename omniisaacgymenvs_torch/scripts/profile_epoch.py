@@ -80,7 +80,7 @@ def main(argv=None) -> int:
                 ("epochs", "warmup"))
     argv = [a for a in argv if a.split("=", 1)[0] not in ("epochs", "warmup")]
     epochs, warmup = int(opts.get("epochs", 3)), int(opts.get("warmup", 2))
-    cfg, task, env = build_env_from_cli(argv)
+    cfg, task, env = build_env_from_cli(argv, default_task="Humanoid")
     if env.device.type != "cuda":
         raise SystemExit("profile_epoch measures the card: needs device=cuda")
     card = subprocess.run(

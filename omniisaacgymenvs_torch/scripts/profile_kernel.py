@@ -36,6 +36,7 @@ def main(argv=None) -> int:
     args = parse_cli(sys.argv[1:] if argv is None else argv)
     substeps = args.pop("substeps", None)
     n = int(args.setdefault("num_envs", 32768))
+    args.setdefault("task", "Humanoid")     # the bench's main path
     cfg = load_config(args)
     name = cfg["task_name"]
     if not torch.cuda.is_available():

@@ -70,7 +70,7 @@ def _trace(fn, reps: int):
 
 
 def main(argv=None) -> int:
-    cfg, task, env = build_env_from_cli(argv)
+    cfg, task, env = build_env_from_cli(argv, default_task="Humanoid")
     if env.device.type != "cuda":
         raise SystemExit("profile_rollout measures the card: needs device=cuda")
     steps = int(cfg.get("max_iterations") or 8)

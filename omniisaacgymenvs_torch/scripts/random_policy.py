@@ -4,12 +4,13 @@ learning in the loop, and print reward statistics and throughput.
     python -m omniisaacgymenvs_torch.scripts.random_policy \
         task=Humanoid num_envs=32768 max_iterations=64 [device=cpu]
 
-Tasks: Humanoid, Ant, Cartpole, BallBalance, ShadowHand, Anymal,
-AnymalTerrain, ShadowHandOpenAI_FF and ShadowHandOpenAI_LSTM (the hand under
-its yaml's domain randomization; ShadowHand takes
+Tasks: Humanoid, Ant, Cartpole (the default), BallBalance, ShadowHand,
+Anymal, AnymalTerrain, ShadowHandOpenAI_FF and ShadowHandOpenAI_LSTM (the
+hand under its yaml's domain randomization; ShadowHand takes
 `task.domain_randomization.randomize=True`), FrankaCabinet, AllegroHand,
-Ingenuity, Quadcopter and Crazyflie: every reference task but Custom. Runs
-on CUDA unless `device=cpu` is given.
+Ingenuity, Quadcopter, Crazyflie and Custom (an imported robot:
+`task.env.robot=<.urdf|.xml|.mjcf>`): every reference task. Runs on CUDA
+unless `device=cpu` is given.
 """
 
 from __future__ import annotations

@@ -163,6 +163,7 @@ def main(argv=None) -> int:
     design = args.pop("design", None)
     define = args.pop("define", None)
     n = int(args.setdefault("num_envs", 32768))
+    args.setdefault("task", "Humanoid")     # the bench's main path
     cfg = load_config(args)
     name = cfg["task_name"]
     if not torch.cuda.is_available():

@@ -3,7 +3,9 @@
 
 `task=Humanoid num_envs=4096 task.env.episodeLength=500 device=cpu
 train.params.config.horizon_length=32`. Yamls are read from this package's
-own `cfg/task/` and `cfg/train/`.
+own `cfg/task/` and `cfg/train/`. The root keys and their defaults are the
+JAX package's (task Cartpole, seed 42, `headless` accepted and ignored),
+and `device` (cuda).
 """
 
 from __future__ import annotations
@@ -83,12 +85,13 @@ def load_config(overrides: Optional[Dict[str, Any]] = None) -> dict:
     overrides."""
     overrides = dict(overrides or {})
     root = dict(
-        task_name=overrides.pop("task", "Humanoid"),
+        task_name=overrides.pop("task", "Cartpole"),
         num_envs=overrides.pop("num_envs", None),
         seed=overrides.pop("seed", 42),
         test=overrides.pop("test", False),
         checkpoint=overrides.pop("checkpoint", ""),
         max_iterations=overrides.pop("max_iterations", None),
+        headless=overrides.pop("headless", True),  # accepted, no-op
         experiment=overrides.pop("experiment", ""),
         device=overrides.pop("device", "cuda"),
     )
