@@ -135,7 +135,20 @@ Phases (any failure exits non-zero):
      JAX demo's keys and shapes; (e) `scripts/play.py record=` of Anymal and
      its keys (the viewer needs matplotlib: it is tested on the CPU); then K1
      and K2 at the demos' widths held again and timed beside their plain
-     versions and bounds, their launches those of the demos' runs.
+     versions and bounds, their launches those of the demos' runs;
+ 14. the training campaign runner (`python -m
+     omniisaacgymenvs_torch.scripts.campaign`) on AnymalTerrain at its
+     yaml's 2048 envs and 10 x 20 terrain grid with riser walls, seed 42,
+     save_frequency 2: 4 epochs in one chunk, then the same 4 epochs in two
+     chunks of 2 with runs/<experiment> deleted between them and restored
+     from `out=` (what a new machine sees). Every history.json row equals
+     the uninterrupted run's in every key but steps_per_sec (wall clock),
+     and every leaf of the final nn/last (model.pt, env.pt) is bitwise
+     equal. Each child runs scripts/train.py, which sets the kernels'
+     counts to 0 before its training loop and logs them after it: K1 four
+     times per control step (one substep each, on terrain planes), K2 at
+     least once per control step, no K3. Each child has a timeout of its own, and its
+     failure fails the run.
 Tolerances and check states come from omniisaacgymenvs_torch/ops/parity.py.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -149,6 +162,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -212,6 +226,10 @@ DIST_TIMEOUT_S = 600
 # interactive selftest's control steps; the demo steps held card vs CPU, at
 # tests/test_torch_anymal.py's tolerances (obs rtol, atol; rewards)
 REGRESSION_TIMEOUT_S = 600
+# phase 14: the campaign's task, its envs (the yaml's), epochs in all and
+# per chunk, the runner's checkpoint cadence, and each child's timeout
+CAMPAIGN = dict(task="AnymalTerrain", envs=2048, epochs=4, chunk=2, save_frequency=2)
+CAMPAIGN_TIMEOUT_S = 300
 DEMO_WIDTHS = (("Anymal", 1), ("AnymalTerrain", 1), ("AnymalTerrain", 4))
 SELFTEST_STEPS = 200
 DEMO_CPU_STEPS = 3
@@ -946,6 +964,10 @@ def main() -> int:
                     engines, n_sub)
     torch.cuda.synchronize()
 
+    # ---- 14. the training campaign runner ----
+    with tempfile.TemporaryDirectory() as tmp:
+        campaign_phase(tmp, card)
+
     # K1 and K2 carry each main path; K3 is a launch mode no product path
     # takes, held against its plain version above
     for r in rows:
@@ -1412,6 +1434,66 @@ def distributed_phase(card, nccl_ranks=1, ranks=2, backend="gloo", device="cuda:
             f"{[r['launches']['fk'] for r in results]}; a checkpoint at epoch 2 resumed "
             f"at world size {ranks} and one more epoch: every leaf of every rank bitwise "
             f"equal to the uninterrupted run; {dt:.1f} s with process start")
+
+
+def campaign_phase(tmp, card, device="cuda", extra=()):
+    """Phase 14: the campaign runner, one chunk against two (module
+    docstring). `device` and `extra` overrides let the phase run at a small
+    size on the CPU."""
+    from omniisaacgymenvs_torch.scripts.campaign import RECORD, unequal_runs
+
+    c = CAMPAIGN
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    base = [sys.executable, "-m", "omniisaacgymenvs_torch.scripts.campaign"]
+    cli = [c["task"], f"num_envs={c['envs']}", "seed=42", f"device={device}",
+           "task.env.terrain.riserWalls=True", f"max_iterations={c['epochs']}",
+           f"train.params.config.save_frequency={c['save_frequency']}",
+           f"timeout_s={CAMPAIGN_TIMEOUT_S}", "retries=0", *extra]
+    chunked = [*cli, f"chunk={c['chunk']}", "out=carried"]
+    runs = (("whole", cli), ("chunked", chunked), ("chunked", chunked))
+    children = []
+    for i, (exp, args) in enumerate(runs):
+        if i == 2:  # a new machine: the run directory is gone
+            shutil.rmtree(os.path.join(tmp, "runs", exp))
+        t0 = time.perf_counter()
+        rc, out = run_child(base + [exp, *args], tmp, CAMPAIGN_TIMEOUT_S + 60, env)
+        dt = time.perf_counter() - t0
+        assert rc == 0, f"campaign {exp} exited {rc}:\n{out[-4000:]}"
+        if i == 2:
+            assert "restored" in out, out[-2000:]
+        with open(os.path.join(tmp, "runs", exp, RECORD)) as f:
+            chunk = json.load(f)["chunks"][-1]
+        children.append((exp, chunk, dt))
+    diffs = unequal_runs(os.path.join(tmp, "runs", "whole"),
+                         os.path.join(tmp, "runs", "chunked"))
+    assert not diffs, diffs[:10]
+    with open(os.path.join(tmp, "runs", "chunked", "history.json")) as f:
+        hist = json.load(f)
+    assert [m["epoch"] for m in hist] == list(range(c["epochs"])), hist
+    bad = [k for m in hist for k, v in m.items() if not math.isfinite(v)]
+    assert not bad, f"non-finite metrics {bad}"
+    horizon = None
+    for exp, chunk, dt in children:
+        epochs = chunk["end"] - chunk["start"]
+        got = chunk.get("launches")
+        if device == "cuda":
+            from omniisaacgymenvs_torch.utils.config import load_config
+
+            horizon = horizon or load_config({"task": c["task"]})["train"]["params"][
+                "config"]["horizon_length"]
+            steps = epochs * horizon
+            assert got and got["step"] == 4 * steps and got["fk"] >= steps, (exp, got)
+            assert got["substep"] == 0 and got["step_overlay"] == 0, (exp, got)
+        log(f"campaign {exp} epochs {chunk['start']}-{chunk['end']}: {card} | "
+            f"{chunk.get('device_line')}; {chunk.get('train_steps_per_sec')} "
+            f"train-steps/s, {dt:.1f} s with the runner's and the child's start; "
+            f"kernel launches {got}")
+    log(f"campaign: {card} | {c['task']} {c['envs']} envs, {c['epochs']} epochs in one "
+        f"chunk and in {c['epochs'] // c['chunk']} chunks of {c['chunk']} with "
+        f"runs/ deleted between them: {len(hist)} history rows equal but "
+        f"steps_per_sec, every nn/last leaf bitwise equal; last epoch "
+        f"mean_step_reward {hist[-1]['mean_step_reward']:.4f}, terrain level "
+        f"{hist[-1].get('episode/terrain_level')}")
 
 
 def demos_phase(tmp, card, rows, check, check_states, bound, device_ms_of,

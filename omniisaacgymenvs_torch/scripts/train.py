@@ -18,7 +18,9 @@ history.json (every epoch's metrics), nn/ (checkpoints: `last` every
 `save_frequency` epochs, `best` after `save_best_after`, as the train yaml
 sets them), summaries/ (TensorBoard, or a JSONL file where TensorBoard does
 not import) and, with profile=N, trace/ (a torch.profiler trace of N epochs
-after three). `checkpoint=` (a local directory or an http(s) archive, see
+after three). On the card it ends by logging the kernels' launches over the
+training loop (`kernel launches over the training {...}`: K1 `step`, K2
+`fk`, K3 `substep`). The task defaults to Cartpole, as in the JAX package. `checkpoint=` (a local directory or an http(s) archive, see
 utils/paths.py) resumes training at the checkpoint's epoch; with
 `test=True` it is evaluated instead: the mean action over one episode
 length (or `max_iterations` steps), printing the mean episode reward. Runs
@@ -132,6 +134,9 @@ def _main(argv):
     log(f"task={cfg['task_name']} num_envs={num_envs} device={env.device} "
         f"seed={cfg['seed']}" + (f" ranks={trainer.world}" if trainer.world > 1 else ""))
     profile_epochs = int(cfg.get("profile", 0) or 0)
+    kernels = task.engine.kernels           # None on the CPU
+    if kernels is not None:
+        kernels.reset_counts()
     start = trainer.state.epoch
     history = []
     t0 = time.perf_counter()
@@ -160,6 +165,10 @@ def _main(argv):
     steps = epochs * trainer.cfg.horizon_length * num_envs
     log(f"trained {epochs} epochs ({start} to {trainer.state.epoch}), {steps} "
         f"env-steps in {wall:.1f} s: {steps / wall:,.1f} train-steps/s")
+    if kernels is not None:
+        log("kernel launches over the training " + json.dumps(dict(
+            kernels.launches, step_overlay=kernels.overlay_launches["step"],
+            step_thread=kernels.thread_launches["step"])))
     return history
 
 

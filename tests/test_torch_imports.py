@@ -1,6 +1,8 @@
-"""The port imports neither JAX nor Flax nor anything of the JAX package:
-an ast scan of every file of omniisaacgymenvs_torch/, of chip_smoke.py, of
-bench_torch.py and of tools/conditioning_probe.py, and a fresh interpreter that imports the whole port."""
+"""The port imports neither JAX nor Flax nor anything of the JAX package,
+nor the JAX package's root scripts/: an ast scan of every file of
+omniisaacgymenvs_torch/, of chip_smoke.py, of bench_torch.py and of
+tools/conditioning_probe.py, and a fresh interpreter that imports the whole
+port."""
 
 import ast
 import os
@@ -11,7 +13,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "omniisaacgymenvs_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "omniisaacgymenvs_tpu", "scripts")
 PORT_FILES = sorted((ROOT / "omniisaacgymenvs_torch").rglob("*.py"))
 
 
@@ -96,3 +98,12 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+
+
+def test_scan_covers_the_campaign_runner():
+    """The training campaign runner is scanned like every other module: it
+    runs scripts/train.py of the port, never the JAX package's root
+    scripts/ (run_task.sh, train_all.sh, make_learning_json.py)."""
+    assert ROOT / "omniisaacgymenvs_torch" / "scripts" / "campaign.py" in PORT_FILES
+    assert "scripts" in FORBIDDEN
+    assert list(_imports(ROOT / "omniisaacgymenvs_torch" / "scripts" / "campaign.py"))
