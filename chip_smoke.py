@@ -1488,7 +1488,7 @@ def campaign_phase(tmp, card, device="cuda", extra=()):
             f"{chunk.get('device_line')}; {chunk.get('train_steps_per_sec')} "
             f"train-steps/s, {dt:.1f} s with the runner's and the child's start; "
             f"kernel launches {got}")
-    log(f"campaign: {card} | {c['task']} {c['envs']} envs, {c['epochs']} epochs in one "
+    log(f"campaign: {card} | {c['task']}, {c['epochs']} epochs in one "
         f"chunk and in {c['epochs'] // c['chunk']} chunks of {c['chunk']} with "
         f"runs/ deleted between them: {len(hist)} history rows equal but "
         f"steps_per_sec, every nn/last leaf bitwise equal; last epoch "

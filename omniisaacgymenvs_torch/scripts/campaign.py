@@ -87,6 +87,10 @@ class Refused(ValueError):
     """A campaign the runner will not start: no child was run."""
 
 
+def log(msg: str):
+    print(msg, flush=True)
+
+
 def split_args(argv):
     """(the runner's options given, the train overrides) of key=value
     arguments."""
@@ -243,15 +247,7 @@ def run_child(cmd, log_path: str, watchdog_s: float, timeout_s: float, echo=None
     return rc, info
 
 
-def _read_record(path: str):
-    try:
-        with open(path) as f:
-            return json.load(f)
-    except FileNotFoundError:
-        return None
-
-
-def run_experiment(exp: str, task: str, overrides, opts: dict, log=print) -> int:
+def run_experiment(exp: str, task: str, overrides, opts: dict) -> int:
     """Run the next chunk of `exp` (or, with until_s, the chunks that fit);
     the exit code of the last child, 0 when the budget is reached."""
     for a in overrides:
@@ -268,8 +264,12 @@ def run_experiment(exp: str, task: str, overrides, opts: dict, log=print) -> int
         log(f"=== {exp}: restored {', '.join(CARRIED)} from {out}")
     record_path = os.path.join(run_dir, RECORD)
     world = int(opts["nproc"])
-    record = _read_record(record_path) or dict(
-        experiment=exp, task=task, device=device, world_size=world, chunks=[])
+    try:
+        with open(record_path) as f:
+            record = json.load(f)
+    except FileNotFoundError:
+        record = dict(experiment=exp, task=task, device=device, world_size=world,
+                      chunks=[])
     if (record["task"], record["device"], record["world_size"]) != (task, device, world):
         raise Refused(
             f"{exp} was trained as task {record['task']} on {record['device']} at "
@@ -297,8 +297,9 @@ def run_experiment(exp: str, task: str, overrides, opts: dict, log=print) -> int
         t0, tries = time.monotonic(), 0
         while True:
             resume = [f"checkpoint={last}"] if os.path.isdir(last) else []
-            log(f"=== {exp} (task={task}): epochs {checkpoint_epoch(last) if resume else 0}"
-                f" to {end} of {budget}" + (f" on {card}" if card else ""))
+            begin = checkpoint_epoch(last) if resume else 0
+            log(f"=== {exp} (task={task}): epochs {begin} to {end} of {budget}"
+                + (f" on {card}" if card else ""))
             rc, info = run_child([sys.executable, "-u", *train, f"max_iterations={end}",
                                   *resume], log_path, opts["watchdog_s"],
                                  opts["timeout_s"])
@@ -325,12 +326,12 @@ def run_experiment(exp: str, task: str, overrides, opts: dict, log=print) -> int
     return rc
 
 
-def run_suite(tasks, given: dict, overrides, log=print) -> int:
+def run_suite(tasks, given: dict, overrides) -> int:
     opts = {**DEFAULTS, **SUITE_DEFAULTS, **given}
     rcs = {}
     for t in tasks or SUITE:
         try:
-            rcs[t] = run_experiment(t, t, overrides, opts, log)
+            rcs[t] = run_experiment(t, t, overrides, opts)
         except Refused as e:
             log(f"=== {t}: refused: {e}")
             rcs[t] = 2
@@ -391,7 +392,7 @@ def main(argv=None) -> int:
             print(__doc__, file=sys.stderr)
             return 2
         given, overrides = split_args(argv[2:])
-        return run_experiment(argv[0], argv[1], overrides, dict(DEFAULTS, **given))
+        return run_experiment(argv[0], argv[1], overrides, {**DEFAULTS, **given})
     except Refused as e:
         print(f"campaign: refused: {e}", file=sys.stderr)
         return 2

@@ -7,7 +7,8 @@ watchdog kills a child gone silent, with its process group, and the
 campaign resumes from nn/last; a child past its timeout (exit 124) is not
 retried; the suite's order and defaults; LEARNING_TORCH.json is what
 scripts/make_learning_json.py makes of results_torch/. Every child has a
-timeout of its own of at most 120 s."""
+timeout of its own of at most 120 s; chip_smoke.py's phase 14 runs at a
+small size."""
 
 import json
 import os
@@ -232,7 +233,7 @@ def test_until_s_runs_the_chunks_that_fit(stub):
 def test_suite_order_and_defaults(monkeypatch):
     seen = []
 
-    def run(exp, task, overrides, opts, log=print):
+    def run(exp, task, overrides, opts):
         seen.append((exp, task, list(overrides), opts))
         return 0 if task != "Ant" else 1
 
@@ -258,3 +259,22 @@ def test_learning_torch_json_is_made_from_results_torch():
         assert (ROOT / "results_torch" / task / "card.txt").read_text().strip(), task
         assert row["epochs"] == len(json.loads(
             (ROOT / "results_torch" / task / "history.json").read_text())), task
+
+
+def test_chip_smoke_campaign_phase_on_the_cpu(tmp_path, monkeypatch):
+    """chip_smoke.py's phase 14 at a small size on the CPU: AnymalTerrain
+    (64 envs, a 3 x 5 terrain grid, 8-step epochs) in one chunk and in two,
+    runs/ deleted between them: histories equal but steps_per_sec, nn/last
+    bitwise (the launch counts are checked on the card only)."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+
+    chip_smoke.campaign_phase(str(tmp_path), "cpu", device="cpu", extra=(
+        "num_envs=64", "task.env.terrain.numLevels=3", "task.env.terrain.numTerrains=5",
+        "train.params.config.horizon_length=8", "train.params.config.minibatch_size=256",
+        CHILD_TIMEOUT))
+    assert campaign.unequal_runs(str(tmp_path / "runs" / "whole"),
+                                 str(tmp_path / "runs" / "chunked")) == []
+    rec = json.loads((tmp_path / "runs" / "chunked" / campaign.RECORD).read_text())
+    assert [(c["start"], c["end"]) for c in rec["chunks"]] == [(0, 2), (2, 4)]
+    assert "num_envs=64" in rec["chunks"][0]["device_line"]
