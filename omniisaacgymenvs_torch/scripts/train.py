@@ -20,7 +20,8 @@ sets them), summaries/ (TensorBoard, or a JSONL file where TensorBoard does
 not import) and, with profile=N, trace/ (a torch.profiler trace of N epochs
 after three). On the card it ends by logging the kernels' launches over the
 training loop (`kernel launches over the training {...}`: K1 `step`, K2
-`fk`, K3 `substep`). The task defaults to Cartpole, as in the JAX package. `checkpoint=` (a local directory or an http(s) archive, see
+`fk`, K3 `substep`). The task defaults to Cartpole, as in the JAX package.
+`checkpoint=` (a local directory or an http(s) archive, see
 utils/paths.py) resumes training at the checkpoint's epoch; with
 `test=True` it is evaluated instead: the mean action over one episode
 length (or `max_iterations` steps), printing the mean episode reward. Runs
