@@ -137,18 +137,25 @@ Phases (any failure exits non-zero):
      and K2 at the demos' widths held again and timed beside their plain
      versions and bounds, their launches those of the demos' runs;
  14. the training campaign runner (`python -m
-     omniisaacgymenvs_torch.scripts.campaign`) on AnymalTerrain at its
-     yaml's 2048 envs and 10 x 20 terrain grid with riser walls, seed 42,
-     save_frequency 2: 4 epochs in one chunk, then the same 4 epochs in two
-     chunks of 2 with runs/<experiment> deleted between them and restored
-     from `out=` (what a new machine sees). Every history.json row equals
-     the uninterrupted run's in every key but steps_per_sec (wall clock),
-     and every leaf of the final nn/last (model.pt, env.pt) is bitwise
-     equal. Each child runs scripts/train.py, which sets the kernels'
-     counts to 0 before its training loop and logs them after it: K1 four
-     times per control step (one substep each, on terrain planes), K2 at
-     least once per control step, no K3. Each child has a timeout of its own, and its
-     failure fails the run.
+     omniisaacgymenvs_torch.scripts.campaign`), seed 42, on two cases:
+     (a) AnymalTerrain at its yaml's 2048 envs and 10 x 20 terrain grid
+     with riser walls, save_frequency 2: 4 epochs in one chunk, then the
+     same 4 epochs in two chunks of 2; (b) ShadowHand_DR, the hand under its
+     yaml's randomization block at 16384 envs (ShadowHand_DR's width, the
+     thread form of K1 under an overlay), save_frequency 1: 2 epochs in one
+     chunk, then in two chunks of 1. Between the chunks runs/<experiment>
+     is deleted and restored from `out=` (what a new machine sees). Every
+     history.json row equals the uninterrupted run's in every key but
+     steps_per_sec (wall clock), and every leaf of the final nn/last
+     (model.pt, env.pt) is bitwise equal. Each child runs
+     scripts/train.py, which sets the kernels' counts to 0 before its
+     training loop and logs them after it: (a) K1 four times per control
+     step (one substep each, on terrain planes), no overlay; (b) K1 once
+     per control step, every launch in the thread form and with the
+     overlay (the reset draws of stiffness, damping and mass scales stay in
+     every env's carry); both K2 at least once per control step and no K3.
+     The ShadowHand_DR child's train-steps/s and nn/last size are printed.
+     Each child has a timeout of its own, and its failure fails the run.
 Tolerances and check states come from omniisaacgymenvs_torch/ops/parity.py.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -226,9 +233,18 @@ DIST_TIMEOUT_S = 600
 # interactive selftest's control steps; the demo steps held card vs CPU, at
 # tests/test_torch_anymal.py's tolerances (obs rtol, atol; rewards)
 REGRESSION_TIMEOUT_S = 600
-# phase 14: the campaign's task, its envs (the yaml's), epochs in all and
-# per chunk, the runner's checkpoint cadence, and each child's timeout
-CAMPAIGN = dict(task="AnymalTerrain", envs=2048, epochs=4, chunk=2, save_frequency=2)
+# phase 14: each case's experiment, task, envs, epochs in all and per
+# chunk, the runner's checkpoint cadence, its overrides and the K1 launches
+# a control step (AnymalTerrain's yaml width; ShadowHand_DR's 16384), and
+# each child's timeout
+CAMPAIGNS = (
+    dict(exp="terrain", task="AnymalTerrain", envs=2048, epochs=4, chunk=2,
+         save_frequency=2, overrides=("task.env.terrain.riserWalls=True",),
+         k1_per_step=4, overlay=False, thread=False),
+    dict(exp="dr", task="ShadowHand", envs=16384, epochs=2, chunk=1,
+         save_frequency=1, overrides=("task.domain_randomization.randomize=True",),
+         k1_per_step=1, overlay=True, thread=True),
+)
 CAMPAIGN_TIMEOUT_S = 300
 DEMO_WIDTHS = (("Anymal", 1), ("AnymalTerrain", 1), ("AnymalTerrain", 4))
 SELFTEST_STEPS = 200
@@ -1436,27 +1452,37 @@ def distributed_phase(card, nccl_ranks=1, ranks=2, backend="gloo", device="cuda:
             f"equal to the uninterrupted run; {dt:.1f} s with process start")
 
 
-def campaign_phase(tmp, card, device="cuda", extra=()):
-    """Phase 14: the campaign runner, one chunk against two (module
-    docstring). `device` and `extra` overrides let the phase run at a small
-    size on the CPU."""
-    from omniisaacgymenvs_torch.scripts.campaign import RECORD, unequal_runs
+def campaign_phase(tmp, card, device="cuda", extra=None, timeout_s=CAMPAIGN_TIMEOUT_S,
+                   cases=None):
+    """Phase 14: the campaign runner, one chunk against two, on each case
+    of CAMPAIGNS (module docstring), or those whose experiment is in
+    `cases`. `device`, `extra` (overrides by case experiment) and
+    `timeout_s` let the phase run at a small size on the CPU."""
+    for c in CAMPAIGNS:
+        if cases is not None and c["exp"] not in cases:
+            continue
+        campaign_case(tmp, card, c, device, tuple((extra or {}).get(c["exp"], ())),
+                      timeout_s)
 
-    c = CAMPAIGN
+
+def campaign_case(tmp, card, c, device, extra, timeout_s):
+    from omniisaacgymenvs_torch.scripts.campaign import RECORD, du, unequal_runs
+
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     base = [sys.executable, "-m", "omniisaacgymenvs_torch.scripts.campaign"]
     cli = [c["task"], f"num_envs={c['envs']}", "seed=42", f"device={device}",
-           "task.env.terrain.riserWalls=True", f"max_iterations={c['epochs']}",
+           *c["overrides"], f"max_iterations={c['epochs']}",
            f"train.params.config.save_frequency={c['save_frequency']}",
-           f"timeout_s={CAMPAIGN_TIMEOUT_S}", "retries=0", *extra]
+           f"timeout_s={timeout_s}", "retries=0", *extra]
     chunked = [*cli, f"chunk={c['chunk']}", "out=carried"]
-    runs = (("whole", cli), ("chunked", chunked), ("chunked", chunked))
+    whole_exp, chunked_exp = f"{c['exp']}_whole", f"{c['exp']}_chunked"
+    runs = ((whole_exp, cli), (chunked_exp, chunked), (chunked_exp, chunked))
     children = []
     for i, (exp, args) in enumerate(runs):
         if i == 2:  # a new machine: the run directory is gone
             shutil.rmtree(os.path.join(tmp, "runs", exp))
         t0 = time.perf_counter()
-        rc, out = run_child(base + [exp, *args], tmp, CAMPAIGN_TIMEOUT_S + 60, env)
+        rc, out = run_child(base + [exp, *args], tmp, timeout_s + 60, env)
         dt = time.perf_counter() - t0
         assert rc == 0, f"campaign {exp} exited {rc}:\n{out[-4000:]}"
         if i == 2:
@@ -1464,10 +1490,10 @@ def campaign_phase(tmp, card, device="cuda", extra=()):
         with open(os.path.join(tmp, "runs", exp, RECORD)) as f:
             chunk = json.load(f)["chunks"][-1]
         children.append((exp, chunk, dt))
-    diffs = unequal_runs(os.path.join(tmp, "runs", "whole"),
-                         os.path.join(tmp, "runs", "chunked"))
+    whole, chunked_dir = (os.path.join(tmp, "runs", e) for e in (whole_exp, chunked_exp))
+    diffs = unequal_runs(whole, chunked_dir)
     assert not diffs, diffs[:10]
-    with open(os.path.join(tmp, "runs", "chunked", "history.json")) as f:
+    with open(os.path.join(chunked_dir, "history.json")) as f:
         hist = json.load(f)
     assert [m["epoch"] for m in hist] == list(range(c["epochs"])), hist
     bad = [k for m in hist for k, v in m.items() if not math.isfinite(v)]
@@ -1482,18 +1508,27 @@ def campaign_phase(tmp, card, device="cuda", extra=()):
             horizon = horizon or load_config({"task": c["task"]})["train"]["params"][
                 "config"]["horizon_length"]
             steps = epochs * horizon
-            assert got and got["step"] == 4 * steps and got["fk"] >= steps, (exp, got)
-            assert got["substep"] == 0 and got["step_overlay"] == 0, (exp, got)
+            assert got and got["step"] == c["k1_per_step"] * steps, (exp, got)
+            assert got["fk"] >= steps and got["substep"] == 0, (exp, got)
+            assert got["step_overlay"] == (got["step"] if c["overlay"] else 0), (exp, got)
+            assert got["step_thread"] == (got["step"] if c["thread"] else 0), (exp, got)
         log(f"campaign {exp} epochs {chunk['start']}-{chunk['end']}: {card} | "
             f"{chunk.get('device_line')}; {chunk.get('train_steps_per_sec')} "
             f"train-steps/s, {dt:.1f} s with the runner's and the child's start; "
             f"kernel launches {got}")
-    log(f"campaign: {card} | {c['task']}, {c['epochs']} epochs in one "
+    last = os.path.join(whole, "nn", "last")
+    log(f"campaign {c['exp']}: {card} | {children[0][1].get('device_line')} "
+        f"{' '.join(c['overrides'])}: nn/last {du(last)} B (du -sb; model.pt "
+        f"{du(os.path.join(last, 'model.pt'))} B, env.pt "
+        f"{du(os.path.join(last, 'env.pt'))} B); uninterrupted run "
+        f"{children[0][1].get('train_steps_per_sec')} train-steps/s")
+    log(f"campaign {c['exp']}: {card} | {c['task']}, {c['epochs']} epochs in one "
         f"chunk and in {c['epochs'] // c['chunk']} chunks of {c['chunk']} with "
         f"runs/ deleted between them: {len(hist)} history rows equal but "
         f"steps_per_sec, every nn/last leaf bitwise equal; last epoch "
-        f"mean_step_reward {hist[-1]['mean_step_reward']:.4f}, terrain level "
-        f"{hist[-1].get('episode/terrain_level')}")
+        f"mean_step_reward {hist[-1]['mean_step_reward']:.4f}"
+        + (f", terrain level {hist[-1].get('episode/terrain_level')}"
+           if "episode/terrain_level" in hist[-1] else ""))
 
 
 def demos_phase(tmp, card, rows, check, check_states, bound, device_ms_of,

@@ -7,6 +7,7 @@ scripts/run_task.sh and scripts/train_all.sh).
         [override ...] [chunk=N] [until_s=S] [out=DIR] [watchdog_s=600] \
         [retries=3] [timeout_s=7000] [nproc=1]
     python -m omniisaacgymenvs_torch.scripts.campaign all [task ...] [option ...]
+    python -m omniisaacgymenvs_torch.scripts.campaign carry DIR
 
 One experiment runs `python -u -m omniisaacgymenvs_torch.scripts.train
 task=<task> experiment=<experiment> <override ...>` in a session of its
@@ -20,7 +21,10 @@ fails (a watchdog kill counts as a failure, exit 99) is resumed from
 runs/<experiment>/nn/last up to `retries` times, each earlier log renamed
 to .tryK; one that outlives `timeout_s` is killed and exits 124, which is
 not retried. `nproc=N` runs the child under torch.distributed.run with N
-ranks (`distributed=True`).
+ranks (`distributed=True`). SIGTERM to the runner kills the child's process
+group and exits 143, but waits while the runner writes campaign.json and
+copies the state to `out=`: a run stopped there is never left without its
+nn/last.
 
 Chunks: with chunk=N a child stops after epoch k*N (it is passed
 max_iterations=k*N, an absolute epoch); the last chunk ends at the budget,
@@ -44,6 +48,22 @@ it also records every chunk: its epochs, exit code, retries, wall, the
 child's start-up (to its first epoch line), train-steps/s, kernel launches
 and device line, and the card.
 
+Carrying several experiments between machines whose outputs are capped
+(`carry DIR`, run after the campaigns of a machine have ended): every
+nn/best under DIR/<experiment>/ is deleted (nn/best_meta.json keeps the
+watermark), so is the nn/last of each experiment whose record reached its
+budget; the `du -sb` of each nn/last left is printed, and each
+DIR/<experiment>/ is packed into DIR/<experiment>.tar.gz (gzip: the float
+state packs to some 80-93%) and removed. DIR lies in the directory the
+chip tool brings back, whose cap is `CARRY_CAP` (64 MiB) in all; the
+archives may take the cap less what the rest of DIR's parent holds. A call
+can pass it: ShadowHand_DR's archive (56 MB at 16384 envs) beside a
+ShadowHand nn/last (26 MB) does, and past the cap the tool brings back
+nothing. So while the archives are over, the largest nn/last is dropped and
+its experiment packed again (exit code 1): the records always travel. The
+next machine unpacks them (`tar xzf DIR/<experiment>.tar.gz -C DIR`)
+before the campaigns resume from out=DIR.
+
 The suite runs each task (default: every reference task, in train_all.sh's
 order) as an experiment of its own name at its budget, with retries=1 and
 timeout_s=5400 unless given.
@@ -51,6 +71,7 @@ timeout_s=5400 unless given.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -78,6 +99,8 @@ RECORD = "campaign.json"
 CARRIED = ("history.json", "config.json", RECORD, "nn/last", "nn/best",
            "nn/best_meta.json")
 WATCHDOG_RC, TIMEOUT_RC = 99, 124
+# what the chip tool brings back of a call's output directory
+CARRY_CAP = 64 * 2 ** 20
 TRAIN_MODULE = "omniisaacgymenvs_torch.scripts.train"
 TRAINED = re.compile(r"^trained .*: ([\d,.]+) train-steps/s")
 LAUNCHES = "kernel launches over the training "
@@ -143,22 +166,49 @@ def _remove(path: str):
         os.remove(path)
 
 
+_TERM = dict(held=0, pending=False)
+
+
+def on_sigterm(*_):
+    """A runner terminated takes its child's process group with it
+    (run_child's finally) and records no chunk; inside `sigterm_held` it
+    exits when the block ends."""
+    if _TERM["held"]:
+        _TERM["pending"] = True
+    else:
+        sys.exit(143)
+
+
+@contextlib.contextmanager
+def sigterm_held():
+    """SIGTERM (on_sigterm) waits for the end of the block, so that what
+    the block writes is never left half done."""
+    _TERM["held"] += 1
+    try:
+        yield
+    finally:
+        _TERM["held"] -= 1
+        if not _TERM["held"] and _TERM["pending"]:
+            sys.exit(143)
+
+
 def copy_state(src: str, dst: str):
     """Copy the carried files of a run directory, each put in place by a
-    rename."""
-    for rel in CARRIED:
-        s, d = os.path.join(src, rel), os.path.join(dst, rel)
-        if not os.path.exists(s):
-            continue
-        os.makedirs(os.path.dirname(d), exist_ok=True)
-        tmp = d + ".tmp"
-        _remove(tmp)
-        if os.path.isdir(s):
-            shutil.copytree(s, tmp)
-        else:
-            shutil.copy2(s, tmp)
-        _remove(d)
-        os.replace(tmp, d)
+    rename, SIGTERM held until all are."""
+    with sigterm_held():
+        for rel in CARRIED:
+            s, d = os.path.join(src, rel), os.path.join(dst, rel)
+            if not os.path.exists(s):
+                continue
+            os.makedirs(os.path.dirname(d), exist_ok=True)
+            tmp = d + ".tmp"
+            _remove(tmp)
+            if os.path.isdir(s):
+                shutil.copytree(s, tmp)
+            else:
+                shutil.copy2(s, tmp)
+            _remove(d)
+            os.replace(tmp, d)
 
 
 def card_line() -> str:
@@ -270,6 +320,7 @@ def run_experiment(exp: str, task: str, overrides, opts: dict) -> int:
     except FileNotFoundError:
         record = dict(experiment=exp, task=task, device=device, world_size=world,
                       chunks=[])
+    record["budget"] = budget
     if (record["task"], record["device"], record["world_size"]) != (task, device, world):
         raise Refused(
             f"{exp} was trained as task {record['task']} on {record['device']} at "
@@ -316,10 +367,11 @@ def run_experiment(exp: str, task: str, overrides, opts: dict) -> int:
         record["chunks"].append(dict(start=start, end=end, rc=rc, retries=tries,
                                      wall_s=round(wall, 1), card=card, **info))
         os.makedirs(run_dir, exist_ok=True)
-        with open(record_path, "w") as f:
-            json.dump(record, f, indent=1)
-        if out:
-            copy_state(run_dir, out)
+        with sigterm_held():
+            with open(record_path, "w") as f:
+                json.dump(record, f, indent=1)
+            if out:
+                copy_state(run_dir, out)
         log(f"=== {exp}: epochs {start} to {end} rc={rc} in {wall:.1f} s")
         if rc:
             break
@@ -337,6 +389,74 @@ def run_suite(tasks, given: dict, overrides) -> int:
             rcs[t] = 2
     log("=== suite: " + ", ".join(f"{t} rc={rc}" for t, rc in rcs.items()))
     return 0 if not any(rcs.values()) else 1
+
+
+def finished(record: dict) -> bool:
+    """Whether a campaign record's last chunk reached its budget."""
+    chunks = record.get("chunks") or []
+    return bool(chunks) and "budget" in record and (
+        chunks[-1]["rc"] == 0 and chunks[-1]["end"] >= record["budget"])
+
+
+def du(path: str) -> int:
+    """Bytes of the files under path, as `du -sb` counts them."""
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def _pack(out: str, exp: str) -> str:
+    """out/<exp>/ packed into out/<exp>.tar.gz; the archive's path."""
+    import tarfile
+
+    archive = os.path.join(out, exp + ".tar.gz")
+    with tarfile.open(archive + ".tmp", "w:gz", compresslevel=6) as tar:
+        tar.add(os.path.join(out, exp), arcname=exp)
+    os.replace(archive + ".tmp", archive)
+    return archive
+
+
+def carry(out: str) -> int:
+    """Trim out/ and pack each experiment into out/<exp>.tar.gz (module
+    docstring); 0, or 1 when the archives were over their room and a
+    checkpoint was dropped to fit."""
+    parent = os.path.dirname(os.path.abspath(out))
+    room = CARRY_CAP - sum(du(os.path.join(parent, e)) for e in os.listdir(parent)
+                           if os.path.join(parent, e) != os.path.abspath(out))
+    log(f"=== carry: room {room} B ({CARRY_CAP} B less the rest of {parent})")
+    exps = sorted(e for e in os.listdir(out) if os.path.isdir(os.path.join(out, e)))
+    lasts = {}
+    for exp in exps:
+        d = os.path.join(out, exp)
+        _remove(os.path.join(d, "nn", "best"))
+        try:
+            with open(os.path.join(d, RECORD)) as f:
+                record = json.load(f)
+        except FileNotFoundError:
+            record = {}
+        last = os.path.join(d, "nn", "last")
+        if finished(record) and os.path.isdir(last):
+            _remove(last)
+            log(f"=== carry {exp}: done at epoch {record['budget']}, nn/last deleted")
+        elif os.path.isdir(last):
+            lasts[exp] = du(last)
+            log(f"=== carry {exp}: nn/last of epoch {checkpoint_epoch(last)}, "
+                f"{lasts[exp]} B (du -sb)")
+    sizes = {exp: du(_pack(out, exp)) for exp in exps}
+    rc = 0
+    while sum(sizes.values()) > room and lasts:
+        exp = max(lasts, key=lasts.get)
+        del lasts[exp]
+        _remove(os.path.join(out, exp, "nn", "last"))
+        sizes[exp] = du(_pack(out, exp))
+        rc = 1
+        log(f"=== carry {exp}: over {room} B, nn/last dropped (the largest)")
+    for exp in exps:
+        _remove(os.path.join(out, exp))
+        log(f"=== carry: {os.path.join(out, exp)}.tar.gz {sizes[exp]} B (du -sb)")
+    log(f"=== carry: {sum(sizes.values())} B in {len(exps)} archives")
+    return rc
 
 
 def _equal(a, b) -> bool:
@@ -385,6 +505,10 @@ def unequal_runs(a: str, b: str) -> list:
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     try:
+        if argv[:1] == ["carry"] and len(argv) >= 2:
+            if len(argv) > 2:
+                raise Refused(f"carry takes a directory only, got {argv[2:]}")
+            return carry(argv[1])
         if argv[:1] == ["all"]:
             given, overrides = split_args([a for a in argv[1:] if "=" in a])
             return run_suite([a for a in argv[1:] if "=" not in a], given, overrides)
@@ -399,4 +523,5 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    signal.signal(signal.SIGTERM, on_sigterm)
     sys.exit(main())

@@ -6,9 +6,11 @@ other than the campaign's are refused before any child starts; the
 watchdog kills a child gone silent, with its process group, and the
 campaign resumes from nn/last; a child past its timeout (exit 124) is not
 retried; the suite's order and defaults; LEARNING_TORCH.json is what
-scripts/make_learning_json.py makes of results_torch/. Every child has a
-timeout of its own of at most 120 s; chip_smoke.py's phase 14 runs at a
-small size."""
+scripts/make_learning_json.py makes of results_torch/; the carry of
+several experiments' state between machines, and SIGTERM held while the
+runner copies it. Every child has a timeout of
+its own (the Cartpole children 120 s, phase 14's 300 s); chip_smoke.py's
+phase 14 runs at a small size, both of its cases."""
 
 import json
 import os
@@ -25,6 +27,10 @@ from omniisaacgymenvs_torch.scripts import campaign
 
 ROOT = Path(__file__).resolve().parents[1]
 CHILD_TIMEOUT = "timeout_s=120"
+# the limit of each chip_smoke.py phase-14 child: 7.4-10.5 s each with
+# their start beside five other port test files under six workers, and up to
+# 83 s before `light_children`; far from the suite's 1470 s
+PHASE_TIMEOUT_S = 300
 CARTPOLE = ["device=cpu", "num_envs=64", "seed=3", "max_iterations=4",
             "train.params.config.save_frequency=2", "train.params.config.save_best_after=1",
             CHILD_TIMEOUT]
@@ -33,10 +39,17 @@ CARTPOLE = ["device=cpu", "num_envs=64", "seed=3", "max_iterations=4",
 # a history row per epoch; STUB_MODE "silent_once" goes silent on its first
 # run after a checkpoint at epoch 2 (a grandchild in its process group),
 # "slow" prints and never ends; every run appends its arguments to
-# calls.jsonl. It prints while it imports torch, so that its silence starts
-# where the mode says
+# calls.jsonl and writes its pid to child.pid first, before it imports torch, so that a kill at timeout_s
+# cannot come before the record. It prints while it imports torch, so that
+# its silence starts where the mode says
 STUB = '''
 import json, os, subprocess, sys, threading, time
+args = dict(a.split("=", 1) for a in sys.argv[1:])
+mode = os.environ.get("STUB_MODE", "ok")
+with open("calls.jsonl", "a") as f:
+    f.write(json.dumps(args) + "\\n")
+with open("child.pid", "w") as f:
+    f.write(str(os.getpid()))
 started = threading.Event()
 def beat():
     while not started.wait(0.2):
@@ -44,10 +57,6 @@ def beat():
 threading.Thread(target=beat, daemon=True).start()
 import torch
 started.set()
-args = dict(a.split("=", 1) for a in sys.argv[1:])
-mode = os.environ.get("STUB_MODE", "ok")
-with open("calls.jsonl", "a") as f:
-    f.write(json.dumps(args) + "\\n")
 run = os.path.join("runs", args["experiment"])
 start = 0
 if "checkpoint" in args:
@@ -87,6 +96,24 @@ def stub(tmp_path, monkeypatch):
     return calls
 
 
+@pytest.fixture
+def light_children(tmp_path_factory, monkeypatch):
+    """Children that train start light: they import torch.utils.tensorboard
+    without TensorFlow (where TensorFlow is installed, TensorBoard imports
+    it: some 11 s of a child's 17 s start-up on the CPU), through a
+    `tensorflow` that raises ImportError at the head of PYTHONPATH, so that
+    TensorBoard writes through its own stub; and they run torch on one
+    thread (OMP_NUM_THREADS=1), where the test's worker shares the CPU
+    with others."""
+    d = tmp_path_factory.mktemp("light_children")
+    (d / "tensorflow").mkdir()
+    (d / "tensorflow" / "__init__.py").write_text(
+        "raise ImportError('TensorFlow is left out of this process')\n")
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        [str(d)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+
+
 def _alive(pid: int, wait_s: float = 5.0) -> bool:
     """Whether pid is a live process (a zombie is not) after up to wait_s."""
     deadline = time.monotonic() + wait_s
@@ -104,7 +131,7 @@ def _record(exp):
     return json.loads(Path("runs", exp, campaign.RECORD).read_text())
 
 
-def test_chunked_campaign_equals_uninterrupted_run(tmp_path, monkeypatch):
+def test_chunked_campaign_equals_uninterrupted_run(tmp_path, monkeypatch, light_children):
     monkeypatch.chdir(tmp_path)
     run = campaign.main
     assert run(["whole", "Cartpole", *CARTPOLE]) == 0
@@ -191,7 +218,7 @@ def test_the_runner_sets_its_own_root_keys(stub, capsys):
 def test_watchdog_kills_a_silent_child_and_resumes_from_last(stub, monkeypatch):
     monkeypatch.setenv("STUB_MODE", "silent_once")
     code = campaign.main(["ex", "Cartpole", "device=cpu", "max_iterations=4",
-                          "watchdog_s=2", "retries=1", CHILD_TIMEOUT])
+                          "watchdog_s=5", "retries=1", CHILD_TIMEOUT])
     assert code == 0
     calls = stub()
     assert len(calls) == 2 and "checkpoint" not in calls[0]
@@ -261,20 +288,153 @@ def test_learning_torch_json_is_made_from_results_torch():
             (ROOT / "results_torch" / task / "history.json").read_text())), task
 
 
-def test_chip_smoke_campaign_phase_on_the_cpu(tmp_path, monkeypatch):
-    """chip_smoke.py's phase 14 at a small size on the CPU: AnymalTerrain
-    (64 envs, a 3 x 5 terrain grid, 8-step epochs) in one chunk and in two,
-    runs/ deleted between them: histories equal but steps_per_sec, nn/last
-    bitwise (the launch counts are checked on the card only)."""
+@pytest.mark.parametrize("case", ["terrain", "dr"])
+def test_chip_smoke_campaign_phase_on_the_cpu(tmp_path, monkeypatch, light_children, case):
+    """chip_smoke.py's phase 14 at a small size on the CPU, each case in
+    one chunk and in two, runs/ deleted between them: histories equal but
+    steps_per_sec, nn/last bitwise (the launch counts are checked on the
+    card only). AnymalTerrain: 64 envs, a 3 x 5 terrain grid, 4 epochs of
+    8 steps; ShadowHand_DR: the hand under its randomization block, 64
+    envs, 2 epochs of 8 steps."""
     monkeypatch.syspath_prepend(str(ROOT))
     import chip_smoke
 
-    chip_smoke.campaign_phase(str(tmp_path), "cpu", device="cpu", extra=(
-        "num_envs=64", "task.env.terrain.numLevels=3", "task.env.terrain.numTerrains=5",
-        "train.params.config.horizon_length=8", "train.params.config.minibatch_size=256",
-        CHILD_TIMEOUT))
-    assert campaign.unequal_runs(str(tmp_path / "runs" / "whole"),
-                                 str(tmp_path / "runs" / "chunked")) == []
-    rec = json.loads((tmp_path / "runs" / "chunked" / campaign.RECORD).read_text())
-    assert [(c["start"], c["end"]) for c in rec["chunks"]] == [(0, 2), (2, 4)]
-    assert "num_envs=64" in rec["chunks"][0]["device_line"]
+    assert [c["exp"] for c in chip_smoke.CAMPAIGNS] == ["terrain", "dr"]
+    small = ("num_envs=64", "train.params.config.horizon_length=8",
+             "train.params.config.minibatch_size=256")
+    chip_smoke.campaign_phase(str(tmp_path), "cpu", device="cpu", timeout_s=PHASE_TIMEOUT_S,
+                              cases=[case],
+                              extra=dict(terrain=(*small, "task.env.terrain.numLevels=3",
+                                                  "task.env.terrain.numTerrains=5"),
+                                         dr=small))
+    (c,) = [c for c in chip_smoke.CAMPAIGNS if c["exp"] == case]
+    whole, chunked = (tmp_path / "runs" / f"{case}_{k}" for k in ("whole", "chunked"))
+    assert campaign.unequal_runs(str(whole), str(chunked)) == []
+    rec = json.loads((chunked / campaign.RECORD).read_text())
+    ends = list(range(c["chunk"], c["epochs"] + 1, c["chunk"]))
+    assert [(ch["start"], ch["end"]) for ch in rec["chunks"]] == list(
+        zip([0, *ends[:-1]], ends))
+    assert f"task={c['task']} num_envs=64" in rec["chunks"][0]["device_line"]
+    assert campaign.finished(rec) and rec["budget"] == c["epochs"]
+
+
+def _fake_run(out, exp, epoch, budget, end):
+    """A carried run directory: nn/last and nn/best at `epoch`, its
+    record's last chunk ending at `end` of `budget`."""
+    d = out / exp
+    for which in ("last", "best"):
+        (d / "nn" / which).mkdir(parents=True)
+        torch.save({"epoch": epoch, "w": torch.arange(4.0) + epoch},
+                   d / "nn" / which / "model.pt")
+        torch.save({"epoch": epoch}, d / "nn" / which / "env.pt")
+    (d / "nn" / "best_meta.json").write_text(json.dumps({"epoch": epoch}))
+    (d / "history.json").write_text(json.dumps([{"epoch": e} for e in range(epoch)]))
+    (d / campaign.RECORD).write_text(json.dumps(dict(
+        experiment=exp, task="Cartpole", device="cuda", world_size=1, budget=budget,
+        chunks=[dict(start=0, end=end, rc=0)])))
+
+
+def _unpack(out, into):
+    import tarfile
+
+    for a in sorted(Path(out).glob("*.tar.gz")):
+        with tarfile.open(a) as tar:
+            tar.extractall(into, filter="data")
+    return sorted(str(p.relative_to(into)) for p in Path(into).rglob("*") if p.is_file())
+
+
+def test_carry_trims_and_packs_the_state(tmp_path, monkeypatch, capsys):
+    """carry: every nn/best goes, so does a finished run's nn/last; each
+    experiment is packed into DIR/<exp>.tar.gz and unpacks to the files
+    left."""
+    monkeypatch.chdir(tmp_path)
+    _fake_run(Path("out"), "done", 4, 4, 4)
+    _fake_run(Path("out"), "going", 2, 4, 2)
+    before = (Path("out/going/nn/last/model.pt")).read_bytes()
+    assert campaign.main(["carry", "out"]) == 0
+    assert sorted(os.listdir("out")) == ["done.tar.gz", "going.tar.gz"]
+    assert _unpack("out", "back") == [
+        "done/campaign.json", "done/history.json", "done/nn/best_meta.json",
+        "going/campaign.json", "going/history.json", "going/nn/best_meta.json",
+        "going/nn/last/env.pt", "going/nn/last/model.pt"]
+    assert Path("back/going/nn/last/model.pt").read_bytes() == before
+    out = capsys.readouterr().out
+    assert "=== carry done: done at epoch 4, nn/last deleted" in out
+    size = campaign.du("back/going/nn/last")
+    assert f"=== carry going: nn/last of epoch 2, {size} B (du -sb)" in out
+    assert f"out/going.tar.gz {campaign.du('out/going.tar.gz')} B" in out
+
+
+def test_carry_over_the_limit_drops_the_largest_last(tmp_path, monkeypatch, capsys):
+    """The archives get the tool's cap less what the rest of DIR's parent
+    holds; over it the largest nn/last is dropped, and the records and the
+    other nn/last travel."""
+    monkeypatch.chdir(tmp_path)
+    _fake_run(Path("out"), "small", 2, 4, 2)
+    _fake_run(Path("out"), "large", 2, 4, 2)
+    torch.save({"epoch": 2, "w": torch.randn(100_000)}, "out/large/nn/last/model.pt")
+    room = 100_000
+    with open("other.log", "wb") as f:  # sparse: du -sb counts its length
+        f.truncate(campaign.CARRY_CAP - room)
+    assert campaign.main(["carry", "out"]) == 1
+    files = _unpack("out", "back")
+    assert "small/nn/last/model.pt" in files and "large/history.json" in files
+    assert not any(f.startswith("large/nn/last") for f in files)
+    out = capsys.readouterr().out
+    assert f"=== carry: room {room} B" in out
+    assert f"=== carry large: over {room} B, nn/last dropped (the largest)" in out
+    assert campaign.du("out") <= room
+    assert campaign.main(["carry", "out", "limit_mb=1"]) == 2
+    assert campaign.main(["carry", "out", "now"]) == 2
+
+
+def test_sigterm_waits_for_copy_state(tmp_path, monkeypatch):
+    """SIGTERM to the runner between the removal of the carried nn/last
+    and the rename of its new copy waits for the copy to end: the runner
+    exits 143 with every carried file in place."""
+    monkeypatch.chdir(tmp_path)
+    _fake_run(Path("runs"), "ex", 4, 8, 4)
+    _fake_run(Path("out"), "ex", 2, 8, 2)
+    monkeypatch.setenv("PYTHONPATH", str(ROOT))
+    code = ("import os, signal; from omniisaacgymenvs_torch.scripts import campaign as c\n"
+            "signal.signal(signal.SIGTERM, c.on_sigterm)\n"
+            "remove = c._remove\n"
+            "def _remove(path):\n"
+            "    remove(path)\n"
+            "    if path == os.path.join('out', 'ex', 'nn', 'last'):\n"
+            "        os.kill(os.getpid(), signal.SIGTERM)\n"
+            "c._remove = _remove\n"
+            "c.copy_state(os.path.join('runs', 'ex'), os.path.join('out', 'ex'))\n"
+            "print('not stopped')\n")
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=120)
+    assert p.returncode == 143 and "not stopped" not in p.stdout, p.stderr
+    for rel in ("history.json", campaign.RECORD, "nn/best_meta.json", "nn/last/model.pt",
+                "nn/last/env.pt", "nn/best/model.pt"):
+        assert (Path("out/ex") / rel).read_bytes() == (Path("runs/ex") / rel).read_bytes(), rel
+    assert not list(Path("out").rglob("*.tmp"))
+
+
+def test_a_terminated_runner_takes_its_child(stub, tmp_path, monkeypatch):
+    """SIGTERM to the runner kills the training child's process group and
+    records no chunk."""
+    import signal
+
+    monkeypatch.setenv("STUB_MODE", "slow")
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join([str(tmp_path), str(ROOT)]))
+    code = ("import signal, sys; from omniisaacgymenvs_torch.scripts import campaign as c; "
+            "c.TRAIN_MODULE = 'stub_train'; signal.signal(signal.SIGTERM, c.on_sigterm); "
+            "sys.exit(c.main(sys.argv[1:]))")
+    p = subprocess.Popen([sys.executable, "-c", code, "ex", "Cartpole", "device=cpu",
+                          "max_iterations=4", CHILD_TIMEOUT], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    for line in p.stdout:
+        if line.startswith("epoch"):
+            break
+    pid = int(Path("child.pid").read_text())
+    assert _alive(pid, 0)
+    p.send_signal(signal.SIGTERM)
+    p.communicate(timeout=120)
+    assert p.returncode == 143
+    assert not _alive(pid)
+    assert len(stub()) == 1 and not Path("runs/ex", campaign.RECORD).exists()

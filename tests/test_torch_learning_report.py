@@ -1,0 +1,58 @@
+"""tests/torch_learning_report.py: the curves at given epochs, their
+ratios and the side-by-side windows; the CLI, its summary named after the
+history's directory."""
+
+import json
+import math
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "tests"))
+
+import torch_learning_report as learning_report  # noqa: E402
+
+
+def _hist(n, scale=1.0, hand=True):
+    rows = []
+    for e in range(n):
+        r = dict(epoch=e, env_steps=(e + 1) * 1000, steps_per_sec=1000.0 + e,
+                 mean_ep_reward=scale * (e + math.sin(e)), mean_ep_length=10.0 + e % 7,
+                 lr=1e-3 / (1 + e), kl=0.01 + 0.001 * (e % 3))
+        if hand:
+            r["Episode/consecutive_successes"] = 0.01 * e
+            r["Episode/successes"] = 0.005 * e
+        rows.append(r)
+    return rows
+
+
+def test_report_at_epochs_ratios_and_windows():
+    port, a, b = _hist(1000), _hist(1000, 2.0), _hist(500, 0.5)
+    out = learning_report.report(port, dict(a=a, b=b), row=dict(final_ep_reward=100.0),
+                                 at=(99, 999), window=100, every=500)
+    assert out["ratio_to_row"] == dict(final_ep_reward=round(
+        out["port"]["final_ep_reward"] / 100.0, 3))
+    at = out["at"]["999"]
+    assert at["port"] == port[999]["mean_ep_reward"] and at["b"] is None
+    assert at["ratio_a"] == 0.5 and at["ratio_b"] is None
+    assert out["at"]["99"]["ratio_b"] == 2.0
+    assert [w["epochs"] for w in out["windows"]] == ["0-99", "500-599"]
+    w = out["windows"][1]
+    assert w["b.lr"] is None and w["a.kl"] == pytest.approx(
+        sum(r["kl"] for r in a[500:600]) / 100, rel=1e-5)
+
+
+def test_cli_prints_one_json_object(tmp_path, capsys):
+    (tmp_path / "p.json").write_text(json.dumps(_hist(120)))
+    (tmp_path / "r.json").write_text(json.dumps(_hist(120, 2.0)))
+    (tmp_path / "L.json").write_text(json.dumps(dict(T=dict(final_ep_reward=50.0))))
+    assert learning_report.main([str(tmp_path / "p.json"), f"ref={tmp_path / 'r.json'}",
+                                 f"row={tmp_path / 'L.json'}:T", "at=99", "every=50",
+                                 "window=50"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["at"]["99"]["ratio_ref"] == 0.5
+    assert out["port"]["task"] == tmp_path.name and out["port"]["epochs"] == 120
+    assert len(out["windows"]) == 3 and out["row"] == dict(final_ep_reward=50.0)
+    assert learning_report.main([]) == 2

@@ -1,8 +1,9 @@
 """Port parity of the Cartpole, BallBalance and ShadowHand tasks: `observe`,
 `reward_done` and `control` from the same state, carry and action as the
 JAX tasks (a JAX reset and one JAX step carried across as numpy), the four
-ShadowHand observation types, and a 3-step ShadowHand VecEnv rollout with
-resetting envs left out."""
+ShadowHand observation types, a 3-step ShadowHand VecEnv rollout with
+resetting envs left out, and ShadowHand's goal hits, success counts and
+goal re-draws from one shared state."""
 
 import dataclasses
 import functools
@@ -228,6 +229,65 @@ def test_shadow_hand_rollout_matches_jax():
         np.testing.assert_array_equal(np_(es.done), np.asarray(jes.done))
         np.testing.assert_array_equal(np_(es.progress), np.asarray(jes.progress))
     assert (~ever_done).sum() > N // 2
+
+
+def test_shadow_hand_goal_hits_match_jax():
+    """The success path on one shared state. Envs whose goal is set to
+    their object's rotation hit it in the next step in both packages: the
+    reach bonus, successes, reset_goal and progress agree. Two envs time
+    out in that step, one with successes counted before it: metrics, done
+    and the consecutive-success average agree. The step after re-draws the
+    goals of the envs that hit (each package from its own draws) and of no
+    other; an env that ended starts again at zero successes."""
+    jtask, task, jenv, jes, es, actions = case("ShadowHand")
+    assert not np.asarray(jes.done).any()
+    qa = task._obj_q
+    hit = np.arange(N) < N // 2
+    goal = np.where(hit[:, None], np.asarray(jes.phys.q)[:, qa + 3: qa + 7],
+                    np.asarray(jes.carry["goal_rot"]))
+    succ = np.zeros(N, np.float32)
+    succ[[0, 2]] = [3.0, 5.0]
+    prog = np.asarray(jes.progress).copy()
+    ends = [0, N // 2]
+    prog[ends] = task.max_episode_length - 2
+    jes = jes.replace(progress=jnp.asarray(prog), carry=dict(
+        jes.carry, goal_rot=jnp.asarray(goal), successes=jnp.asarray(succ)))
+    es = dataclasses.replace(es, progress=torch.as_tensor(prog), carry=dict(
+        es.carry, goal_rot=torch.as_tensor(goal), successes=torch.as_tensor(succ)))
+    env = VecEnv(task, N, seed=0)
+
+    jes1 = jenv.step(jes, jnp.asarray(actions[1]))
+    es1 = env.step(es, torch.as_tensor(actions[1]))
+    np.testing.assert_array_equal(np.asarray(jes1.carry["reset_goal"]), hit)
+    np.testing.assert_array_equal(np_(es1.carry["reset_goal"]), hit)
+    np.testing.assert_allclose(np_(es1.reward), np.asarray(jes1.reward), rtol=1e-3, atol=1e-2)
+    assert (np_(es1.reward)[hit] > task.reach_goal_bonus).all()
+    assert (np_(es1.reward)[~hit] < task.reach_goal_bonus).all()
+    np.testing.assert_array_equal(np_(es1.metrics["successes"]), succ + hit)
+    np.testing.assert_array_equal(np.asarray(jes1.metrics["successes"]), succ + hit)
+    np.testing.assert_array_equal(np_(es1.done), np.isin(np.arange(N), ends))
+    np.testing.assert_array_equal(np.asarray(jes1.done), np.isin(np.arange(N), ends))
+    np.testing.assert_array_equal(np_(es1.progress), np.asarray(jes1.progress))
+    st = task.episode_stats_update(task.episode_stats_init(), es1)
+    jst = jtask.episode_stats_update(jtask.episode_stats_init(), jes1)
+    assert float(st["consecutive_successes"]) == pytest.approx(0.1 * 4.0 / 2)
+    assert float(jst["consecutive_successes"]) == pytest.approx(0.1 * 4.0 / 2)
+
+    jes2 = jenv.step(jes1, jnp.asarray(actions[2]))
+    es2 = env.step(es1, torch.as_tensor(actions[2]))
+    going = ~np.isin(np.arange(N), ends)
+    for g, old in ((np_(es2.carry["goal_rot"]), goal),
+                   (np.asarray(jes2.carry["goal_rot"]), goal)):
+        redrawn = (g != old).any(axis=1)
+        np.testing.assert_array_equal(redrawn[going], hit[going])
+        np.testing.assert_allclose(np.linalg.norm(g, axis=1), 1.0, rtol=1e-5)
+    for s in (np_(es2.metrics["successes"]), np.asarray(jes2.metrics["successes"])):
+        np.testing.assert_array_equal(s[ends], 0.0)
+        np.testing.assert_array_equal(s[going], (succ + hit)[going])
+    keep = going & ~hit
+    np.testing.assert_allclose(np_(es2.obs)[keep], np.asarray(jes2.obs)[keep], **OBS_TOL)
+    np.testing.assert_allclose(np_(es2.reward)[keep], np.asarray(jes2.reward)[keep],
+                               rtol=1e-3, atol=1e-2)
 
 
 @pytest.mark.parametrize("name", ["Cartpole", "BallBalance"])

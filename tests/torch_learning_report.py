@@ -1,0 +1,96 @@
+"""A port's learning curve against its references: the summary
+`scripts/make_learning_json.py` makes (its `summarize`: the last 5% of the
+epochs), the curves at given epochs with their ratios, and the curves side
+by side in windows, with the learning rate and KL beside the reward, to
+say where two curves part.
+
+    python tests/torch_learning_report.py \
+        results_torch/AllegroHand/history.json \
+        seed123=results/AllegroHand/history.json \
+        seed42=results/AllegroHand_seed42/history.json \
+        [row=LEARNING.json:AllegroHand] [at=999,1999,4999,9999] [window=100] [every=500]
+
+A reference is name=path to a history.json (a list of per-epoch rows with
+`epoch`, `mean_ep_reward`, `lr`, `kl`). `row=FILE:KEY` names a record row
+(`LEARNING.json`) held against the port's summary. The summary is named
+after the history's directory. Prints one JSON object.
+"""
+
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.append(os.path.join(ROOT, "scripts"))
+
+from make_learning_json import summarize  # noqa: E402
+
+
+def at_epoch(hist: list, epoch: int, key: str = "mean_ep_reward"):
+    """The value of `key` at `epoch`, or None past the history's end."""
+    return hist[epoch][key] if epoch < len(hist) else None
+
+
+def window_mean(hist: list, start: int, width: int, key: str):
+    rows = hist[start:start + width]
+    return sum(r[key] for r in rows) / len(rows) if len(rows) == width else None
+
+
+def report(port: list, refs: dict, row=None, at=(999, 1999, 4999, 9999), window=100,
+           every=500, task="port") -> dict:
+    out = dict(port=summarize(task, port))
+    if row is not None:
+        out["row"] = row
+        out["ratio_to_row"] = {k: round(out["port"][k] / row[k], 3)
+                               for k in ("final_ep_reward", "consecutive_successes",
+                                         "mean_successes", "terrain_level")
+                               if k in row and k in out["port"] and row[k]}
+    out["at"] = {}
+    for e in at:
+        p = at_epoch(port, e)
+        entry = dict(port=p)
+        for name, h in refs.items():
+            r = at_epoch(h, e)
+            entry[name] = r
+            entry[f"ratio_{name}"] = round(p / r, 3) if p is not None and r else None
+        out["at"][str(e)] = entry
+    out["windows"] = []
+    for start in range(0, len(port), every):
+        w = dict(epochs=f"{start}-{start + window - 1}")
+        for name, h in [("port", port), *refs.items()]:
+            for key in ("mean_ep_reward", "lr", "kl"):
+                v = window_mean(h, start, window, key)
+                w[f"{name}.{key}"] = None if v is None else float(f"{v:.6g}")
+        out["windows"].append(w)
+    return out
+
+
+def _load(path: str):
+    with open(path) as f:
+        return json.load(f)
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or "=" in argv[0]:
+        print(__doc__, file=sys.stderr)
+        return 2
+    port, refs = _load(argv[0]), {}
+    kw = dict(task=os.path.basename(os.path.dirname(os.path.abspath(argv[0]))))
+    for a in argv[1:]:
+        k, v = a.split("=", 1)
+        if k == "row":
+            path, key = v.rsplit(":", 1)
+            kw["row"] = _load(path)[key]
+        elif k == "at":
+            kw["at"] = tuple(int(x) for x in v.split(","))
+        elif k in ("window", "every"):
+            kw[k] = int(v)
+        else:
+            refs[k] = _load(v)
+    print(json.dumps(report(port, refs, **kw), indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
