@@ -17,8 +17,10 @@ stderr gives the card's name and power limit, the env count and the steps.
 
 Env vars: BENCH_TASK (default Humanoid), BENCH_NUM_ENVS, BENCH_STEPS,
 BENCH_TRAIN=0 (skip the train half), BENCH_TRAIN_ENVS (default 8192),
-BENCH_PEAK_FLOPS, BENCH_DEVICE (default cuda; `cpu` is the only way to run
-on the CPU, for a smoke run). The baseline of vs_baseline is bench.py's:
+BENCH_PEAK_FLOPS, BENCH_NET_MATMUL (the f32 networks' matmul rule, default
+f32; `bf16_operands` times the TPU's rule, recorded as "net_matmul"),
+BENCH_DEVICE (default cuda; `cpu` is the only way to run on the CPU, for a
+smoke run). The baseline of vs_baseline is bench.py's:
 600k Humanoid env-steps/s on one GPU.
 """
 
@@ -93,7 +95,8 @@ def main():
 
 
 def train_bench(task_name: str, device, cfg: dict, epochs: int = 16) -> dict:
-    """Whole PPO epochs on the task's train yaml, f32 and bf16 networks:
+    """Whole PPO epochs on the task's train yaml, f32 networks (their
+    matmul rule BENCH_NET_MATMUL, `PPOConfig.net_matmul`) and bf16 networks:
     one warm-up epoch, then `epochs` timed. Learner FLOPs per
     env-step: one policy forward in the rollout and mini_epochs x (forward +
     2 x backward) over the dataset; the physics is not counted."""
@@ -110,9 +113,11 @@ def train_bench(task_name: str, device, cfg: dict, epochs: int = 16) -> dict:
     env = VecEnv(get_task(task_name, cfg["task"], device=device), n)
     kw = ppo_config_kwargs(cfg["train"])
     # there is no multi-epoch compiled program: one epoch per call
-    out = {"train_envs": n, "epochs_per_jit": 1}
+    matmul = os.environ.get("BENCH_NET_MATMUL", "f32")
+    out = {"train_envs": n, "epochs_per_jit": 1, "net_matmul": matmul}
     for mixed in (False, True):
-        ppo = PPOConfig(**{**kw, "mixed_precision": mixed})
+        ppo = PPOConfig(**{**kw, "mixed_precision": mixed,
+                           "net_matmul": "f32" if mixed else matmul})
         trainer = PPOTrainer(env, ppo, seed=0)
         trainer._epoch(trainer.state)
         sync()

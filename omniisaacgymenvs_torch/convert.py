@@ -10,6 +10,9 @@ packages compute on identical inputs. `actor_critic_from_arrays` /
 flax parameter tree of the JAX learner's networks into the port's modules
 (flax kernels are (in, out), a torch Linear's weight (out, in); a flax
 LayerNorm's `scale` is the torch one's `weight`).
+`adam_state_from_arrays` carries the JAX learner's Adam moments across in
+the same layout, so that a port trainer can continue where a JAX one
+stopped.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from omniisaacgymenvs_torch.learn.networks import (
     LSTMActorCritic,
     LSTMCentralValue,
 )
+from omniisaacgymenvs_torch.learn.ppo import AdamState
 from omniisaacgymenvs_torch.physics.model import Model
 from omniisaacgymenvs_torch.physics.state import State
 from omniisaacgymenvs_torch.tasks.base import EnvState
@@ -120,19 +124,56 @@ def _params(tree: dict) -> dict:
     return tree["params"] if "params" in tree else tree
 
 
-def actor_critic_from_arrays(tree: dict, module: ActorCritic) -> ActorCritic:
-    """Load the flax ActorCritic tree {"params": {"Dense_0".."Dense_k-1"
+def actor_critic_arrays(tree: dict, module: ActorCritic) -> dict:
+    """The flax ActorCritic tree {"params": {"Dense_0".."Dense_k-1"
     (trunk), "Dense_k" (mu), "Dense_k+1" (value), "log_std"}} (numpy
-    arrays) into `module`, in place; returns it."""
+    arrays; an Adam moment of the parameters has the same tree) as
+    {`module`'s parameter name: f32 array in the port's layout}."""
     p = _params(tree)
     dense = _dense_names(p)
-    layers = [*module.trunk.layers, module.mu, module.value]
-    if len(dense) != len(layers):
-        raise ValueError(f"{len(dense)} Dense layers for {len(layers)} Linears")
-    for name, layer in zip(dense, layers):
-        _load_dense(layer, p[name])
-    _copy(module.log_std, p["log_std"])
+    prefixes = [f"trunk.layers.{i}" for i in range(len(module.trunk.layers))]
+    prefixes += ["mu", "value"]
+    if len(dense) != len(prefixes):
+        raise ValueError(f"{len(dense)} Dense layers for {len(prefixes)} Linears")
+    out = {}
+    for name, prefix in zip(dense, prefixes):
+        out[f"{prefix}.weight"] = np.asarray(p[name]["kernel"], np.float32).T
+        out[f"{prefix}.bias"] = np.asarray(p[name]["bias"], np.float32)
+    out["log_std"] = np.asarray(p["log_std"], np.float32)
+    return out
+
+
+def actor_critic_from_arrays(tree: dict, module: ActorCritic) -> ActorCritic:
+    """Load the flax ActorCritic tree (`actor_critic_arrays`) into
+    `module`, in place; returns it."""
+    arrays = actor_critic_arrays(tree, module)
+    for k, p in module.named_parameters():
+        _copy(p, arrays[k])
     return module
+
+
+def adam_state_from_arrays(mu: dict, nu: dict, count,
+                           module: ActorCritic) -> AdamState:
+    """optax `scale_by_adam`'s state of a flax ActorCritic (`mu` and `nu`
+    trees shaped as its parameters, the step `count`) as the port's
+    AdamState of `module`: each moment in its parameter's layout, in
+    `module.parameters()`'s order, on its device."""
+    params = dict(module.named_parameters())
+
+    def moments(tree):
+        arrays = actor_critic_arrays(tree, module)
+        out = []
+        for k, p in params.items():
+            a = arrays[k]
+            if a.shape != tuple(p.shape):
+                raise ValueError(f"{k}: a moment of shape {a.shape} for a "
+                                 f"parameter of shape {tuple(p.shape)}")
+            out.append(torch.as_tensor(a.copy(), device=p.device))
+        return out
+
+    device = next(iter(params.values())).device
+    return AdamState(mu=moments(mu), nu=moments(nu),
+                     count=torch.tensor(float(np.asarray(count)), device=device))
 
 
 def central_value_from_arrays(tree: dict, module: CentralValue) -> CentralValue:

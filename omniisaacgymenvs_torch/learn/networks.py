@@ -12,6 +12,14 @@ orthogonal. With `dtype=torch.bfloat16` (rl_games mixed_precision) the
 forward runs under autocast, so the matrix products and activations
 compute in bf16 over f32 parameters; `mu`, `value` and the LSTM carry
 come back in f32.
+
+The feed-forward networks take a second rule for their matrix products,
+`matmul`: "f32" computes them in f32 (TF32 stays off), "bf16_operands" as
+an XLA dot of f32 arrays at the TPU's default precision, which the JAX
+package's networks ran at on its chip: each operand rounded to bf16, the
+products (exact in f32) summed in f32, the result f32. The backward pass
+follows the same rule (`rounded_linear`); biases, activations and every
+elementwise step stay f32.
 """
 
 from __future__ import annotations
@@ -44,6 +52,55 @@ def _autocast(x: torch.Tensor, dtype: Optional[torch.dtype]):
                           enabled=dtype is not None)
 
 
+MATMULS = ("f32", "bf16_operands")
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to the nearest bf16 (ties to even), kept in f32."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+class _RoundedLinear(torch.autograd.Function):
+    """y = round(x) round(W)^T + b, and in the backward pass
+    dx = round(g) round(W) and dW = round(g)^T round(x): every product of
+    the layer on bf16-rounded operands in an f32 GEMM (bf16 products are
+    exact in f32), the bias and its gradient (a sum of g) in f32."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        xr, wr = round_bf16(x), round_bf16(weight)
+        ctx.save_for_backward(xr, wr)
+        return F.linear(xr, wr, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        xr, wr = ctx.saved_tensors
+        gr = round_bf16(g)
+        gx = gr @ wr if ctx.needs_input_grad[0] else None
+        g2 = gr.reshape(-1, gr.shape[-1])
+        gw = g2.T @ xr.reshape(-1, xr.shape[-1])
+        gb = g.reshape(-1, g.shape[-1]).sum(0)
+        return gx, gw, gb
+
+
+def rounded_linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """`layer(x)` under the "bf16_operands" rule (module docstring)."""
+    return _RoundedLinear.apply(x, layer.weight, layer.bias)
+
+
+def _linear(layer: nn.Linear, x: torch.Tensor, matmul: str) -> torch.Tensor:
+    return rounded_linear(layer, x) if matmul == "bf16_operands" else layer(x)
+
+
+def _check_matmul(matmul: str, dtype: Optional[torch.dtype]) -> str:
+    if matmul not in MATMULS:
+        raise ValueError(f"matmul must be one of {MATMULS}, got {matmul!r}")
+    if matmul != "f32" and dtype is not None:
+        raise ValueError(f"matmul={matmul!r} is a rule for f32 networks; these "
+                         f"compute in {dtype} under autocast")
+    return matmul
+
+
 def variance_scaling_(weight: torch.Tensor, scale: float,
                       generator: torch.Generator) -> torch.Tensor:
     """flax `variance_scaling(scale, "fan_in", "truncated_normal")` on an
@@ -66,16 +123,17 @@ class _MLP(nn.Module):
     """The trunk: Linear + activation per width."""
 
     def __init__(self, n_in: int, units: Sequence[int], activation: str,
-                 generator: torch.Generator):
+                 generator: torch.Generator, matmul: str = "f32"):
         super().__init__()
         sizes = [n_in, *units]
         self.layers = nn.ModuleList(
             _dense(a, b, 1.0, generator) for a, b in zip(sizes[:-1], sizes[1:]))
         self.act = _ACTS[activation]
+        self.matmul = matmul
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.layers:
-            x = self.act(layer(x))
+            x = self.act(_linear(layer, x, self.matmul))
         return x
 
 
@@ -85,11 +143,13 @@ class ActorCritic(nn.Module):
     def __init__(self, num_obs: int, num_actions: int,
                  units: Sequence[int] = (256, 128, 64), activation: str = "elu",
                  sigma_init: float = 0.0, dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 matmul: str = "f32"):
         super().__init__()
         g = generator if generator is not None else torch.Generator()
         self.dtype = dtype
-        self.trunk = _MLP(num_obs, units, activation, g)
+        self.matmul = _check_matmul(matmul, dtype)
+        self.trunk = _MLP(num_obs, units, activation, g, matmul)
         width = units[-1] if units else num_obs
         self.mu = _dense(width, num_actions, 0.01, g)
         self.log_std = nn.Parameter(torch.full((num_actions,), float(sigma_init)))
@@ -99,7 +159,8 @@ class ActorCritic(nn.Module):
         """(mu (.., A) f32, log_std (A,), value (..,) f32)."""
         with _autocast(obs, self.dtype):
             x = self.trunk(obs)
-            mu, value = self.mu(x), self.value(x)[..., 0]
+            mu = _linear(self.mu, x, self.matmul)
+            value = _linear(self.value, x, self.matmul)[..., 0]
         return mu.float(), self.log_std, value.float()
 
 
@@ -109,16 +170,18 @@ class CentralValue(nn.Module):
 
     def __init__(self, num_states: int, units: Sequence[int] = (512, 512, 256, 128),
                  activation: str = "elu", dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 matmul: str = "f32"):
         super().__init__()
         g = generator if generator is not None else torch.Generator()
         self.dtype = dtype
-        self.trunk = _MLP(num_states, units, activation, g)
+        self.matmul = _check_matmul(matmul, dtype)
+        self.trunk = _MLP(num_states, units, activation, g, matmul)
         self.value = _dense(units[-1] if units else num_states, 1, 1.0, g)
 
     def forward(self, states: torch.Tensor) -> torch.Tensor:
         with _autocast(states, self.dtype):
-            value = self.value(self.trunk(states))[..., 0]
+            value = _linear(self.value, self.trunk(states), self.matmul)[..., 0]
         return value.float()
 
 

@@ -259,6 +259,10 @@ class PPOConfig:
     seq_len: int = 4
     # bf16 network compute over f32 parameters; losses and norms stay f32
     mixed_precision: bool = False
+    # the matrix products of f32 feed-forward networks (networks.MATMULS):
+    # "f32", or "bf16_operands", the TPU's default precision, which the JAX
+    # package's networks trained at on its chip (ROADMAP §C3, §C4)
+    net_matmul: str = "f32"
     # asymmetric mode only: also train the actor's own value head on returns
     actor_aux_value_loss: bool = False
 
@@ -353,6 +357,7 @@ class PPOTrainer:
         if self.is_rnn and cfg.horizon_length % cfg.seq_len:
             raise ValueError("horizon_length must be divisible by seq_len")
         net_dtype = torch.bfloat16 if cfg.mixed_precision else None
+        self.net_matmul = self._net_matmul()
         # parameters are drawn on the CPU, so every device starts from the
         # same ones
         init_gen = torch.Generator().manual_seed(seed)
@@ -362,14 +367,16 @@ class PPOTrainer:
                                  dtype=net_dtype, generator=init_gen)
         else:
             ac = ActorCritic(env.num_obs, env.num_actions, tuple(cfg.units),
-                             cfg.activation, cfg.sigma_init, net_dtype, init_gen)
+                             cfg.activation, cfg.sigma_init, net_dtype, init_gen,
+                             self.net_matmul)
         if self.is_cv_rnn:
             cv = LSTMCentralValue(env.num_states, cfg.cv_rnn_units,
                                   tuple(cfg.cv_units), cfg.cv_activation,
                                   dtype=net_dtype, generator=init_gen)
         elif self.use_cv:
             cv = CentralValue(env.num_states, tuple(cfg.cv_units),
-                              cfg.cv_activation, net_dtype, init_gen)
+                              cfg.cv_activation, net_dtype, init_gen,
+                              self.net_matmul)
         else:
             cv = None
         ac = ac.to(self.device)
@@ -401,6 +408,16 @@ class PPOTrainer:
             hidden=carry(cfg.rnn_units) if self.is_rnn else (),
             cv_hidden=carry(cfg.cv_rnn_units) if self.is_cv_rnn else (),
         )
+
+    def _net_matmul(self) -> str:
+        """The feed-forward networks' matmul rule, `net_matmul`; the
+        networks check its value. The LSTM networks compute in f32 or, with
+        `mixed_precision`, under autocast, and take no other rule."""
+        rule = self.cfg.net_matmul
+        if rule != "f32" and self.is_rnn:
+            raise ValueError(f"net_matmul={rule!r} is not implemented for the "
+                             f"LSTM networks")
+        return rule
 
     # ------------------------------------------------------------------
     def _policy(self, ts: TrainState, obs, states, hidden=(), cv_hidden=()):

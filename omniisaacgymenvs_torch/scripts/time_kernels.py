@@ -67,7 +67,7 @@ OPCODES = ("LDS", "STS", "LD", "ST", "LDG", "STG", "LDL", "STL", "WARPSYNC",
            "BAR", "FFMA", "FMUL", "FADD", "IMAD", "BRA")
 
 
-# the wait at each end of kernel_device_ms's trace (`profile_rollout.settle`):
+# the wait at each end of kernel_times's trace (`profile_rollout.settle`):
 # four times longer after a trace that lost a launch, for the process's life
 TRACE_PAD_S = [0.1]
 # small kernels launched at each end of that trace: late in a long process
@@ -81,36 +81,58 @@ def _filler() -> None:
         x.add_(1.0)
 
 
-def kernel_device_ms(fn, reps: int = 20, tries: int = 3) -> float:
-    """Device time per launch of the port's kernels (`step_kernel`,
-    `fk_kernel`) over `reps` calls of fn, each of which launches one, from
-    the profiler's trace: the kernel alone, where the CUDA-event time of a
-    small launch can be the host's time per call. Traces again with a longer
-    wait at its ends while the trace lacks a launch, and raises after
-    `tries` or if it holds more launches than fn made."""
+def _warm() -> None:
+    """Some 20 ms of GEMMs: the card's clocks up again after a trace's wait,
+    as they are when the same launches are timed outside the profiler."""
+    a = torch.full((4096, 4096), 1e-3, device=DEV)
+    b = torch.empty_like(a)
+    for _ in range(8):
+        torch.mm(a, a, out=b)
+
+
+def kernel_times(fn, reps: int = 20, tries: int = 3) -> tuple[float, float]:
+    """(device ms, events ms) per launch of the port's kernels
+    (`step_kernel`, `fk_kernel`) over `reps` calls of fn, each of which
+    launches one: the profiler's device time of the kernel alone, where the
+    CUDA-event time of a small launch can be the host's time per call, and
+    the CUDA-event time of the same calls in the same trace, so that the two
+    see the same clocks. Traces again with a longer wait at its ends while
+    the trace lacks a launch, and raises after `tries` or if it holds more
+    launches than fn made."""
     from omniisaacgymenvs_torch.scripts.profile_rollout import _device_us, settle
 
     fn()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     held = []
     for _ in range(tries):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             settle(TRACE_PAD_S[0])
             _filler()
+            _warm()
+            start.record()
             for _ in range(reps):
                 fn()
+            end.record()
             _filler()
             settle(TRACE_PAD_S[0])
         ours = [e for e in prof.key_averages()
                 if "step_kernel" in e.key or "fk_kernel" in e.key]
         held.append(sum(e.count for e in ours))
         if held[-1] == reps:
-            return sum(_device_us(e) for e in ours) / reps / 1e3
+            return (sum(_device_us(e) for e in ours) / reps / 1e3,
+                    start.elapsed_time(end) / reps)
         if held[-1] > reps:
             break
         TRACE_PAD_S[0] *= 4
     raise RuntimeError(f"the profiler's traces held {held} of {reps} launches")
+
+
+def kernel_device_ms(fn, reps: int = 20, tries: int = 3) -> float:
+    """The device time per launch of `kernel_times`."""
+    return kernel_times(fn, reps, tries)[0]
 
 
 def sass_counts(path) -> dict:

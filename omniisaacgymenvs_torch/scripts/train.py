@@ -49,19 +49,21 @@ from omniisaacgymenvs_torch.utils.paths import retrieve_checkpoint_path
 
 
 @torch.no_grad()
-def evaluate(trainer: PPOTrainer, steps: int = 1000, log_fn=log):
-    """The deterministic (mean-action, clipped to [-1, 1]) policy on freshly
-    reset envs for `steps` control steps, the LSTM states carried from the
-    trainer's and zeroed where an episode ends. Returns (mean reward of the
-    finished episodes, their count), over every rank's envs; with none
-    finished, the mean running reward and 0. Prints the task's
-    statistics."""
+def evaluate(trainer: PPOTrainer, steps: int = 1000, log_fn=log, seed: int = 123):
+    """The deterministic (mean-action, clipped to [-1, 1]) policy on envs
+    freshly reset from `seed` for `steps` control steps, the LSTM states
+    carried from the trainer's and zeroed where an episode ends. Returns
+    (mean reward of the finished episodes, their count), over every rank's
+    envs; with none finished, the mean running reward and 0. Prints the
+    task's statistics and, for a task that counts successes, the mean
+    successes of a finished episode."""
     env, ts = trainer.env, trainer.state
-    es = env.reset(seed=123)
+    es = env.reset(seed=seed)
     hidden, cv_hidden = ts.hidden, ts.cv_hidden
     ep_ret = torch.zeros(env.num_envs, device=trainer.device)
     total = torch.zeros_like(ep_ret)
     count = torch.zeros_like(ep_ret)
+    successes = torch.zeros_like(ep_ret)
     stats = env.task.episode_stats_init()
     for _ in range(steps):
         mu, _, _, hidden, cv_hidden = trainer._policy(ts, es.obs, es.states,
@@ -73,11 +75,16 @@ def evaluate(trainer: PPOTrainer, steps: int = 1000, log_fn=log):
         ep_ret = ep_ret + es.reward
         total = total + torch.where(es.done, ep_ret, 0.0)
         count = count + es.done
+        if "successes" in es.metrics:
+            successes = successes + torch.where(es.done, es.metrics["successes"], 0.0)
         ep_ret = torch.where(es.done, 0.0, ep_ret)
         stats = env.task.episode_stats_update(stats, es)
     for k, v in stats.items():
         log_fn(f"eval: {k} = {float(v):.2f}")
     n = float(mesh.env_sum(count))
+    if "successes" in es.metrics and n:
+        log_fn(f"eval: successes per finished episode = "
+               f"{float(mesh.env_sum(successes)) / n:.4f}")
     if n == 0:
         return float(mesh.env_mean(ep_ret)), 0
     return float(mesh.env_sum(total)) / n, int(n)
@@ -133,7 +140,8 @@ def _main(argv):
     wandb_run = maybe_init_wandb(cfg)
     num_envs = env.num_envs * trainer.world
     log(f"task={cfg['task_name']} num_envs={num_envs} device={env.device} "
-        f"seed={cfg['seed']}" + (f" ranks={trainer.world}" if trainer.world > 1 else ""))
+        f"seed={cfg['seed']}" + (f" ranks={trainer.world}" if trainer.world > 1 else "")
+        + f" networks: {'bf16 (autocast)' if trainer.cfg.mixed_precision else trainer.net_matmul}")
     profile_epochs = int(cfg.get("profile", 0) or 0)
     kernels = task.engine.kernels           # None on the CPU
     if kernels is not None:

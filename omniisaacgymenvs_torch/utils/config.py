@@ -151,6 +151,9 @@ def ppo_config_kwargs(train_cfg: dict) -> dict:
         mixed_precision=c.get("mixed_precision", False),
         max_epochs=c.get("max_epochs", 100),
     )
+    # the port's own key (no yaml sets it): the networks' matmul rule
+    if "net_matmul" in c:
+        kw["net_matmul"] = str(c["net_matmul"])
     # an asymmetric central value with its own optimizer schedule
     cv = c.get("central_value_config")
     if cv:

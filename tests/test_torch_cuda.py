@@ -11,7 +11,8 @@ both forms and K2 at their yamls' depths, a rollout's launches, a fifth
 Franka prop refused), and Custom on imported robots (the URDF example
 with a FIXED and a FREE base, chip_smoke.py's MJCF chain: K1 in both forms
 and K2, a rollout's launches, a chain beyond NB_MAX refused) and the
-refusal of a launch on a second device in one process.
+refusal of a launch on a second device in one process, and the networks'
+"bf16_operands" matmul rule on the card against the same layer on the CPU.
 They skip without a CUDA device. This file imports no JAX, so it also runs
 where JAX is not installed:
 
@@ -23,6 +24,7 @@ import torch
 
 from omniisaacgymenvs_torch.envs import VecEnv
 from omniisaacgymenvs_torch.learn import PPOConfig, PPOTrainer
+from omniisaacgymenvs_torch.learn.networks import round_bf16, rounded_linear
 from omniisaacgymenvs_torch.learn.ppo import _flatten
 from omniisaacgymenvs_torch.models import build_humanoid
 from omniisaacgymenvs_torch.ops import fused_step as fs
@@ -637,3 +639,31 @@ def test_launch_on_a_second_device_is_refused(cuda_device):
     other = torch.device("cuda", torch.cuda.current_device() + 1)
     with pytest.raises(RuntimeError, match="current device"):
         lib.claim(other)
+
+
+@pytest.mark.cuda
+def test_rounded_linear_on_card_matches_cpu(cuda_device):
+    """The "bf16_operands" layer (TF32 off) on the card against the same
+    layer on the CPU, forward and both backward products: equal operands
+    after the rounding, so the two differ only by the order of their f32
+    sums (within n * 2^-24 * sum |a_i b_i|, n the length of the sum)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(4096, 211, generator=gen)
+    layer = torch.nn.Linear(211, 512)
+    g = torch.randn(4096, 512, generator=gen)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        lay = torch.nn.Linear(211, 512).to(dev)
+        lay.load_state_dict(layer.state_dict())
+        xd = x.to(dev, copy=True).requires_grad_(True)
+        y = rounded_linear(lay, xd)
+        y.backward(g.to(dev))
+        out[str(dev)] = [t.detach().cpu().double()
+                         for t in (y, xd.grad, lay.weight.grad, lay.bias.grad)]
+    xr, wr, gr = (round_bf16(t).double().abs()
+                  for t in (x, layer.weight.detach(), g))
+    bounds = [(xr @ wr.T + layer.bias.detach().double().abs(), 212),
+              (gr @ wr, 512), (gr.T @ xr, 4096), (g.double().abs().sum(0), 4096)]
+    for a, b, (terms, n) in zip(out["cpu"], out[str(cuda_device)], bounds):
+        assert ((a - b).abs() <= 2 * n * 2.0 ** -24 * terms).all()

@@ -1,8 +1,9 @@
 """The port imports neither JAX nor Flax nor anything of the JAX package,
 nor the JAX package's root scripts/: an ast scan of every file of
-omniisaacgymenvs_torch/, of chip_smoke.py, of bench_torch.py and of
-tools/conditioning_probe.py, and a fresh interpreter that imports the whole
-port."""
+omniisaacgymenvs_torch/, of chip_smoke.py, of bench_torch.py, of
+tools/conditioning_probe.py and of tests/torch_checkpoint_set.py (it runs
+on the GPU machine, which has no JAX), and a fresh interpreter that
+imports the whole port."""
 
 import ast
 import os
@@ -34,7 +35,8 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize(
     "path", PORT_FILES + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
-                          ROOT / "tools" / "conditioning_probe.py"],
+                          ROOT / "tools" / "conditioning_probe.py",
+                          ROOT / "tests" / "torch_checkpoint_set.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_jax_imports(path):

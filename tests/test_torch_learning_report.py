@@ -56,3 +56,21 @@ def test_cli_prints_one_json_object(tmp_path, capsys):
     assert out["port"]["task"] == tmp_path.name and out["port"]["epochs"] == 120
     assert len(out["windows"]) == 3 and out["row"] == dict(final_ep_reward=50.0)
     assert learning_report.main([]) == 2
+
+
+def test_windows_from_a_start_and_a_late_history():
+    """A history resumed at epoch 300 lines up with a reference by epoch;
+    the windows start at `start` and hold the `keys` asked for."""
+    ref, late = _hist(600), _hist(600, 3.0)[300:]
+    out = learning_report.report(late, dict(ref=ref), at=(299, 399), window=50,
+                                 every=100, start=350,
+                                 keys=("mean_ep_reward", "Episode/consecutive_successes"))
+    assert out["at"]["299"]["port"] is None
+    assert out["at"]["399"]["ratio_ref"] == 3.0
+    assert [w["epochs"] for w in out["windows"]] == ["350-399", "450-499", "550-599"]
+    w = out["windows"][0]
+    assert sorted(w) == sorted(["epochs", "port.mean_ep_reward", "ref.mean_ep_reward",
+                                "port.Episode/consecutive_successes",
+                                "ref.Episode/consecutive_successes"])
+    assert w["ref.Episode/consecutive_successes"] == pytest.approx(
+        sum(r["Episode/consecutive_successes"] for r in ref[350:400]) / 50, rel=1e-5)

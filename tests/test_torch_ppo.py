@@ -344,14 +344,14 @@ def _task_pair(kw, seed=0):
     return jtr, tr
 
 
-def _jax_draws(jtr, T, A, mini_epochs):
-    """JAX's action noise (T, N, A) and the _update permutations of one
-    epoch, rebuilt from the trainer's key splits."""
+def _jax_draws(jtr, T, A, mini_epochs, n=None):
+    """JAX's action noise (T, n, A) (n: N unless given) and the key its
+    _update permutations come from, rebuilt from the trainer's key splits."""
     rng, k = jax.random.split(jtr.state.rng)
     noise = []
     for _ in range(T):
         k, kt = jax.random.split(k)
-        noise.append(np.asarray(jax.random.normal(kt, (N, A))))
+        noise.append(np.asarray(jax.random.normal(kt, (n or N, A))))
     return np.stack(noise), rng
 
 

@@ -192,6 +192,17 @@ def test_bench_torch_on_cpu_prints_the_keys():
     assert "device=cpu num_envs=8 steps=4" in res.stderr
 
 
+def test_bench_torch_times_the_named_matmul_rule():
+    res = _bench({"BENCH_DEVICE": "cpu", "BENCH_NUM_ENVS": "8", "BENCH_STEPS": "4",
+                  "BENCH_TRAIN_ENVS": "8", "BENCH_NET_MATMUL": "bf16_operands"})
+    assert res.returncode == 0, res.stderr[-2000:]
+    row = json.loads(res.stdout.strip().splitlines()[-1])
+    assert row["net_matmul"] == "bf16_operands" and row["train_steps_per_s"] > 0
+    res = _bench({"BENCH_DEVICE": "cpu", "BENCH_NUM_ENVS": "8", "BENCH_STEPS": "4",
+                  "BENCH_TRAIN_ENVS": "8", "BENCH_NET_MATMUL": "tf32"})
+    assert res.returncode != 0 and "matmul must be" in res.stderr
+
+
 def test_bench_torch_needs_the_card_unless_cpu_asked():
     if torch.cuda.is_available():
         pytest.skip("a card is present")

@@ -8,10 +8,14 @@ say where two curves part.
         results_torch/AllegroHand/history.json \
         seed123=results/AllegroHand/history.json \
         seed42=results/AllegroHand_seed42/history.json \
-        [row=LEARNING.json:AllegroHand] [at=999,1999,4999,9999] [window=100] [every=500]
+        [row=LEARNING.json:AllegroHand] [at=999,1999,4999,9999] [window=100] [every=500] \
+        [start=0] [keys=mean_ep_reward,lr,kl]
 
 A reference is name=path to a history.json (a list of per-epoch rows with
-`epoch`, `mean_ep_reward`, `lr`, `kl`). `row=FILE:KEY` names a record row
+`epoch`, `mean_ep_reward`, `lr`, `kl`). Rows are found by their `epoch`,
+so a history that starts late (a run resumed from another's checkpoint)
+lines up with the references. The windows start at `start` and every
+`every` epochs after it, and hold the means of `keys`. `row=FILE:KEY` names a record row
 (`LEARNING.json`) held against the port's summary. The summary is named
 after the history's directory. Prints one JSON object.
 """
@@ -27,17 +31,22 @@ from make_learning_json import summarize  # noqa: E402
 
 
 def at_epoch(hist: list, epoch: int, key: str = "mean_ep_reward"):
-    """The value of `key` at `epoch`, or None past the history's end."""
-    return hist[epoch][key] if epoch < len(hist) else None
+    """The value of `key` at `epoch`, or None where the history has no
+    such row."""
+    rows = [r for r in hist if r["epoch"] == epoch]
+    return rows[0][key] if rows else None
 
 
 def window_mean(hist: list, start: int, width: int, key: str):
-    rows = hist[start:start + width]
+    """The mean of `key` over epochs start .. start + width - 1, or None
+    unless the history holds every one of them."""
+    rows = [r for r in hist if start <= r["epoch"] < start + width]
     return sum(r[key] for r in rows) / len(rows) if len(rows) == width else None
 
 
 def report(port: list, refs: dict, row=None, at=(999, 1999, 4999, 9999), window=100,
-           every=500, task="port") -> dict:
+           every=500, task="port", start=0,
+           keys=("mean_ep_reward", "lr", "kl")) -> dict:
     out = dict(port=summarize(task, port))
     if row is not None:
         out["row"] = row
@@ -55,11 +64,11 @@ def report(port: list, refs: dict, row=None, at=(999, 1999, 4999, 9999), window=
             entry[f"ratio_{name}"] = round(p / r, 3) if p is not None and r else None
         out["at"][str(e)] = entry
     out["windows"] = []
-    for start in range(0, len(port), every):
-        w = dict(epochs=f"{start}-{start + window - 1}")
+    for first in range(start, port[-1]["epoch"] + 1, every):
+        w = dict(epochs=f"{first}-{first + window - 1}")
         for name, h in [("port", port), *refs.items()]:
-            for key in ("mean_ep_reward", "lr", "kl"):
-                v = window_mean(h, start, window, key)
+            for key in keys:
+                v = window_mean(h, first, window, key)
                 w[f"{name}.{key}"] = None if v is None else float(f"{v:.6g}")
         out["windows"].append(w)
     return out
@@ -84,8 +93,10 @@ def main(argv=None) -> int:
             kw["row"] = _load(path)[key]
         elif k == "at":
             kw["at"] = tuple(int(x) for x in v.split(","))
-        elif k in ("window", "every"):
+        elif k in ("window", "every", "start"):
             kw[k] = int(v)
+        elif k == "keys":
+            kw["keys"] = tuple(v.split(","))
         else:
             refs[k] = _load(v)
     print(json.dumps(report(port, refs, **kw), indent=1))

@@ -8,6 +8,18 @@ lower score in one says that env differs.
 
     python tests/torch_policy_transfer.py [task=ShadowHand] \
         [checkpoint=results/ShadowHand/nn-best] [num_envs=128] [steps=601]
+    python tests/torch_policy_transfer.py only=port [seed=123] [num_envs=1024] \
+        [checkpoint=results_torch/ShadowHand_jax_final]
+
+`port_checkpoint=DIR` goes the other way: the policy is a port checkpoint's
+(its `model.pt`), carried into the JAX trainer (flax kernels are the
+weights transposed), and both packages evaluate it, e.g. a policy the port
+trained on the card, for a task with no JAX checkpoint (AllegroHand).
+
+`only=port` evaluates the port alone (no JAX), from the JAX policy carried
+into a port checkpoint (tests/torch_jax_checkpoint.py), its envs reset from
+`seed` (the JAX evaluation's is 123): the spread of a few seeds is the
+band `chip_smoke.py` holds the same evaluation on the card to.
 
 Prints one JSON object: each package's mean episode reward, finished
 episodes and task statistics. For a task that counts successes, the
@@ -58,19 +70,56 @@ def count_episodes(task, xp):
     task.episode_stats_init, task.episode_stats_update = init_, update_
 
 
+def jax_state_from_port(tr, jtr) -> dict:
+    """The port trainer `tr`'s actor-critic and norms as fields of the JAX
+    trainer `jtr`'s state (a feed-forward actor-critic)."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    p = {k: v.detach().cpu().numpy() for k, v in tr.state.ac.named_parameters()}
+    n_trunk = len(tr.state.ac.trunk.layers)
+    names = [f"trunk.layers.{i}" for i in range(n_trunk)] + ["mu", "value"]
+    flax = {f"Dense_{i}": {"kernel": jnp.asarray(p[f"{k}.weight"].T),
+                           "bias": jnp.asarray(p[f"{k}.bias"])}
+            for i, k in enumerate(names)}
+    flax["log_std"] = jnp.asarray(p["log_std"])
+    params = dict(jtr.state.params, ac={"params": flax})
+    out = dict(params=params)
+    for name in ("obs_norm", "value_norm", "states_norm"):
+        tn, jn = getattr(tr.state, name), getattr(jtr.state, name)
+        out[name] = jn.replace(**{f: jnp.asarray(np.asarray(getattr(tn, f).cpu()))
+                                  for f in ("mean", "var", "count")})
+    return out
+
+
 def main(argv=None) -> int:
     args = dict(a.split("=", 1) for a in (sys.argv[1:] if argv is None else argv))
     task = args.get("task", "ShadowHand")
-    ckpt = os.path.join(ROOT, args.get("checkpoint", f"results/{task}/nn-best"))
     n, steps = int(args.get("num_envs", 128)), int(args.get("steps", 601))
+    seed = int(args.get("seed", 123))
+
+    import torch
+
+    from omniisaacgymenvs_torch.scripts import train as ttrain
+
+    if args.get("only") == "port":
+        ckpt = args.get("checkpoint", f"results_torch/{task}_jax_final")
+        _, _, tr = ttrain.build_trainer([f"task={task}", f"num_envs={n}", "device=cpu",
+                                         "test=True", f"checkpoint={os.path.join(ROOT, ckpt)}"])
+        count_episodes(tr.env.task, torch)
+        lines = []
+        tret, tn = ttrain.evaluate(tr, steps=steps, log_fn=lines.append, seed=seed)
+        print(json.dumps(dict(task=task, checkpoint=ckpt, num_envs=n, steps=steps, seed=seed,
+                              port=dict(mean_episode_reward=tret, episodes=tn,
+                                        **_stats("\n".join(lines))))))
+        return 0
+    ckpt = os.path.join(ROOT, args.get("checkpoint", f"results/{task}/nn-best"))
 
     import jax.numpy as jnp
     import numpy as np
-    import torch
 
     from omniisaacgymenvs_torch import convert
     from omniisaacgymenvs_torch.learn.running_norm import RunningNorm
-    from omniisaacgymenvs_torch.scripts import train as ttrain
     from omniisaacgymenvs_tpu.learn import PPOConfig, PPOTrainer
     from omniisaacgymenvs_tpu.scripts import train as jtrain
     from omniisaacgymenvs_tpu.scripts.common import build_env_from_cli
@@ -81,7 +130,13 @@ def main(argv=None) -> int:
                                       "test=True"])
     jtr = PPOTrainer(env, PPOConfig(**ppo_config_kwargs(cfg["train"])),
                      seed=int(cfg["seed"]))
-    jtr.load(ckpt)
+    if args.get("port_checkpoint"):
+        ckpt = os.path.join(ROOT, args["port_checkpoint"])
+        _, _, src = ttrain.build_trainer([f"task={task}", "num_envs=8", "device=cpu",
+                                          "test=True", f"checkpoint={ckpt}"])
+        jtr.state = jtr.state.replace(**jax_state_from_port(src, jtr))
+    else:
+        jtr.load(ckpt)
     count_episodes(env.task, jnp)
     buf = io.StringIO()
     with redirect_stdout(buf):
@@ -99,7 +154,7 @@ def main(argv=None) -> int:
             *(torch.as_tensor(np.array(getattr(jn_, f)))
               for f in ("mean", "var", "count"))))
     lines = []
-    tret, tn = ttrain.evaluate(tr, steps=steps, log_fn=lines.append)
+    tret, tn = ttrain.evaluate(tr, steps=steps, log_fn=lines.append, seed=seed)
     out["port"] = dict(mean_episode_reward=tret, episodes=tn, **_stats("\n".join(lines)))
     print(json.dumps(out))
     return 0
