@@ -18,7 +18,8 @@ stderr gives the card's name and power limit, the env count and the steps.
 Env vars: BENCH_TASK (default Humanoid), BENCH_NUM_ENVS, BENCH_STEPS,
 BENCH_TRAIN=0 (skip the train half), BENCH_TRAIN_ENVS (default 8192),
 BENCH_PEAK_FLOPS, BENCH_NET_MATMUL (the f32 networks' matmul rule, default
-f32; `bf16_operands` times the TPU's rule, recorded as "net_matmul"),
+the learner's, `PPOConfig.net_matmul`: the TPU's rule `bf16_operands`;
+`f32` times exact f32; recorded as "net_matmul"),
 BENCH_DEVICE (default cuda; `cpu` is the only way to run on the CPU, for a
 smoke run). The baseline of vs_baseline is bench.py's:
 600k Humanoid env-steps/s on one GPU.
@@ -113,7 +114,7 @@ def train_bench(task_name: str, device, cfg: dict, epochs: int = 16) -> dict:
     env = VecEnv(get_task(task_name, cfg["task"], device=device), n)
     kw = ppo_config_kwargs(cfg["train"])
     # there is no multi-epoch compiled program: one epoch per call
-    matmul = os.environ.get("BENCH_NET_MATMUL", "f32")
+    matmul = os.environ.get("BENCH_NET_MATMUL", PPOConfig.net_matmul)
     out = {"train_envs": n, "epochs_per_jit": 1, "net_matmul": matmul}
     for mixed in (False, True):
         ppo = PPOConfig(**{**kw, "mixed_precision": mixed,

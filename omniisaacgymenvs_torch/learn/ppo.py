@@ -60,6 +60,7 @@ from omniisaacgymenvs_torch.learn.networks import (
     CentralValue,
     LSTMActorCritic,
     LSTMCentralValue,
+    _check_matmul,
     gaussian_entropy,
     gaussian_kl,
     gaussian_logprob,
@@ -260,9 +261,11 @@ class PPOConfig:
     # bf16 network compute over f32 parameters; losses and norms stay f32
     mixed_precision: bool = False
     # the matrix products of f32 feed-forward networks (networks.MATMULS):
-    # "f32", or "bf16_operands", the TPU's default precision, which the JAX
-    # package's networks trained at on its chip (ROADMAP §C3, §C4)
-    net_matmul: str = "f32"
+    # "bf16_operands", the TPU's default precision, which the JAX package's
+    # networks trained at on its chip (ROADMAP §C3, §C4), or exact "f32".
+    # LSTM and autocast (mixed_precision) networks compute as their dtype
+    # says, whatever this reads
+    net_matmul: str = "bf16_operands"
     # asymmetric mode only: also train the actor's own value head on returns
     actor_aux_value_loss: bool = False
 
@@ -410,13 +413,15 @@ class PPOTrainer:
         )
 
     def _net_matmul(self) -> str:
-        """The feed-forward networks' matmul rule, `net_matmul`; the
-        networks check its value. The LSTM networks compute in f32 or, with
-        `mixed_precision`, under autocast, and take no other rule."""
+        """The networks' matmul rule: `net_matmul` for f32 feed-forward
+        networks (the networks check its value); "f32" for the LSTM
+        networks, which compute in f32 or, with `mixed_precision`, under
+        autocast, and for autocast feed-forward networks, whose products
+        are bf16."""
         rule = self.cfg.net_matmul
-        if rule != "f32" and self.is_rnn:
-            raise ValueError(f"net_matmul={rule!r} is not implemented for the "
-                             f"LSTM networks")
+        if self.is_rnn or self.cfg.mixed_precision:
+            _check_matmul(rule, None)   # an unknown name still raises
+            return "f32"
         return rule
 
     # ------------------------------------------------------------------

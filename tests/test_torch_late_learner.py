@@ -58,6 +58,9 @@ from torch_parity import np_, to_numpy_tree
 
 N = 64
 MB = ["train.params.config.minibatch_size=256"]
+# the JAX learner on the CPU computes its networks in exact f32; the port's
+# default for f32 feed-forward networks is the TPU's rule
+F32 = "train.params.config.net_matmul=f32"
 CKPT = "results_torch/ShadowHand_jax_final"
 ROLL = dict(rtol=1e-2, atol=1e-2)
 ROLL_SHARE, ROLL_MAX = 0.9999, 5e-2
@@ -107,7 +110,7 @@ def _sync_env(jts, tr):
 def _shadow_hand_pair():
     jtr = jax_trainer("ShadowHand", N, "results/ShadowHand/nn-best", MB)
     _, _, tr = ttrain.build_trainer(["task=ShadowHand", f"num_envs={N}",
-                                     "device=cpu", f"checkpoint={CKPT}", *MB])
+                                     "device=cpu", f"checkpoint={CKPT}", *MB, F32])
     _sync_env(jtr.state, tr)
     return jtr, tr
 
@@ -115,7 +118,7 @@ def _shadow_hand_pair():
 def _allegro_hand_pair():
     jtr = jax_trainer("AllegroHand", N, None, MB)
     _, _, tr = ttrain.build_trainer(["task=AllegroHand", f"num_envs={N}",
-                                     "device=cpu", *MB])
+                                     "device=cpu", *MB, F32])
     # the norms of one rollout of the initial policy
     js, traj, last, _ = jax.jit(jtr._rollout)(jtr.state)
     _, returns = jtr._gae(traj, last)

@@ -74,3 +74,39 @@ def test_windows_from_a_start_and_a_late_history():
                                 "ref.Episode/consecutive_successes"])
     assert w["ref.Episode/consecutive_successes"] == pytest.approx(
         sum(r["Episode/consecutive_successes"] for r in ref[350:400]) / 50, rel=1e-5)
+
+
+def test_matched_reward_bins():
+    """Each run's epochs from MATCH_START on, binned by reward; a bin of
+    fewer than MATCH_MIN_EPOCHS epochs is None; the CLI's `bins=`."""
+    h = _hist(400)
+    out = learning_report.matched(dict(a=h), bins=(150, 250, 390, 1000))
+    rows = [r for r in h if r["epoch"] >= 200 and 150 <= r["mean_ep_reward"] < 250]
+    cell = out["a"]["150-250"]
+    assert cell["epochs"] == len(rows) >= 20
+    assert cell["mean_ep_length"] == pytest.approx(
+        sum(r["mean_ep_length"] for r in rows) / len(rows), rel=1e-5)
+    assert "episodes" not in cell   # not a key of these rows
+    assert out["a"]["390-1000"] is None   # ten epochs
+    rep = learning_report.report(h, dict(b=h), at=(), bins=(150, 250))
+    assert rep["matched"]["port"] == rep["matched"]["b"] == {"150-250": cell}
+
+
+def test_allegrohand_f32_drops_the_cube_at_matched_reward():
+    """Fault C4's evidence in the tracked histories: at the same reward
+    (bins of 1000-1700 after epoch 200), the f32 AllegroHand run at seed
+    42 (results_torch/AllegroHand_f32) ends its episodes 25 or more steps
+    sooner than either JAX seed's; AllegroHand's yaml has no fall penalty and no success limit, so
+    an episode shorter than 600 steps ended in a fall."""
+    hist = {name: json.loads((ROOT / path).read_text()) for name, path in (
+        ("f32", "results_torch/AllegroHand_f32/history.json"),
+        ("jax123", "results/AllegroHand/history.json"),
+        ("jax42", "results/AllegroHand_seed42/history.json"))}
+    out = learning_report.matched(hist, bins=(800, 1000, 1200, 1400, 1700))
+    for b in ("1000-1200", "1200-1400", "1400-1700"):
+        f32 = out["f32"][b]["mean_ep_length"]
+        for jax_run in ("jax123", "jax42"):
+            assert out[jax_run][b]["mean_ep_length"] - f32 >= 25, (b, jax_run, out)
+    # and it reaches goals faster at that reward
+    assert (out["f32"]["1400-1700"]["Episode/consecutive_successes"]
+            > out["jax123"]["1400-1700"]["Episode/consecutive_successes"])

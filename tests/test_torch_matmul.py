@@ -10,8 +10,9 @@ The rounded layer, forward and backward, is held against an f64 reference
 on the same bf16-rounded operands, within the f32 summation bound
 n * 2^-24 * sum |a_i b_i| of each output element (n the length of the
 sum). The rule's wiring through the actor-critic and the central value,
-which trainer takes it, the CLI key that sets it, and the default (exact
-f32).
+which trainer takes it, the CLI key that sets it, and the defaults: the
+learner's (the rule, for f32 feed-forward networks) and the networks' own
+(exact f32).
 """
 
 import types
@@ -115,9 +116,14 @@ def test_which_trainer_takes_the_rule():
     assert _rule("f32") == "f32"
     assert _rule("f32", rnn=True) == "f32"
     assert _rule("bf16_operands") == "bf16_operands"
-    # the LSTM networks compute as their dtype says
-    with pytest.raises(ValueError, match="LSTM"):
-        _rule("bf16_operands", rnn=True)
+    # the LSTM networks and the autocast ones compute as their dtype says
+    assert _rule("bf16_operands", rnn=True) == "f32"
+    stub = types.SimpleNamespace(
+        cfg=PPOConfig(net_matmul="bf16_operands", mixed_precision=True), is_rnn=False)
+    assert PPOTrainer._net_matmul(stub) == "f32"
+    # an unknown rule is refused whatever the networks
+    with pytest.raises(ValueError, match="matmul must be"):
+        _rule("tf32", rnn=True)
     with pytest.raises(ValueError, match="autocast"):
         ActorCritic(8, 2, units=(16,), dtype=torch.bfloat16, matmul="bf16_operands")
     with pytest.raises(ValueError, match="matmul must be"):
@@ -135,11 +141,13 @@ def test_cli_key_sets_the_rule():
 
 
 def test_the_default_is_exact_f32():
-    """The trainer's default on every device is exact f32 (TF32 off): the
-    TPU's rule is asked for by name (`net_matmul=bf16_operands`), since it
-    closes ShadowHand's gap to the JAX curve but widens AllegroHand's
-    (ROADMAP §C3, §C4)."""
-    assert PPOConfig().net_matmul == "f32"
+    """Exact f32 (TF32 off) is the networks' own default, and the rule of
+    every trainer whose networks are LSTM or autocast; a trainer of f32
+    feed-forward networks takes the TPU's rule unless f32 is asked for
+    (`net_matmul=f32`; test_the_learners_default_is_the_tpus_rule)."""
+    for rnn, mixed in ((True, False), (True, True), (False, True)):
+        stub = types.SimpleNamespace(cfg=PPOConfig(mixed_precision=mixed), is_rnn=rnn)
+        assert PPOTrainer._net_matmul(stub) == "f32"
     net = ActorCritic(8, 2, units=(16,), generator=torch.Generator().manual_seed(0))
     assert net.matmul == "f32" and net.trunk.matmul == "f32"
     x = torch.randn(4, 8, generator=torch.Generator().manual_seed(1))
@@ -148,3 +156,45 @@ def test_the_default_is_exact_f32():
     h = torch.nn.functional.elu(lin(x, w.weight, w.bias))
     assert torch.equal(mu, lin(h, net.mu.weight, net.mu.bias))
     assert torch.equal(value, lin(h, net.value.weight, net.value.bias)[:, 0])
+
+
+def test_the_learners_default_is_the_tpus_rule():
+    """The learner's default for f32 feed-forward networks is the TPU's
+    rule, set in one place (PPOConfig.net_matmul): AllegroHand's seed panel
+    over epochs 1900-1999 put it within one pooled standard error of exact
+    f32 (ROADMAP §C4), and it closed ShadowHand's gap to the JAX curve
+    (§C3). The CLI's `train.params.config.net_matmul=f32` asks for f32."""
+    assert PPOConfig().net_matmul == "bf16_operands"
+    assert _rule(PPOConfig().net_matmul) == "bf16_operands"
+    from omniisaacgymenvs_torch.scripts.common import build_env_from_cli
+
+    for argv, rule in (((), "bf16_operands"),
+                       (("train.params.config.net_matmul=f32",), "f32")):
+        cfg, _, env = build_env_from_cli(["task=Cartpole", "num_envs=8", "device=cpu",
+                                          *argv])
+        tr = PPOTrainer(env, PPOConfig(**ppo_config_kwargs(cfg["train"])), seed=0)
+        assert tr.net_matmul == tr.state.ac.matmul == tr.state.ac.trunk.matmul == rule
+
+
+@pytest.mark.parametrize("matmul", ["f32", "bf16_operands"])
+def test_chip_smoke_learner_check_takes_the_rule(matmul, capsys):
+    """chip_smoke.py phase 8's learner epoch, card against CPU, under each
+    rule: here both sides are the CPU, so they agree bit for bit, and the
+    networks it compares computed under the rule it names (the trainer's
+    own stay as they were)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from omniisaacgymenvs_torch.scripts.common import build_env_from_cli
+
+    cfg, _, env = build_env_from_cli(["task=Cartpole", "num_envs=64", "device=cpu"])
+    kw = ppo_config_kwargs(cfg["train"])
+    kw.update(minibatch_size=256, mini_epochs=2)
+    trainer = PPOTrainer(env, PPOConfig(**kw), seed=0)
+    own = trainer.state.ac.matmul
+    chip_smoke.learner_card_vs_cpu(trainer, "cpu", matmul=matmul, atol=0.0,
+                                   rel_max=0.0, metric_rtol=0.0)
+    assert f"({matmul} products)" in capsys.readouterr().out
+    assert trainer.state.ac.matmul == trainer.state.ac.trunk.matmul == own

@@ -40,6 +40,11 @@ from omniisaacgymenvs_tpu.learn import PPOTrainer as JPPOTrainer
 from omniisaacgymenvs_tpu.tasks import get_task as jget_task
 from torch_parity import np_, to_numpy_tree
 
+# the JAX learner on the CPU computes its networks in exact f32; the port's
+# default for f32 feed-forward networks is the TPU's rule, so the port's
+# trainers here ask for f32
+F32 = dict(net_matmul="f32")
+
 FWD = dict(rtol=1e-4, atol=1e-6)
 ADAM = dict(rtol=1e-6, atol=1e-9)
 
@@ -98,7 +103,7 @@ def _pair(kw, n=64, n_obs=12, n_states=0, n_act=4, seed=0, norm_seed=1):
     """(jax trainer, port trainer) on stub envs with equal networks and
     non-trivial running norms."""
     jtr = JPPOTrainer(StubEnv(n, n_obs, n_states, n_act), JPPOConfig(**kw), seed)
-    tr = PPOTrainer(StubEnv(n, n_obs, n_states, n_act), PPOConfig(**kw), seed)
+    tr = PPOTrainer(StubEnv(n, n_obs, n_states, n_act), PPOConfig(**kw, **F32), seed)
     rng = np.random.default_rng(norm_seed)
     js = jtr.state
     js = js.replace(
@@ -335,7 +340,7 @@ TRAJ = dict(rtol=1e-4, atol=1e-5)
 def _task_pair(kw, seed=0):
     jtr = JPPOTrainer(JVecEnv(jget_task("Cartpole"), N), JPPOConfig(**kw), seed)
     tr = PPOTrainer(VecEnv(get_task("Cartpole", device="cpu"), N, seed=seed),
-                    PPOConfig(**kw), seed)
+                    PPOConfig(**kw, **F32), seed)
     f = {k: to_numpy_tree(getattr(jtr.state.es, k))
          for k in ("phys", "carry", "obs", "states", "reward", "done",
                    "timeout", "progress", "metrics")}

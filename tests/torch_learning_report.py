@@ -5,11 +5,11 @@ by side in windows, with the learning rate and KL beside the reward, to
 say where two curves part.
 
     python tests/torch_learning_report.py \
-        results_torch/AllegroHand/history.json \
+        results_torch/AllegroHand_f32/history.json \
         seed123=results/AllegroHand/history.json \
         seed42=results/AllegroHand_seed42/history.json \
         [row=LEARNING.json:AllegroHand] [at=999,1999,4999,9999] [window=100] [every=500] \
-        [start=0] [keys=mean_ep_reward,lr,kl]
+        [start=0] [keys=mean_ep_reward,lr,kl] [bins=800,1000,1200,1400,1700]
 
 A reference is name=path to a history.json (a list of per-epoch rows with
 `epoch`, `mean_ep_reward`, `lr`, `kl`). Rows are found by their `epoch`,
@@ -17,7 +17,16 @@ so a history that starts late (a run resumed from another's checkpoint)
 lines up with the references. The windows start at `start` and every
 `every` epochs after it, and hold the means of `keys`. `row=FILE:KEY` names a record row
 (`LEARNING.json`) held against the port's summary. The summary is named
-after the history's directory. Prints one JSON object.
+after the history's directory.
+
+`bins=B0,B1,...` adds the matched-reward table (`matched`): for the port
+and each reference, the epochs after MATCH_START binned by their
+`mean_ep_reward` into [B0, B1), [B1, B2), ..., and each bin's mean episode
+length, consecutive successes and episodes an epoch, where the bin holds
+at least MATCH_MIN_EPOCHS epochs. Two runs at the same reward that end
+their episodes at different lengths drop the cube at different rates (an
+in-hand task whose yaml has no fall penalty and no success limit ends an
+episode early by a fall only). Prints one JSON object.
 """
 
 import json
@@ -44,9 +53,35 @@ def window_mean(hist: list, start: int, width: int, key: str):
     return sum(r[key] for r in rows) / len(rows) if len(rows) == width else None
 
 
+MATCH_START = 200
+MATCH_MIN_EPOCHS = 20
+MATCH_KEYS = ("mean_ep_length", "Episode/consecutive_successes", "episodes")
+
+
+def matched(hists: dict, bins=(800, 1000, 1200, 1400, 1700), start=MATCH_START,
+            min_epochs=MATCH_MIN_EPOCHS, keys=MATCH_KEYS) -> dict:
+    """{run: {"lo-hi": {"epochs": n, key: mean, ...} or None}}: each
+    history's epochs from `start` on, binned by mean_ep_reward; a bin of
+    fewer than `min_epochs` epochs is None."""
+    out = {}
+    for name, h in hists.items():
+        rows = [r for r in h if r["epoch"] >= start]
+        out[name] = {}
+        for lo, hi in zip(bins[:-1], bins[1:]):
+            sel = [r for r in rows if lo <= r["mean_ep_reward"] < hi]
+            cell = None
+            if len(sel) >= min_epochs:
+                cell = dict(epochs=len(sel))
+                for k in keys:
+                    if all(k in r for r in sel):
+                        cell[k] = float(f"{sum(r[k] for r in sel) / len(sel):.6g}")
+            out[name][f"{lo}-{hi}"] = cell
+    return out
+
+
 def report(port: list, refs: dict, row=None, at=(999, 1999, 4999, 9999), window=100,
            every=500, task="port", start=0,
-           keys=("mean_ep_reward", "lr", "kl")) -> dict:
+           keys=("mean_ep_reward", "lr", "kl"), bins=None) -> dict:
     out = dict(port=summarize(task, port))
     if row is not None:
         out["row"] = row
@@ -71,6 +106,8 @@ def report(port: list, refs: dict, row=None, at=(999, 1999, 4999, 9999), window=
                 v = window_mean(h, first, window, key)
                 w[f"{name}.{key}"] = None if v is None else float(f"{v:.6g}")
         out["windows"].append(w)
+    if bins:
+        out["matched"] = matched(dict(port=port, **refs), bins)
     return out
 
 
@@ -97,6 +134,8 @@ def main(argv=None) -> int:
             kw[k] = int(v)
         elif k == "keys":
             kw["keys"] = tuple(v.split(","))
+        elif k == "bins":
+            kw["bins"] = tuple(float(x) if "." in x else int(x) for x in v.split(","))
         else:
             refs[k] = _load(v)
     print(json.dumps(report(port, refs, **kw), indent=1))

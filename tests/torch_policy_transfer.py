@@ -38,6 +38,8 @@ from contextlib import redirect_stdout
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+# the port's networks compute in exact f32, as the JAX package's do on the CPU
+F32 = "train.params.config.net_matmul=f32"
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 
@@ -105,7 +107,8 @@ def main(argv=None) -> int:
     if args.get("only") == "port":
         ckpt = args.get("checkpoint", f"results_torch/{task}_jax_final")
         _, _, tr = ttrain.build_trainer([f"task={task}", f"num_envs={n}", "device=cpu",
-                                         "test=True", f"checkpoint={os.path.join(ROOT, ckpt)}"])
+                                         "test=True", f"checkpoint={os.path.join(ROOT, ckpt)}",
+                                         F32])
         count_episodes(tr.env.task, torch)
         lines = []
         tret, tn = ttrain.evaluate(tr, steps=steps, log_fn=lines.append, seed=seed)
@@ -145,7 +148,7 @@ def main(argv=None) -> int:
                jax=dict(mean_episode_reward=jret, episodes=jn, **_stats(buf.getvalue())))
 
     _, _, tr = ttrain.build_trainer([f"task={task}", f"num_envs={n}", "device=cpu",
-                                     "test=True"])
+                                     "test=True", F32])
     count_episodes(tr.env.task, torch)
     convert.actor_critic_from_arrays(to_numpy_tree(jtr.state.params["ac"]), tr.state.ac)
     for name in ("obs_norm", "value_norm", "states_norm"):

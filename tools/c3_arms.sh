@@ -9,7 +9,8 @@
 #   bash tools/c3_arms.sh allegro0 # AllegroHand_T_seed0
 #
 # Each arm names its networks' matmul rule (train.params.config.net_matmul):
-# "f32", the default, or "bf16_operands", the TPU's default precision.
+# "f32" (exact) or "bf16_operands", the TPU's default precision (the
+# learner's default).
 #
 # arms:
 #   R  ShadowHand_R     the JAX package's trained state (written by
