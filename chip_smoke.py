@@ -184,6 +184,28 @@ Phases (any failure exits non-zero):
      counts, goal hits, ejections and episode lengths printed. The check
      no kernel check makes: whether K1 drops the cube more often than the
      plain path, the ill-conditioned envs included.
+ 17. AllegroHand's learner from a trained state at its yaml's width: the
+     port's state after 2000 epochs of seed 1 in f32
+     (results_torch/AllegroHand_seed1/model.pt: networks, Adam moments,
+     norms, lr) loaded through `scripts/train.py`'s `build_trainer` at 8192
+     envs under AllegroHandPPO.yaml (minibatch 32768, 5 mini-epochs), one
+     rollout of 16 steps through K1 in the group form (K1 exactly once per
+     control step, K2 at least as often, no plain physics), then one
+     learner epoch on that stored rollout held card against CPU step by
+     step: the CPU runs the epoch and at each of its 20 minibatch steps the
+     card takes the same step from the CPU's state of that moment; GAE and
+     the norms' updates from the same inputs. Exact f32 networks: every
+     parameter within LEARNER_ATOL and each tensor's step within
+     LEARNER_STEP_REL of the CPU's; the TPU's matmul rule within RULE_ATOL
+     and RULE_REL; under both, Adam's two moments after each step within
+     that step bound of each tensor's largest element, the lr steps equal
+     and the epoch's loss metrics within phase 8's rtol (1e-3 in f32,
+     RULE_METRIC_RTOL under the rule). Every minibatch's loss terms (actor,
+     critic, entropy, bounds, KL, total) and the lr after it logged for the
+     card, with the largest gap from the CPU's, and the tensor and step of
+     each worst reading. (Two epochs run apart from this trained state part
+     by more: the epoch grows f32 rounding, and the CPU's own f32 epoch
+     parts from its f64 epoch past these bounds, tools/learner_card_cpu.py.)
 Tolerances and check states come from omniisaacgymenvs_torch/ops/parity.py.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -253,6 +275,18 @@ LEARNER_ATOL = 1e-5
 # 1.391e-02 in the worst tensor, kl 1e-4 apart relative (the other metrics
 # were not logged then: their bound is the kl reading's hundredfold)
 RULE_ATOL, RULE_REL, RULE_METRIC_RTOL = 3e-4, 6e-2, 1e-2
+# phase 17: the learner step from the CPU's state, card against CPU in f32:
+# each tensor's step within LEARNER_STEP_REL of the CPU's (|card - cpu| over
+# |cpu step|), and each of Adam's moments after the step within it of the
+# tensor's largest element (Adam's step is one moment over the other's root,
+# so a moment that parts by a share of its scale moves the step by as much).
+# Read on an H100 at most 1.05e-2 in the step and 1.78e-2 in the first
+# moment (5.1e-5 in the second), where the card's f32 gradients round
+# otherwise than the CPU's (tools/learner_card_cpu.py: a step from an f64
+# state stands up to 4.8 times farther from it on the card than on the CPU
+# at 10 of 60 steps, the biases foremost); a gradient a few percent off
+# moves the step by as much. The TPU's rule holds both to RULE_REL
+LEARNER_STEP_REL = 3e-2
 # phase 11: Custom.yaml's numEnvs, a width that fills the card, training
 # epochs, and the learning bar of the JAX package's
 # tests/test_custom_robot.py (the double pendulum, 120 epochs of 256 envs,
@@ -298,6 +332,11 @@ TRAINED_BAND = dict(reward=(3336.93, 3479.66), successes=(12.5138, 13.0129))
 # bound on each reset cause's rate difference in standard deviations
 FALLS = dict(envs=8192, steps=150, hold=4, seed=0)
 FALLS_SD_MAX = 4.0
+# phase 17: AllegroHand's learner from a trained state at the yaml's width:
+# the port's state after 2000 epochs of seed 1 in f32 (networks, Adam
+# moments at count 40,000, norms, lr), the yaml's 8192 envs, and the seed
+# of the rollout's resets and noise
+TRAINED_LEARNER = dict(checkpoint="results_torch/AllegroHand_seed1", envs=8192, seed=0)
 DEMO_WIDTHS = (("Anymal", 1), ("AnymalTerrain", 1), ("AnymalTerrain", 4))
 SELFTEST_STEPS = 200
 DEMO_CPU_STEPS = 3
@@ -613,7 +652,7 @@ def main() -> int:
         genv = VecEnv(get_task(name, task_cfg, device=dev), e2e_envs, seed=5)
         cenv = VecEnv(get_task(name, task_cfg, device="cpu"), e2e_envs, seed=5)
         ges0 = genv.reset(seed=5)
-        ces0 = _state_to(ges0, "cpu")
+        ces0 = state_to(ges0, "cpu")
         g = torch.Generator().manual_seed(7)
         # a task that draws in its control (a flyer's target or thrust
         # noise) takes the same draws on both sides
@@ -1049,6 +1088,9 @@ def main() -> int:
     # ---- 16. AllegroHand's falls, K1 against the plain path ----
     falls_phase(card)
 
+    # ---- 17. AllegroHand's learner from a trained state, card vs CPU ----
+    trained_learner_phase(card)
+
     # K1 and K2 carry each main path; K3 is a launch mode no product path
     # takes, held against its plain version above
     for r in rows:
@@ -1064,21 +1106,104 @@ def main() -> int:
     return 0
 
 
-def _state_to(x, device):
+def state_to(x, device, dtype=None):
     """A copy of a trainer's state (dataclasses, dicts, lists, tuples,
-    modules, tensors) on `device`."""
+    modules, tensors) on `device`; floating tensors and modules cast to
+    `dtype` where one is given."""
     if isinstance(x, torch.Tensor):
+        if dtype is not None and x.is_floating_point():
+            return x.to(device, dtype, copy=True)
         return x.to(device, copy=True)
     if isinstance(x, torch.nn.Module):
-        return copy.deepcopy(x).to(device)
+        x = copy.deepcopy(x).to(device)
+        return x if dtype is None else x.to(dtype)
     if dataclasses.is_dataclass(x):
-        return dataclasses.replace(x, **{f.name: _state_to(getattr(x, f.name), device)
+        return dataclasses.replace(x, **{f.name: state_to(getattr(x, f.name), device, dtype)
                                          for f in dataclasses.fields(x)})
     if isinstance(x, dict):
-        return {k: _state_to(v, device) for k, v in x.items()}
+        return {k: state_to(v, device, dtype) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
-        return type(x)(_state_to(v, device) for v in x)
+        return type(x)(state_to(v, device, dtype) for v in x)
     return x
+
+
+@contextlib.contextmanager
+def traced_learner(tr, before_step=None, after_step=None):
+    """The trainer `tr`'s loss and lr step and the learner's Adam step
+    (`ppo.clip_adam_step`) wrapped while open, to record every minibatch of
+    a `_learn`: yields a list with a dict a minibatch, its loss terms
+    (`aux`'s keys and "loss") and "lr_after" as floats. Around each Adam
+    step `before_step(row, stash, params, state, lr, max_norm)` and
+    `after_step(row, params, state)` are called; `stash` holds the loss's
+    inputs of the step (ts, mb, am, asd) and the unwrapped Adam step
+    ("adam_step")."""
+    from omniisaacgymenvs_torch.learn import ppo
+
+    rows, stash = [], {}
+    loss_fn, adapt_fn, step_fn = tr._loss, tr._adapt_lr, ppo.clip_adam_step
+    stash["adam_step"] = step_fn
+
+    def loss(ts, mb, am, asd):
+        total, aux = loss_fn(ts, mb, am, asd)
+        stash.update(ts=ts, mb=mb, am=am, asd=asd)
+        rows.append(dict({k: float(v.detach()) for k, v in aux.items()},
+                         loss=float(total.detach())))
+        return total, aux
+
+    def step(params, grads, state, lr, max_norm):
+        if before_step is not None:
+            before_step(rows[-1], stash, params, state, lr, max_norm)
+        ok = step_fn(params, grads, state, lr, max_norm)
+        if after_step is not None:
+            after_step(rows[-1], params, state)
+        return ok
+
+    def adapt(lr, kl):
+        new = adapt_fn(lr, kl)
+        rows[-1]["lr_after"] = float(new)
+        return new
+
+    tr._loss, tr._adapt_lr = loss, adapt
+    ppo.clip_adam_step = step
+    try:
+        yield rows
+    finally:
+        ppo.clip_adam_step = step_fn
+        tr._loss, tr._adapt_lr = loss_fn, adapt_fn
+
+
+def learner_step_from(trainer, net, stash, params, state, lr, max_norm,
+                      dtype=torch.float32):
+    """The minibatch step that a traced `_learn` (`traced_learner`) is about
+    to take, taken again on `trainer`'s device in `dtype` from that epoch's
+    state of the moment: `net` (the trainer's network on its device, in
+    `dtype`) set to `params`, the loss on the stashed minibatch and its
+    gradient, then the Adam step on a copy of `state`, and `trainer`'s lr
+    step on this side's KL. Returns (loss terms with "loss", the Adam state
+    after the step, the lr after it); `net` holds the parameters after."""
+    dev = trainer.device
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(dtype)
+    try:
+        with torch.no_grad():
+            for p, q in zip(net.parameters(), params):
+                p.copy_(q)
+        ts = stash["ts"]
+        side_ts = dataclasses.replace(ts, ac=net, obs_norm=state_to(ts.obs_norm, dev, dtype),
+                                      value_norm=state_to(ts.value_norm, dev, dtype))
+        total, aux = trainer._loss(side_ts, state_to(stash["mb"], dev, dtype),
+                                   stash["am"].to(dev, dtype), stash["asd"].to(dev, dtype))
+        side_params = list(net.parameters())
+        grads = list(torch.autograd.grad(total, side_params, allow_unused=True,
+                                         materialize_grads=True))
+        side_state, side_lr = state_to(state, dev, dtype), lr.to(dev, dtype)
+        stash["adam_step"](side_params, grads, side_state, side_lr, max_norm)
+        lr_after = trainer._adapt_lr(side_lr, aux["kl"].detach())
+        terms = dict({k: float(v.detach()) for k, v in aux.items()},
+                     loss=float(total.detach()))
+        return terms, side_state, float(lr_after)
+    finally:
+        torch.set_default_dtype(old)
 
 
 @contextlib.contextmanager
@@ -1304,14 +1429,14 @@ def learner_card_vs_cpu(trainer, card, matmul="f32", atol=LEARNER_ATOL,
     for label, device in (("card", trainer.device), ("cpu", cpu)):
         tr = copy.copy(trainer)
         tr.device = device
-        st = _state_to(ts, device)
+        st = state_to(ts, device)
         for net in nets:
             module = getattr(st, net)
             module.dtype = None
             if hasattr(module, "matmul"):   # the feed-forward networks
                 module.matmul = module.trunk.matmul = matmul
-        m = tr._learn(st, _state_to(traj, device), last_value.to(device),
-                      _state_to(stats, device), perms=perms.to(device),
+        m = tr._learn(st, state_to(traj, device), last_value.to(device),
+                      state_to(stats, device), perms=perms.to(device),
                       cv_perms=None if cv_perms is None else cv_perms.to(device))
         sides[label] = (st, {k: float(v) for k, v in m.items()})
     (g, gm), (c, cm) = sides["card"], sides["cpu"]
@@ -1610,6 +1735,147 @@ def falls_phase(card):
         assert abs(sd[cause]) <= FALLS_SD_MAX, (cause, sd, counts(k1), counts(ref))
 
 
+def trained_learner_phase(card):
+    """Phase 17 (module docstring): AllegroHand's learner epoch from the
+    port's trained state at the yaml's width, card against CPU under both
+    matmul rules, on one rollout through K1 whose launches are counted."""
+    from omniisaacgymenvs_torch.scripts.train import build_trainer
+
+    c = TRAINED_LEARNER
+    t0 = time.perf_counter()
+    _, task, tr = build_trainer([
+        "task=AllegroHand", f"num_envs={c['envs']}", "device=cuda", f"seed={c['seed']}",
+        f"checkpoint={os.path.join(ROOT, c['checkpoint'])}",
+        "train.params.config.net_matmul=f32"])
+    ppo = tr.cfg
+    assert tr.state.epoch == 2000 and float(tr.state.opt_state.count) == 40000.0
+    assert (ppo.horizon_length, ppo.minibatch_size, ppo.mini_epochs) == (16, 32768, 5), ppo
+    kern = task.engine.kernels
+    form = kern.config(c["envs"])[0]["design"]
+    kern.reset_counts()
+    with plain_physics_counted() as plain:
+        rollout = tr._rollout(tr.state)
+        torch.cuda.synchronize()
+    got = dict(kern.launches)
+    assert plain["n"] == 0, "the rollout ran the plain physics"
+    assert form == "group" and kern.thread_launches["step"] == 0, kern.thread_launches
+    assert got["step"] == ppo.horizon_length and got["substep"] == 0, got
+    assert got["fk"] >= ppo.horizon_length, got
+    traj = rollout[0]
+    mu = traj["mu"]
+    log(f"trained learner: {card} | AllegroHand {c['envs']} envs from "
+        f"{c['checkpoint']} (epoch 2000, lr {float(tr.state.lr):.4e}): one rollout of "
+        f"{ppo.horizon_length} steps, launches {got}, K1 in the {form} form; action "
+        f"means past the bound {float((mu.abs() > 1.1).float().mean()):.4f} of them, "
+        f"mean reward a step {float(traj['reward'].mean()):.5f}")
+    learner_steps_card_vs_cpu(tr, card, rollout)
+    learner_steps_card_vs_cpu(tr, card, rollout, matmul="bf16_operands", atol=RULE_ATOL,
+                              rel_max=RULE_REL, metric_rtol=RULE_METRIC_RTOL)
+    log(f"trained learner: both rules in {time.perf_counter() - t0:.1f} s")
+
+
+def learner_steps_card_vs_cpu(trainer, card, rollout, matmul="f32", atol=LEARNER_ATOL,
+                              rel_max=LEARNER_STEP_REL, metric_rtol=1e-3):
+    """Phase 17's learner epoch on one stored rollout (a `_rollout` result on
+    the card), held step by step: the CPU runs the epoch (`_learn`, f32
+    networks under the matmul rule `matmul`), and at each of its minibatch
+    steps the card takes the same step from the CPU's state of that moment
+    (`learner_step_from`: parameters, Adam state, lr, the norms, the
+    minibatch and the advantages' moments copied over). After each step
+    the lr the same; every parameter within `atol`, and each tensor's step
+    within `rel_max` of the CPU's (the norm of the difference over the norm
+    of the CPU's step), and Adam's two moments within `rel_max` of each
+    tensor's largest element; the epoch's loss metrics (the means of the
+    steps' terms, as `_update` returns them) within `metric_rtol` (atol
+    1e-5), as phase 8 holds them; GAE, the value norm's update and the obs
+    norm's update card against CPU from the same inputs within rtol 1e-4
+    (atol 1e-6). Each step's terms are logged, not held: a minibatch's actor
+    loss is a mean that cancels to some 1e-3 of its terms. An epoch run
+    apart on each side cannot be held so from a trained state: it grows the
+    arithmetic's rounding, and the CPU's own f32 epoch parts from its f64
+    epoch by more than these bounds (tools/learner_card_cpu.py)."""
+    cfg = trainer.cfg
+    dev, cpu = trainer.device, torch.device("cpu")
+    traj, last_value, stats = rollout
+    S, mb_rows = trainer._slices()
+    perms = trainer._perms(cfg.mini_epochs, S)
+    tr = copy.copy(trainer)
+    tr.device = cpu
+    st = state_to(trainer.state, cpu)
+    st.ac.dtype = None
+    st.ac.matmul = st.ac.trunk.matmul = matmul
+    card_net = copy.deepcopy(st.ac).to(dev)
+    names = [k for k, _ in card_net.named_parameters()]
+    c_traj, c_last = state_to(traj, cpu), last_value.cpu()
+
+    def close(a, b, what):
+        a = a.cpu()
+        assert bool(((a - b).abs() <= 1e-6 + 1e-4 * b.abs()).all()), (matmul, what)
+
+    (g_adv, g_ret), (c_adv, c_ret) = trainer._gae(traj, last_value), tr._gae(c_traj, c_last)
+    close(g_adv, c_adv, "advantages")
+    close(g_ret, c_ret, "returns")
+    for name, x, y in (("value_norm", g_ret, c_ret), ("obs_norm", traj["obs"], c_traj["obs"])):
+        a, b = getattr(trainer.state, name).update(x), getattr(st, name).update(y)
+        for f in ("mean", "var", "count"):
+            close(getattr(a, f), getattr(b, f), f"{name}.{f}")
+
+    side, worst = {}, {"abs": (0.0, ""), "rel": (0.0, ""), "mu": (0.0, ""), "nu": (0.0, "")}
+
+    def before(row, stash, params, state, lr, max_norm):
+        side["before"] = [p.detach().clone() for p in params]
+        side["terms"], side["state"], side["lr"] = learner_step_from(
+            trainer, card_net, stash, params, state, lr, max_norm)
+
+    def after(row, params, state):
+        i = len(rows) - 1
+        row["card"] = side["terms"]
+        for name, g, c, b in zip(names, card_net.parameters(), params, side["before"]):
+            g, c = g.detach().cpu(), c.detach()
+            diff = float((g - c).abs().max())
+            moved, gap = float((c - b).norm()), float((g - c).norm())
+            # at the lr's floor a tensor's step can round away on both sides
+            rel = gap / moved if moved > 0 else (0.0 if gap == 0 else math.inf)
+            assert diff <= atol and rel <= rel_max, (matmul, i, name, diff, rel)
+            worst["abs"] = max(worst["abs"], (diff, f"{name} at step {i}"))
+            worst["rel"] = max(worst["rel"], (rel, f"{name} at step {i}"))
+        for which in ("mu", "nu"):
+            for name, g, c in zip(names, getattr(side["state"], which), getattr(state, which)):
+                gap = float((g.cpu() - c).abs().max() / c.abs().max().clamp_min(1e-30))
+                assert gap <= rel_max, (matmul, i, which, name, gap)
+                worst[which] = max(worst[which], (gap, f"{name} at step {i}"))
+        assert float(side["state"].count) == float(state.count), (matmul, i, "count")
+        row["card"]["lr_after"] = side["lr"]
+
+    with traced_learner(tr, before, after) as rows:
+        tr._learn(st, c_traj, c_last, state_to(stats, cpu), perms=perms.cpu())
+    n_updates = cfg.mini_epochs * (S // mb_rows)
+    assert len(rows) == n_updates, (len(rows), n_updates)
+    for i, r in enumerate(rows):
+        assert r["card"]["lr_after"] == r["lr_after"], (matmul, i, r["card"]["lr_after"],
+                                                        r["lr_after"])
+    # the epoch's loss metrics are the means of its steps' terms
+    terms = [k for k in rows[0] if k not in ("card", "lr_after")]
+    means = {k: [sum(r["card"][k] for r in rows) / n_updates,
+                 sum(r[k] for r in rows) / n_updates] for k in terms}
+    worst_metric = max(abs(g - c) / (1e-5 + abs(c)) for g, c in means.values())
+    log(f"learner steps, card vs CPU ({matmul} products): {card} | "
+        f"{trainer.env.num_envs} envs, {S} samples, {n_updates} steps, each from the "
+        f"CPU's state: parameters max abs diff {worst['abs'][0]:.3e} ({worst['abs'][1]}; "
+        f"bound {atol:.0e}), largest per-tensor |card - cpu| / |cpu step| "
+        f"{worst['rel'][0]:.3e} ({worst['rel'][1]}; bound {rel_max:.0e}); Adam's moments' "
+        f"largest |card - cpu| / max |cpu|: mu {worst['mu'][0]:.3e} ({worst['mu'][1]}), "
+        f"nu {worst['nu'][0]:.3e} ({worst['nu'][1]}; bound {rel_max:.0e}); the epoch's "
+        f"loss metrics' largest |card - cpu| / (1e-5 + |cpu|) {worst_metric:.3e} (bound "
+        f"{metric_rtol:.0e}); lr after the epoch {rows[-1]['lr_after']:.4e}")
+    for k in terms + ["lr_after"]:
+        gap = max(abs(r["card"][k] - r[k]) for r in rows)
+        log(f"  {matmul} {k} by minibatch, card: "
+            + " ".join(f"{r['card'][k]:.6g}" for r in rows) + f" | largest |card - cpu| {gap:.3e}")
+    for k, (g, c) in means.items():
+        assert abs(g - c) <= 1e-5 + metric_rtol * abs(c), (matmul, k, g, c)
+
+
 def campaign_phase(tmp, card, device="cuda", extra=None, timeout_s=CAMPAIGN_TIMEOUT_S,
                    cases=None):
     """Phase 14: the campaign runner, one chunk against two, on each case
@@ -1763,10 +2029,10 @@ def demos_phase(tmp, card, rows, check, check_states, bound, device_ms_of,
             argv.append("task.env.learn.addNoise=False")
         _, _, gtr = build_trainer(argv + ["device=cuda"])
         _, _, ctr = build_trainer(argv + ["device=cpu"])
-        ctr.state = _state_to(gtr.state, "cpu")
+        ctr.state = state_to(gtr.state, "cpu")
         gtr.state.ac.dtype = ctr.state.ac.dtype = None
         ges = gtr.env.reset(seed=0)
-        ces = _state_to(ges, "cpu")
+        ces = state_to(ges, "cpu")
         rtol, atol = DEMO_OBS_TOL
         worst = {"obs": 0.0, "reward": 0.0}
         for k in range(DEMO_CPU_STEPS):

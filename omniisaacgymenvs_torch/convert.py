@@ -12,7 +12,8 @@ flax parameter tree of the JAX learner's networks into the port's modules
 LayerNorm's `scale` is the torch one's `weight`).
 `adam_state_from_arrays` carries the JAX learner's Adam moments across in
 the same layout, so that a port trainer can continue where a JAX one
-stopped.
+stopped; `actor_critic_tree` lays the port's parameters or moments out as
+the flax tree, for the way back.
 """
 
 from __future__ import annotations
@@ -131,8 +132,7 @@ def actor_critic_arrays(tree: dict, module: ActorCritic) -> dict:
     {`module`'s parameter name: f32 array in the port's layout}."""
     p = _params(tree)
     dense = _dense_names(p)
-    prefixes = [f"trunk.layers.{i}" for i in range(len(module.trunk.layers))]
-    prefixes += ["mu", "value"]
+    prefixes = _ac_prefixes(module)
     if len(dense) != len(prefixes):
         raise ValueError(f"{len(dense)} Dense layers for {len(prefixes)} Linears")
     out = {}
@@ -141,6 +141,24 @@ def actor_critic_arrays(tree: dict, module: ActorCritic) -> dict:
         out[f"{prefix}.bias"] = np.asarray(p[name]["bias"], np.float32)
     out["log_std"] = np.asarray(p["log_std"], np.float32)
     return out
+
+
+def _ac_prefixes(module: ActorCritic) -> list:
+    """`module`'s Linears in the order flax creates its Dense_i."""
+    return [f"trunk.layers.{i}" for i in range(len(module.trunk.layers))] + [
+        "mu", "value"]
+
+
+def actor_critic_tree(arrays: dict, module: ActorCritic) -> dict:
+    """The inverse of `actor_critic_arrays`: {`module`'s parameter name:
+    array in the port's layout} (its parameters, or an Adam moment of them)
+    as the flax ActorCritic tree {"params": {"Dense_i": {"kernel", "bias"},
+    "log_std"}} of f32 numpy arrays."""
+    p = {f"Dense_{i}": {"kernel": np.asarray(arrays[f"{prefix}.weight"], np.float32).T,
+                        "bias": np.asarray(arrays[f"{prefix}.bias"], np.float32)}
+         for i, prefix in enumerate(_ac_prefixes(module))}
+    p["log_std"] = np.asarray(arrays["log_std"], np.float32)
+    return {"params": p}
 
 
 def actor_critic_from_arrays(tree: dict, module: ActorCritic) -> ActorCritic:

@@ -23,8 +23,10 @@ import math
 import pytest
 import torch
 
-from torch_fall_rates import (CAUSES, HoldPolicy, compare, diff_sd, poisson_interval,
-                              rate, run_jax, run_port)
+import numpy as np
+
+from torch_fall_rates import (CAUSES, EJECT_ANG, PER_ENV, PER_ENV_TOP, HoldPolicy, Tally,
+                              compare, diff_sd, poisson_interval, rate, run_jax, run_port)
 
 N, STEPS, HOLD, SEED = 64, 40, 4, 0
 OVERRIDES = ("task.env.episodeLength=24",)
@@ -47,6 +49,14 @@ def runs():
     return jax_res, port_res
 
 
+def test_by_env_differences_are_reported():
+    """`compare` holds each per-env count's difference of the means over
+    envs in standard errors beside its Poisson difference."""
+    sd = compare(*runs())
+    for key in PER_ENV:
+        assert isinstance(sd[f"{key}_by_env"], float) and key in sd
+
+
 @pytest.mark.parametrize("cause", CAUSES)
 def test_reset_causes_agree(cause):
     jax_res, port_res = runs()
@@ -66,6 +76,49 @@ def test_runs_count_falls_and_timeouts():
         ends = sum(r[c]["count"] for c in CAUSES)
         assert res["episode_length"]["n"] == res["episode_reward"]["n"] == ends
         assert res["episode_length"]["mean"] <= 24
+
+
+@pytest.mark.parametrize("key", PER_ENV)
+def test_per_env_counts_add_up(key):
+    """Each run's per-env spread of goal hits and ejections: its total is
+    the run's count, its top envs in descending order with the step of
+    their first one, the shares of the total they carry."""
+    for res in runs():
+        spread, count = res["per_env"][key], res["rates"][key]["count"]
+        assert spread["total"] == count
+        top = spread["top"]
+        assert len(top) == min(PER_ENV_TOP, spread["envs"]) and spread["envs"] <= N
+        counts = [t["count"] for t in top]
+        assert counts == sorted(counts, reverse=True) and all(c > 0 for c in counts)
+        assert all(0 <= t["env"] < N and 0 <= t["first_step"] < STEPS for t in top)
+        assert spread["mean"] == pytest.approx(count / N)
+        if count:
+            assert spread["top1_share"] == counts[0] / count
+            assert spread["top_share"] == sum(counts) / count
+        else:
+            assert spread["top1_share"] == spread["top_share"] == 0.0
+
+
+def test_per_env_spread_shows_clustering():
+    """Three steps of four envs: env 2 spins past EJECT_ANG in all three,
+    env 1 once, in the last: the spread names env 2 first, from step 0,
+    with three quarters of the total."""
+    tally = Tally(4, fall_dist=0.24)
+    for t in range(3):
+        ang = np.zeros(4)
+        ang[2] = 2 * EJECT_ANG
+        if t == 2:
+            ang[1] = 2 * EJECT_ANG
+        rows = np.zeros((8, 4))
+        rows[2] = 1.0   # finite
+        rows[7] = ang
+        tally.add(rows)
+    spread = tally.result()["per_env"]["ejections_ang"]
+    assert spread == dict(total=4, envs=2, mean=1.0, sd=float(np.std([0, 1, 3, 0], ddof=1)),
+                          top=[dict(env=2, count=3, first_step=0),
+                               dict(env=1, count=1, first_step=2)],
+                          top1_share=0.75, top_share=1.0)
+    assert tally.result()["per_env"]["goal_hits"]["total"] == 0
 
 
 @pytest.mark.parametrize("k", [0, 1, 5, 30, 1000])

@@ -45,7 +45,14 @@ angular speed over EJECT_ANG) and the falls that came within EJECT_WINDOW
 steps of an ejection of their env; the reward and length of a finished
 episode (mean, 95% interval); the cube's p99 and largest linear and
 angular speed. `pairs` holds, for each pair of runs, the difference of
-each count's rate in standard deviations of that difference.
+each count's rate in standard deviations of that difference. `per_env`
+holds, for goal hits and each kind of ejection, how the count spreads over
+the envs: how many envs count any, the PER_ENV_TOP envs that count most
+(env, count, the step of its first one), the shares of the total that
+the top one and the top PER_ENV_TOP carry, and the mean and sd of the
+count over the envs. A count that a few envs carry is clustered, and its
+Poisson interval understates its spread: `pairs` then also compares the
+means over envs (`<key>_by_env`).
 
 Prints one JSON object (and writes it to `out=`).
 """
@@ -75,6 +82,8 @@ EJECT_WINDOW = 10   # control steps from an ejection to a fall
 CAUSES = ("fell", "timeout", "nonfinite", "other")
 COUNTS = CAUSES + ("goal_hits", "ejections_lin", "ejections_ang",
                    "falls_after_ejection")
+PER_ENV = ("goal_hits", "ejections_lin", "ejections_ang")
+PER_ENV_TOP = 5
 CARD_RUNS = ("k1", "group", "thread", "plain")
 Z95 = 1.959964
 
@@ -123,6 +132,8 @@ class Tally:
         self.ep_ret = np.zeros(n)
         self.ep_len = np.zeros(n)
         self.last_eject = np.full(n, -10 ** 9)
+        self.env_counts = {k: np.zeros(n, np.int64) for k in PER_ENV}
+        self.env_first = {k: np.full(n, -1, np.int64) for k in PER_ENV}
         self.returns, self.lengths, self.lin, self.ang = [], [], [], []
 
     def add(self, rows: np.ndarray):
@@ -141,6 +152,10 @@ class Tally:
         ej_lin, ej_ang = lin > EJECT_LIN, ang > EJECT_ANG
         c["ejections_lin"] += int(ej_lin.sum())
         c["ejections_ang"] += int(ej_ang.sum())
+        for k, hit in zip(PER_ENV, (goal & finite, ej_lin, ej_ang)):
+            self.env_counts[k] += hit
+            self.env_first[k] = np.where(hit & (self.env_first[k] < 0), self.steps,
+                                         self.env_first[k])
         self.last_eject = np.where(ej_lin | ej_ang, self.steps, self.last_eject)
         c["falls_after_ejection"] += int(
             (fell & (self.steps - self.last_eject <= EJECT_WINDOW)).sum())
@@ -158,7 +173,9 @@ class Tally:
     def result(self) -> dict:
         e = self.n * self.steps
         lin, ang = np.concatenate(self.lin), np.concatenate(self.ang)
-        out = dict(env_steps=e, rates={k: rate(v, e) for k, v in self.counts.items()},
+        out = dict(env_steps=e, steps=self.steps,
+                   rates={k: rate(v, e) for k, v in self.counts.items()},
+                   per_env={k: self.spread(k) for k in PER_ENV},
                    episode_reward=mean_interval(np.concatenate(self.returns)),
                    episode_length=mean_interval(np.concatenate(self.lengths)))
         for name, x in (("lin", lin), ("ang", ang)):
@@ -167,13 +184,36 @@ class Tally:
                 max=float(x.max()) if x.size else None)
         return out
 
+    def spread(self, key: str) -> dict:
+        """How `key`'s count spreads over the envs (`per_env` above)."""
+        c, first = self.env_counts[key], self.env_first[key]
+        total = int(c.sum())
+        top = np.argsort(-c, kind="stable")[:PER_ENV_TOP]
+        top = [int(i) for i in top if c[i] > 0]
+        share = lambda k: 0.0 if total == 0 else k / total  # noqa: E731
+        return dict(total=total, envs=int((c > 0).sum()),
+                    mean=float(c.mean()), sd=float(c.std(ddof=1)) if c.size > 1 else 0.0,
+                    top=[dict(env=i, count=int(c[i]), first_step=int(first[i]))
+                         for i in top],
+                    top1_share=share(int(c[top[0]]) if top else 0),
+                    top_share=share(int(c[top].sum()) if top else 0))
+
 
 def compare(a: dict, b: dict) -> dict:
     """Each count's rate difference between two runs' results, in
-    standard deviations of the difference."""
+    standard deviations of the difference; for the per-env counts also
+    `<key>_by_env`: the difference of the means over envs in standard
+    errors of that difference, which a count clustered in few envs does
+    not overstate."""
     ea, eb = a["env_steps"], b["env_steps"]
-    return {k: round(diff_sd(a["rates"][k]["count"], ea, b["rates"][k]["count"], eb), 3)
-            for k in COUNTS}
+    out = {k: round(diff_sd(a["rates"][k]["count"], ea, b["rates"][k]["count"], eb), 3)
+           for k in COUNTS}
+    na, nb = ea // a["steps"], eb // b["steps"]
+    for k in PER_ENV:
+        sa, sb = a["per_env"][k], b["per_env"][k]
+        se = math.sqrt(sa["sd"] ** 2 / na + sb["sd"] ** 2 / nb)
+        out[f"{k}_by_env"] = 0.0 if se == 0 else round((sa["mean"] - sb["mean"]) / se, 3)
+    return out
 
 
 # -- the policy ------------------------------------------------------------
@@ -395,7 +435,9 @@ def main(argv=None) -> int:
                            overrides)
         out["runs"][r] = res
         print(f"{r}: " + ", ".join(f"{k} {v['count']}" for k, v in res["rates"].items())
-              + f"; {res['seconds']:.1f} s", file=sys.stderr, flush=True)
+              + f"; {res['seconds']:.1f} s; per env " + "; ".join(
+                  f"{k} {v['total']} in {v['envs']} envs, top {v['top_share']:.3f}"
+                  for k, v in res["per_env"].items()), file=sys.stderr, flush=True)
     names = list(out["runs"])
     out["pairs"] = {f"{a}-{b}": compare(out["runs"][a], out["runs"][b])
                     for i, a in enumerate(names) for b in names[i + 1:]}

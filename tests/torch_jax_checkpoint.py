@@ -4,6 +4,9 @@ running norms, learning rate, epoch); `carry_state` sets a port trainer of
 the same task to it through `convert.py`, and the port's `model.pt` is
 written in the format of `PPOTrainer._main_tree`, with no `env.pt`
 sidecar (a run from it starts its envs fresh at the checkpoint's epoch).
+`carry_state_to_jax` goes the other way: a port trainer's state (a port
+`model.pt` read through the CLI's `checkpoint=`) into a JAX trainer of the
+same task, so that both learners start from a state the port trained.
 The JAX ShadowHand run's latest state is its `nn-best`: epoch 9980 of
 10,000 (Adam count 199,600); its `nn-last` is an epoch-100 state of
 another run (lr 1.73e-4, where the run's history reads 2.60e-4).
@@ -70,6 +73,47 @@ def carry_state(jtr, tr):
               for f in ("mean", "var", "count"))))
     ts.lr = torch.tensor(float(np.asarray(js.lr)), device=tr.device)
     ts.epoch = int(np.asarray(js.epoch))
+
+
+def carry_state_to_jax(tr, jtr):
+    """The way back: the JAX trainer `jtr`'s networks, Adam state (both
+    moments and the count), norms, learning rate and epoch set to the port
+    trainer `tr`'s (a feed-forward actor-critic without a central value;
+    `tr` holds, say, a port `model.pt` read through the CLI's
+    `checkpoint=`). The JAX trainer keeps its own env state and key."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from omniisaacgymenvs_torch import convert
+    from omniisaacgymenvs_tpu.learn.running_norm import RunningNorm as JNorm
+    from torch_parity import np_
+
+    if tr.use_cv or tr.is_rnn:
+        raise ValueError("only a feed-forward actor-critic without a central "
+                         "value is carried")
+    ts, js = tr.state, jtr.state
+    names = [k for k, _ in ts.ac.named_parameters()]
+
+    def tree(tensors):
+        return {"ac": jax.tree.map(jnp.asarray, convert.actor_critic_tree(
+            {k: np_(t) for k, t in zip(names, tensors)}, ts.ac))}
+
+    st = ts.opt_state
+    count = float(st.count)
+    if count != int(count):
+        raise ValueError(f"Adam's count {count} is not a whole number of steps")
+    adam = js.opt_state[1]._replace(
+        count=jnp.asarray(int(count), js.opt_state[1].count.dtype),
+        mu=tree(st.mu), nu=tree(st.nu))
+    norms = {name: JNorm(*(jnp.asarray(np_(getattr(getattr(ts, name), f)))
+                           for f in ("mean", "var", "count")))
+             for name in ("obs_norm", "value_norm", "states_norm")}
+    jtr.state = js.replace(
+        params=tree([p for _, p in ts.ac.named_parameters()]),
+        opt_state=(js.opt_state[0], adam, *js.opt_state[2:]),
+        lr=jnp.asarray(np.float32(np_(ts.lr))),
+        epoch=jnp.asarray(ts.epoch, js.epoch.dtype), **norms)
 
 
 def write_main_file(tr, out_dir: str) -> str:
