@@ -206,6 +206,29 @@ Phases (any failure exits non-zero):
      each worst reading. (Two epochs run apart from this trained state part
      by more: the epoch grows f32 rounding, and the CPU's own f32 epoch
      parts from its f64 epoch past these bounds, tools/learner_card_cpu.py.)
+ 18. models past the one-thread-per-env form's maxima, which the group
+     form takes (`launch_config` never picks the thread form for them), and
+     past a block's shared memory, which the group form's device-memory
+     placement takes: (a) FrankaCabinet with task.env.numProps=16 (31
+     bodies, 152 contact points, 402 pairs, 16 FREE roots) at the yaml's
+     4096 envs: K1 in the group form and K2 against their plain versions
+     at 4096 + N_PAD on phase 10's check states (the pads on the handle
+     bar, the props on the tray, pairs in contact), again at 4096 with two
+     launches of each bitwise equal and their times (events and profiler
+     device time) beside the plain version's and the bound, the
+     random-policy main path of 64 steps (K1 once per control step, K2 at
+     least as often, no plain physics), 3 steps against the CPU with the
+     control draws shared and 2 epochs through `PPOTrainer.train` under
+     FrankaCabinetPPO.yaml; (b) Custom on `mjcf_legs`, an MJCF robot
+     generated here (a FREE torso on 13 three-link legs: 40 bodies, 160
+     contact points, its feet in the ground) at Custom.yaml's 512 envs,
+     the same checks but training; (c) `parity.build_wide_tree`, a FREE
+     base on 150 and on 375 two-link legs (301 and 751 bodies, one env's
+     working set past a block's shared memory: `launch_config` reports
+     working_set "global"; the 751-body tree's tables and K2 too): K1, K3
+     and K2 against their plain versions at 512 + N_PAD envs (and the
+     301-body tree at 4096), two launches of each bitwise equal and their
+     times beside the plain version's and the bound.
 Tolerances and check states come from omniisaacgymenvs_torch/ops/parity.py.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -345,6 +368,14 @@ DEMO_OBS_TOL, DEMO_REW_TOL = (2e-3, 2e-3), 1e-3
 ARM_HAND_FLYERS = {"FrankaCabinet": 4096, "Crazyflie": 4096, "Quadcopter": 4096,
           "Ingenuity": 4096, "AllegroHand": 8192}
 ARM_HAND_FLYERS_EPOCHS = 2
+# phase 18: the models past the thread form's maxima at their yamls'
+# numEnvs (FrankaCabinet with 16 props, Custom on mjcf_legs), and the wide
+# trees of parity.build_wide_tree (key, legs, widths checked, width timed):
+# 301 bodies, K1 / K3 in device memory with the tables in shared memory;
+# 751, K1 / K3 and K2 in device memory with the tables there too
+LARGE_ENVS = {"FrankaCabinet/16": 4096, "Custom/legs": 512}
+WIDE_TREES = (("WideTree/301", 150, (512 + N_PAD, 4096), 4096),
+              ("WideTree/751", 375, (512 + N_PAD,), 512 + N_PAD))
 # the source of each form of the kernels
 SOURCES = {"group": "omniisaacgymenvs_torch/ops/csrc/fused_step.cu",
            "thread": "omniisaacgymenvs_torch/ops/csrc/fused_step_thread.cu"}
@@ -386,6 +417,40 @@ MJCF_CHAIN = """<mujoco model="mjcf_chain">
   <actuator><motor name="hip_motor" joint="hip" gear="50"/></actuator>
 </mujoco>
 """
+
+# phase 18(b): a robot past the thread form's maxima, generated as MJCF: a
+# FREE torso (four spheres) on 13 legs of three hinged links each, 40
+# bodies, four spheres of 2 cm down every 15 cm link (160 contact points);
+# the legs hang from a ring of hips, each hinge within +-20 degrees, so the
+# torso stays above Custom.yaml's terminationHeight; the feet's lowest
+# spheres sit 5 mm in the ground at default_q (parity.CHECK_PROFILES
+# "many_legs")
+def mjcf_legs() -> str:
+    """The MJCF of phase 18(b)'s robot, as a string."""
+    n_legs, links, spheres, link, radius = 13, 3, 4, 0.15, 0.02
+
+    def leg(k):
+        a = 2 * math.pi * k / n_legs
+        body = ""
+        for j in reversed(range(links)):
+            balls = "".join(
+                f'<geom type="sphere" size="{radius}" pos="0 0 '
+                f'{-link * (s + 1) / spheres:.6f}"/>' for s in range(spheres))
+            pos = (f"{0.2 * math.cos(a):.6f} {0.2 * math.sin(a):.6f} 0" if j == 0
+                   else f"0 0 {-link}")
+            euler = f' euler="0 0 {math.degrees(a):.6f}"' if j == 0 else ""
+            body = (f'<body name="leg{k}_{j}" pos="{pos}"{euler}>'
+                    f'<joint name="leg{k}_j{j}" type="hinge" axis="0 1 0" '
+                    f'range="-20 20"/>{balls}{body}</body>')
+        return body
+
+    torso = "".join(f'<geom type="sphere" size="0.05" pos="{x} {y} 0"/>'
+                    for x, y in ((0.1, 0), (-0.1, 0), (0, 0.1), (0, -0.1)))
+    z = links * link + radius - 0.005
+    return (f'<mujoco model="many_legs"><compiler angle="degree"/><worldbody>'
+            f'<body name="torso" pos="0 0 {z:.6f}"><freejoint/>{torso}'
+            + "".join(leg(k) for k in range(n_legs))
+            + "</body></worldbody></mujoco>")
 
 
 def log(*a):
@@ -958,6 +1023,11 @@ def main() -> int:
             fa[:, rotors, 3:6] = f / f.norm(dim=-1, keepdim=True)
         return q, qd, eff, ptg, z, fa
 
+    def designs(m):
+        """The forms of K1 that take model m: both, or past the thread
+        form's maxima the group form alone."""
+        return [d for d in fs.DESIGNS if d == "group" or not fs.thread_scope_errors(m)]
+
     def phase10_check(name: str, n: int, seed: int) -> dict:
         """K1 in both forms and K2 against their plain versions on n check
         states: {"group" | "thread" | "fk": largest abs error}."""
@@ -968,7 +1038,7 @@ def main() -> int:
         log(f"{name} check: {n} envs, {n_sub[name]} substeps, active contacts {active}")
         if len(m.pair_surf):
             assert active["pairs"] > 0, "no pair in contact"
-        if name == "FrankaCabinet":
+        if name.startswith("FrankaCabinet"):
             # the pads on the handle bar (a capsule), the props on the tray
             assert active["capsule"] > 0 and active["box"] > 0, active
         tol = parity.step_tol(m)
@@ -984,7 +1054,7 @@ def main() -> int:
             log(f"  {name} K1: {int((~keep).sum())} of {n} envs left out as ill "
                 f"conditioned")
         errs = {}
-        for d in fs.DESIGNS:
+        for d in designs(m):
             out = fs.step(eng, *ins, n_sub[name], design=d)
             torch.cuda.synchronize()
             errs[d] = parity.assert_within(
@@ -999,7 +1069,7 @@ def main() -> int:
 
     def launch_keys(lc):
         return {k: lc[k] for k in ("design", "group", "envs_per_block", "blocks",
-                                   "smem_bytes", "env_bytes")}
+                                   "smem_bytes", "env_bytes", "working_set")}
 
     def kernel_rows(name: str, n: int, first: dict, label_tail: str = "",
                     on_path: bool = True):
@@ -1015,7 +1085,7 @@ def main() -> int:
         again = phase10_check(name, n, seed=1)
         ins = phase10_inputs(name, n, seed=1)
         runs = {d: (lambda d=d: fs.step(eng, *ins, n_sub[name], design=d))
-                for d in fs.DESIGNS}
+                for d in designs(m)}
         runs["fk"] = lambda: fs.fk(eng, ins[0], ins[1])
         for key, run in runs.items():
             ref = run()
@@ -1026,7 +1096,7 @@ def main() -> int:
         plain = {"step": time_ms(lambda: fs.step_plain(eng, *ins, n_sub[name]), 2),
                  "fk": time_ms(lambda: fs.fk_plain(m, ins[0], ins[1]), 2)}
         fk_ops = fs.op_count(m, 1)["fk"]
-        for key in (*fs.DESIGNS, "fk"):
+        for key in (*designs(m), "fk"):
             ms = time_ms(runs[key], 20)
             device_ms = device_ms_of(runs[key], ms)
             fk = key == "fk"
@@ -1090,6 +1160,12 @@ def main() -> int:
 
     # ---- 17. AllegroHand's learner from a trained state, card vs CPU ----
     trained_learner_phase(card)
+
+    # ---- 18. models past the thread form's maxima and past shared memory ----
+    with tempfile.TemporaryDirectory() as tmp:
+        large_models_phase(tmp, card, engines, n_sub, rows, check, check_states,
+                           phase10_check, main_path, kernel_rows, bound, device_ms_of)
+    torch.cuda.synchronize()
 
     # K1 and K2 carry each main path; K3 is a launch mode no product path
     # takes, held against its plain version above
@@ -1546,6 +1622,106 @@ def custom_phase(tmp, engines, n_sub, phase10_check, main_path, kernel_rows,
         f"{final:.4f} at epoch {len(hist) - 1} (bar {lr['bar']}); {dt:.1f} s, "
         f"{steps / dt:.1f} train-steps/s")
     assert final > lr["bar"], f"the imported robot did not learn: {final}"
+
+
+def large_models_phase(tmp, card, engines, n_sub, rows, check, check_states,
+                       phase10_check, main_path, kernel_rows, bound, device_ms_of):
+    """Phase 18: models past the thread form's maxima, and past a block's
+    shared memory (module docstring)."""
+    from omniisaacgymenvs_torch.ops import fused_step as fs
+    from omniisaacgymenvs_torch.ops import parity
+    from omniisaacgymenvs_torch.physics.engine import PhysicsEngine, SimParams
+    from omniisaacgymenvs_torch.tasks import get_task
+    from omniisaacgymenvs_torch.utils.config import load_config, parse_cli
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    legs = os.path.join(tmp, "legs.xml")
+    with open(legs, "w") as f:
+        f.write(mjcf_legs())
+    # (a) FrankaCabinet with 16 props, (b) Custom on the many-legged MJCF
+    cases = {"FrankaCabinet/16": ("FrankaCabinet", LARGE_ENVS["FrankaCabinet/16"],
+                                  ["task.env.numProps=16"]),
+             "Custom/legs": ("Custom", LARGE_ENVS["Custom/legs"],
+                             [f"task.env.robot={legs}"])}
+    for key, (name, n, extra) in cases.items():
+        task = get_task(name, load_config({"task": name, **parse_cli(extra)})["task"],
+                        device=dev)
+        eng, m = task.engine, task.model
+        engines[key] = eng
+        n_sub[key] = task.decimation * eng.params.substeps
+        lc = eng.kernels.config(n)[0]
+        log(f"{key}: {m.nb} bodies, {m.ncp} contact points, {len(m.pair_surf)} pairs, "
+            f"{fs.n_free_roots(m)} FREE roots; past the thread form's maxima "
+            f"({'; '.join(fs.thread_scope_errors(m))}); K1 at {n} envs: "
+            f"{fs.describe_config(lc)}")
+        assert fs.thread_scope_errors(m) and lc["design"] == "group"
+        del task
+        first = phase10_check(key, n + N_PAD, seed=0)
+        main_path(name, n, 128, extra=extra, key=key)
+        kernel_rows(key, n, first)
+        if key == "FrankaCabinet/16":
+            trainer, task, _ = train_on_card(name, n, ARM_HAND_FLYERS_EPOCHS, card,
+                                             extra=extra)
+            del trainer, task
+        torch.cuda.synchronize()
+    # (c) the wide trees, whose working set takes device memory
+    for key, legs_n, widths, timed in WIDE_TREES:
+        eng = PhysicsEngine(parity.build_wide_tree(legs_n, device=dev),
+                            SimParams(dt=1.0 / 120.0, substeps=2))
+        engines[key], n_sub[key] = eng, 4
+        m = eng.model
+        for n in widths:
+            for fk in (False, True):
+                lc = eng.kernels.config(n, fk=fk)[0]
+                log(f"{key} ({m.nb} bodies, {m.ncp} contact points) {'K2' if fk else 'K1/K3'} "
+                    f"at {n} envs: {fs.describe_config(lc)}")
+                assert lc["design"] == "group"
+                assert fk or lc["working_set"] == "global", lc
+        errs = {}
+        for n in widths:
+            for k, v in check(key, n, seed=0).items():
+                errs[k] = max(v, errs.get(k, 0.0))
+        q, qd, eff, _ = check_states(key, timed, seed=1)
+        assert parity.active_contacts(eng, q, qd)["ground"] > 0
+        ptg = parity.check_targets(m, q, 1)
+        z = torch.zeros((timed, m.njd), device=dev)
+        fa = torch.zeros((timed, m.nb, 6), device=dev)
+        runs = {"step": (lambda: fs.step(eng, q, qd, eff, ptg, z, fa, 4),
+                         lambda: fs.step_plain(eng, q, qd, eff, ptg, z, fa, 4)),
+                "fk": (lambda: fs.fk(eng, q, qd), lambda: fs.fk_plain(m, q, qd)),
+                "substep": (lambda: fs.substep(eng, q, qd, eff, ptg, z, fa),
+                            lambda: fs.substep_plain(eng, q, qd, eff, ptg, z, fa))}
+        for kname, (run_k, _) in runs.items():
+            ref = run_k()
+            assert all(torch.equal(a, b) for a, b in zip(run_k(), ref)), (key, kname)
+        log(f"{key}: K1, K3 and K2 bitwise equal over two launches at {timed} envs")
+        ops, nbytes = fs.op_count(m, 4), fs.io_bytes(m)
+        ops["fk"] = fs.op_count(m, 1)["fk"]
+        for kname, (run_k, run_p) in runs.items():
+            ms = time_ms(run_k, 10)
+            device_ms = device_ms_of(run_k, ms)
+            plain_ms = time_ms(run_p, 2)
+            lc = eng.kernels.config(timed, fk=kname == "fk")[0]
+            bound_ms, bound_by = bound(timed, nbytes[kname], ops[kname])
+            label, line = {"step": ("fused_step_k1", 1016), "fk": ("report_fk_k2", 943),
+                           "substep": ("substep_k3", 898)}[kname]
+            log(f"{label} {key}: {card} | {timed} envs: {ms:.4f} ms ({device_ms:.4f} ms of "
+                f"device time per launch, profiler), plain {plain_ms:.3f} ms, bound "
+                f"{bound_ms:.4f} ms by {bound_by} ({ops[kname]} FP32 ops and "
+                f"{nbytes[kname]} bytes per env), {bound_ms / ms * 100:.2f}% of "
+                f"roofline, on no main path; launch {fs.describe_config(lc)}")
+            rows.append(dict(
+                name=f"{label}_{key.lower()}", model=key, route="cuda",
+                source=SOURCES["group"], replaces=f"{TPU_FILE}:{line}", launches=0,
+                on_main_path=False, max_abs_err=errs[kname], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                device_ms=device_ms, envs=timed, launch={k: lc[k] for k in (
+                    "design", "envs_per_block", "blocks", "smem_bytes", "env_bytes",
+                    "working_set")}))
+        del q, qd, eff, ptg, z, fa, runs
+        torch.cuda.synchronize()
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s")
 
 
 def run_child(cmd, cwd, timeout, env=None):

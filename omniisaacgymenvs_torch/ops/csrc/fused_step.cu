@@ -26,7 +26,9 @@
  *   per-env domain-randomization overlay keys (the `dr` input, dr_keys in
  *   the JAX kernel), read from one packed (n_env, n_dr) input in a fixed
  *   order, absent keys filled with their neutral value by the wrapper
- *   (x * 1 and x + 0 are exact).
+ *   (x * 1 and x + 0 are exact). Any number of bodies, contact points,
+ *   sensors, pairs, surfaces, tendons and FREE roots: every size is read
+ *   from the schedule's header at run time.
  *
  * What bounds it on this card
  *   Per env, K1 moves about 2.4 KB (250 input and 353 output floats for the
@@ -65,13 +67,21 @@
  *   section and layout offsets) by value and read it with constant
  *   indices; its sections (levels, slots, children, contact lists) are
  *   staged in shared memory with the model's int table.
+ *   A model whose one env and tables do not fit a block's shared memory
+ *   (several hundred bodies) takes the device-memory placement, a
+ *   compile-time flag (GMEM) of both kernels: each group's working set is
+ *   a slot of a scratch buffer in device memory, and the tables stay
+ *   staged in shared memory where they fit, else are read from a device
+ *   copy in the staged layout. The phases and their arithmetic are the
+ *   same; launch_config picks the placement, never for a model that fits.
  *
  * Where it loses
  *   Per env the group issues several times the instructions of one thread
  *   per env (a phase with few items leaves most lanes idle), so once a
  *   batch fills the card (the Humanoid's 32768 envs) the one-thread-per-env
  *   form of fused_step_thread.cu is faster on the H100; launch_config in
- *   ops/fused_step.py picks the form by the envs per SM.
+ *   ops/fused_step.py picks the form by the envs per SM, and this form at
+ *   every width for a model past the thread form's compile-time maxima.
  *
  * Precision: built without fast math. sqrtf, divisions, sincosf and tanhf
  * are the precise functions, and the floors are those of the JAX kernel:
@@ -93,14 +103,9 @@
 #endif
 #include <math.h>
 
-// scope of the kernels (ops/fused_step.py LIMITS)
-#define OIGE_NB_MAX 32                  // bodies per model
-#define OIGE_NCP_MAX 128                // ground contact points
-#define OIGE_NS_MAX 8                   // force sensors
-#define OIGE_NPAIR_MAX 1024             // point-vs-surface candidate pairs
-#define OIGE_NSURF_MAX 32               // receiver surfaces
-#define OIGE_NT_MAX 8                   // fixed tendons
-#define OIGE_NFREE_MAX 4                // FREE roots
+// No size of the model is fixed at compile time: every size and offset
+// comes from the schedule's header at run time (the one-thread-per-env form
+// of fused_step_thread.cu keeps compile-time maxima for its stack arrays).
 #define OIGE_MAX_THREADS 512            // envs per block x lanes per env
 #define OIGE_G 32                       // lanes per env on the card
 
@@ -287,7 +292,7 @@ __device__ __forceinline__ int staged_index(const int* h, int j) {
 // a body's slot entry in the schedule: its slot within its level, plus
 // SLOT_UNDER_FIXED for a joint body whose parent is a FIXED root (its
 // articulated inertia is not needed: a FIXED root solves nothing)
-#define SLOT_UNDER_FIXED 0x10000
+#define SLOT_UNDER_FIXED 0x40000000
 __device__ __forceinline__ int slot_entry(const Ctx& c, int i) {
   return c.S[c.h[H_SLOT] + i];
 }
@@ -1440,7 +1445,57 @@ __device__ __forceinline__ Ctx block_ctx(const Hdr& hdr, const float* __restrict
   return c;
 }
 
-template <bool PLANES, bool DR, int G>
+// The device-memory placement, for a model whose one env and tables do not
+// fit a block's shared memory: each group's working set is its own slot of
+// `gws`, a scratch buffer of blocks x envs per block slots of env_floats
+// floats (the wrapper allocates it once per launch configuration). The
+// tables are staged in shared memory as above when nf > 0; with nf = 0 they
+// stay in device memory, `ftab` then being the float table in its staged
+// layout (packed once by the wrapper, ops/fused_step.py staged_table). The
+// phases are those of the shared placement: __syncwarp orders the group's
+// accesses to device memory as it does those to shared memory. Written
+// out rather than built on block_ctx: a view that block_ctx built and this
+// function then pointed elsewhere made the GMEM instantiations of
+// step_kernel spill 128-160 B and run 12-16% slower on the H100.
+template <int G>
+__device__ __forceinline__ Ctx block_ctx_global(const Hdr& hdr, const float* __restrict__ ftab,
+                                                const int* __restrict__ itab, int nf, int ni,
+                                                int env_floats, float* __restrict__ gws) {
+  extern __shared__ float4 smem4[];
+  Ctx c;
+#pragma unroll
+  for (int k = 0; k < H_LEN; ++k) c.h[k] = hdr.v[k];
+  if (nf > 0) {
+    float* sm = reinterpret_cast<float*>(smem4);
+    int* si = reinterpret_cast<int*>(sm + hdr.v[H_FEND]);
+    for (int j = threadIdx.x; j < nf; j += blockDim.x) sm[staged_index(hdr.v, j)] = __ldg(ftab + j);
+    for (int j = threadIdx.x; j < ni; j += blockDim.x) si[j] = __ldg(itab + j);
+    __syncthreads();
+    c.F = sm;
+    c.S = si;
+  } else {
+    c.F = ftab;
+    c.S = itab;
+  }
+  c.I = c.S + c.h[H_IMODEL];
+  c.s = gws + ((long)blockIdx.x * (blockDim.x / G) + threadIdx.x / G) * env_floats;
+  c.lane = threadIdx.x % G;
+  c.mask = G == 32 ? 0xffffffffu : ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+  return c;
+}
+
+// the group's view in the placement GMEM picks
+template <bool GMEM, int G>
+__device__ __forceinline__ Ctx group_ctx(const Hdr& hdr, const float* __restrict__ ftab,
+                                         const int* __restrict__ itab, int nf, int ni,
+                                         int env_floats, float* __restrict__ gws) {
+  if constexpr (GMEM)
+    return block_ctx_global<G>(hdr, ftab, itab, nf, ni, env_floats, gws);
+  else
+    return block_ctx<G>(hdr, ftab, itab, nf, ni, env_floats);
+}
+
+template <bool PLANES, bool DR, bool GMEM, int G>
 __global__ void __launch_bounds__(OIGE_MAX_THREADS, 1) step_kernel(
     const Hdr hdr, const float* __restrict__ ftab, const int* __restrict__ itab, int nf, int ni,
     int env_floats, const float* __restrict__ q_in, const float* __restrict__ qd_in,
@@ -1449,8 +1504,8 @@ __global__ void __launch_bounds__(OIGE_MAX_THREADS, 1) step_kernel(
     const float* __restrict__ planes, const float* __restrict__ dr,
     float* __restrict__ q_out, float* __restrict__ qd_out, float* __restrict__ sf_out,
     float* __restrict__ pos, float* __restrict__ quat, float* __restrict__ avel,
-    float* __restrict__ lvel, int n_env, int n_steps) {
-  const Ctx c = block_ctx<G>(hdr, ftab, itab, nf, ni, env_floats);
+    float* __restrict__ lvel, int n_env, int n_steps, float* __restrict__ gws) {
+  const Ctx c = group_ctx<GMEM, G>(hdr, ftab, itab, nf, ni, env_floats, gws);
   const int epb = blockDim.x / G;
   const long stride = (long)gridDim.x * epb;
   for (long e = (long)blockIdx.x * epb + threadIdx.x / G; e < n_env; e += stride)
@@ -1458,13 +1513,13 @@ __global__ void __launch_bounds__(OIGE_MAX_THREADS, 1) step_kernel(
                             qd_out, sf_out, pos, quat, avel, lvel, n_steps);
 }
 
-template <int G>
+template <bool GMEM, int G>
 __global__ void __launch_bounds__(OIGE_MAX_THREADS, 1) fk_kernel(
     const Hdr hdr, const float* __restrict__ ftab, const int* __restrict__ itab, int nf, int ni,
     int env_floats, const float* __restrict__ q_in, const float* __restrict__ qd_in,
     float* __restrict__ pos, float* __restrict__ quat, float* __restrict__ avel,
-    float* __restrict__ lvel, int n_env) {
-  const Ctx c = block_ctx<G>(hdr, ftab, itab, nf, ni, env_floats);
+    float* __restrict__ lvel, int n_env, float* __restrict__ gws) {
+  const Ctx c = group_ctx<GMEM, G>(hdr, ftab, itab, nf, ni, env_floats, gws);
   const int epb = blockDim.x / G;
   const long stride = (long)gridDim.x * epb;
   for (long e = (long)blockIdx.x * epb + threadIdx.x / G; e < n_env; e += stride)
@@ -1491,6 +1546,14 @@ bool cfg_ok(const int* dims, const int* cfg) {
   return cfg[CFG_NF] == nf && OIGE_G * cfg[CFG_EPB] <= OIGE_MAX_THREADS;
 }
 
+// whether a launch stages the tables: always, but in the device-memory
+// placement without shared memory (the tables stay in device memory and
+// the kernel is handed nf = ni = 0, block_ctx_global)
+template <bool GMEM>
+bool stages_tables(const int* cfg) {
+  return !GMEM || cfg[CFG_SMEM] > 0;
+}
+
 // lets `kernel` take up to the device's largest dynamic shared memory per
 // block; each launcher calls it once per process (a static of its own), not
 // at every launch
@@ -1503,30 +1566,33 @@ int allow_max_smem(K kernel) {
   return err;
 }
 
-template <bool PLANES, bool DR>
+template <bool PLANES, bool DR, bool GMEM>
 int launch_step(const int* cfg, const float* ftab, const int* itab, const float* q,
                 const float* qd, const float* eff, const float* ptg, const float* vtg,
-                const float* fapp, const float* planes, const float* dr, float* q_out,
-                float* qd_out, float* sf_out, float* pos, float* quat, float* avel,
-                float* lvel, int n_env, int n_steps, void* stream) {
-  static const int err = allow_max_smem(step_kernel<PLANES, DR, OIGE_G>);
+                const float* fapp, const float* planes, const float* dr, float* gws,
+                float* q_out, float* qd_out, float* sf_out, float* pos, float* quat,
+                float* avel, float* lvel, int n_env, int n_steps, void* stream) {
+  static const int err = allow_max_smem(step_kernel<PLANES, DR, GMEM, OIGE_G>);
   if (err) return err;
-  step_kernel<PLANES, DR, OIGE_G><<<cfg[CFG_BLOCKS], OIGE_G * cfg[CFG_EPB], cfg[CFG_SMEM],
-                                    (cudaStream_t)stream>>>(
-      header(cfg), ftab, itab, cfg[CFG_NF], cfg[CFG_NI], cfg[CFG_ENV], q, qd, eff, ptg, vtg, fapp,
-      planes, dr, q_out, qd_out, sf_out, pos, quat, avel, lvel, n_env, n_steps);
+  step_kernel<PLANES, DR, GMEM, OIGE_G><<<cfg[CFG_BLOCKS], OIGE_G * cfg[CFG_EPB],
+                                          cfg[CFG_SMEM], (cudaStream_t)stream>>>(
+      header(cfg), ftab, itab, stages_tables<GMEM>(cfg) ? cfg[CFG_NF] : 0,
+      stages_tables<GMEM>(cfg) ? cfg[CFG_NI] : 0, cfg[CFG_ENV], q, qd, eff, ptg, vtg, fapp,
+      planes, dr, q_out, qd_out, sf_out, pos, quat, avel, lvel, n_env, n_steps, gws);
   return (int)cudaGetLastError();
 }
 
+template <bool GMEM>
 int launch_fk(const int* cfg, const float* ftab, const int* itab, const float* q,
-              const float* qd, float* pos, float* quat, float* avel, float* lvel,
+              const float* qd, float* gws, float* pos, float* quat, float* avel, float* lvel,
               int n_env, void* stream) {
-  static const int err = allow_max_smem(fk_kernel<OIGE_G>);
+  static const int err = allow_max_smem(fk_kernel<GMEM, OIGE_G>);
   if (err) return err;
-  fk_kernel<OIGE_G><<<cfg[CFG_BLOCKS], OIGE_G * cfg[CFG_EPB], cfg[CFG_SMEM],
-                      (cudaStream_t)stream>>>(
-      header(cfg), ftab, itab, cfg[CFG_NF], cfg[CFG_NI], cfg[CFG_ENV], q, qd, pos, quat, avel, lvel,
-      n_env);
+  fk_kernel<GMEM, OIGE_G><<<cfg[CFG_BLOCKS], OIGE_G * cfg[CFG_EPB], cfg[CFG_SMEM],
+                            (cudaStream_t)stream>>>(
+      header(cfg), ftab, itab, stages_tables<GMEM>(cfg) ? cfg[CFG_NF] : 0,
+      stages_tables<GMEM>(cfg) ? cfg[CFG_NI] : 0, cfg[CFG_ENV], q, qd, pos, quat, avel, lvel,
+      n_env, gws);
   return (int)cudaGetLastError();
 }
 
@@ -1534,36 +1600,34 @@ int launch_fk(const int* cfg, const float* ftab, const int* itab, const float* q
 
 // ---- C entry points: launch on the caller's stream, return cudaError_t ----
 
-extern "C" int oige_limits(int* out) {
-  out[0] = OIGE_NB_MAX;
-  out[1] = OIGE_NCP_MAX;
-  out[2] = OIGE_NS_MAX;
-  out[3] = OIGE_NPAIR_MAX;
-  out[4] = OIGE_NSURF_MAX;
-  out[5] = OIGE_NT_MAX;
-  out[6] = OIGE_NFREE_MAX;
-  return 0;
-}
-
 // itab: [schedule | model int table]; planes: (n_env, ncp, 4) contiguous
 // terrain planes, or null for flat ground; dr: (n_env, n_dr) contiguous
-// packed overlays, or null for none. Which of the two are given picks one
-// of the kernel's four instantiations.
+// packed overlays, or null for none; gws: the scratch buffer of the
+// device-memory placement, or null for the shared-memory placement (ftab
+// then the float table as the kernel stages it when cfg gives no shared
+// memory). Which of the three are given picks one of the kernel's eight
+// instantiations.
 extern "C" int oige_step(const float* ftab, const int* itab, const int* dims,
                          const float* q, const float* qd, const float* eff,
                          const float* ptg, const float* vtg, const float* fapp,
-                         const float* planes, const float* dr, float* q_out,
+                         const float* planes, const float* dr, float* gws, float* q_out,
                          float* qd_out, float* sf_out, float* pos,
                          float* quat, float* avel, float* lvel, int n_env, int n_steps,
                          void* stream, const int* cfg) {
   if (!cfg_ok(dims, cfg)) return (int)cudaErrorInvalidValue;
 #define OIGE_STEP_ARGS                                                                   \
-  cfg, ftab, itab, q, qd, eff, ptg, vtg, fapp, planes, dr, q_out, qd_out, sf_out, pos, quat, \
-      avel, lvel, n_env, n_steps, stream
-  if (planes != nullptr && dr != nullptr) return launch_step<true, true>(OIGE_STEP_ARGS);
-  if (planes != nullptr) return launch_step<true, false>(OIGE_STEP_ARGS);
-  if (dr != nullptr) return launch_step<false, true>(OIGE_STEP_ARGS);
-  return launch_step<false, false>(OIGE_STEP_ARGS);
+  cfg, ftab, itab, q, qd, eff, ptg, vtg, fapp, planes, dr, gws, q_out, qd_out, sf_out, pos, \
+      quat, avel, lvel, n_env, n_steps, stream
+  if (gws != nullptr) {
+    if (planes != nullptr && dr != nullptr) return launch_step<true, true, true>(OIGE_STEP_ARGS);
+    if (planes != nullptr) return launch_step<true, false, true>(OIGE_STEP_ARGS);
+    if (dr != nullptr) return launch_step<false, true, true>(OIGE_STEP_ARGS);
+    return launch_step<false, false, true>(OIGE_STEP_ARGS);
+  }
+  if (planes != nullptr && dr != nullptr) return launch_step<true, true, false>(OIGE_STEP_ARGS);
+  if (planes != nullptr) return launch_step<true, false, false>(OIGE_STEP_ARGS);
+  if (dr != nullptr) return launch_step<false, true, false>(OIGE_STEP_ARGS);
+  return launch_step<false, false, false>(OIGE_STEP_ARGS);
 #undef OIGE_STEP_ARGS
 }
 
@@ -1571,11 +1635,11 @@ extern "C" int oige_step(const float* ftab, const int* itab, const int* dims,
 extern "C" int oige_substep(const float* ftab, const int* itab, const int* dims,
                             const float* q, const float* qd, const float* eff,
                             const float* ptg, const float* vtg, const float* fapp,
-                            const float* planes, const float* dr, float* q_out,
+                            const float* planes, const float* dr, float* gws, float* q_out,
                             float* qd_out, float* sf_out, int n_env, void* stream,
                             const int* cfg) {
-  return oige_step(ftab, itab, dims, q, qd, eff, ptg, vtg, fapp, planes, dr, q_out, qd_out,
-                   sf_out, nullptr, nullptr, nullptr, nullptr, n_env, 1, stream, cfg);
+  return oige_step(ftab, itab, dims, q, qd, eff, ptg, vtg, fapp, planes, dr, gws, q_out,
+                   qd_out, sf_out, nullptr, nullptr, nullptr, nullptr, n_env, 1, stream, cfg);
 }
 
 // the phase counters of a build with -DOIGE_PROFILE: cycles and marks of
@@ -1598,11 +1662,14 @@ extern "C" int oige_profile(unsigned long long* out) {
 #endif
 }
 
+// gws as in oige_step
 extern "C" int oige_fk(const float* ftab, const int* itab, const int* dims,
-                       const float* q, const float* qd, float* pos, float* quat,
+                       const float* q, const float* qd, float* gws, float* pos, float* quat,
                        float* avel, float* lvel, int n_env, void* stream, const int* cfg) {
   if (!cfg_ok(dims, cfg)) return (int)cudaErrorInvalidValue;
-  return launch_fk(cfg, ftab, itab, q, qd, pos, quat, avel, lvel, n_env, stream);
+  if (gws != nullptr)
+    return launch_fk<true>(cfg, ftab, itab, q, qd, gws, pos, quat, avel, lvel, n_env, stream);
+  return launch_fk<false>(cfg, ftab, itab, q, qd, gws, pos, quat, avel, lvel, n_env, stream);
 }
 
 #endif  // __CUDACC__

@@ -1109,6 +1109,20 @@ static Tables make_tables(const float* ftab, const int* itab, const int* dims) {
   return t;
 }
 
+// this form's compile-time maxima, the sizes of its stack arrays
+// (ops/fused_step.py THREAD_LIMITS, thread_scope_errors): bodies, ground
+// contact points, sensors, pairs, surfaces, tendons, FREE roots
+extern "C" int oige_limits(int* out) {
+  out[0] = OIGE_NB_MAX;
+  out[1] = OIGE_NCP_MAX;
+  out[2] = OIGE_NS_MAX;
+  out[3] = OIGE_NPAIR_MAX;
+  out[4] = OIGE_NSURF_MAX;
+  out[5] = OIGE_NT_MAX;
+  out[6] = OIGE_NFREE_MAX;
+  return 0;
+}
+
 #ifdef __CUDACC__
 template <bool PLANES, bool DR>
 static void launch_step(const Tables& t, const float* q, const float* qd, const float* eff,

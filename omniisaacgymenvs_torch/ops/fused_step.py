@@ -9,12 +9,16 @@ velocity of every body. K3 `substep` replaces batched / kernel: one substep
 without the report (a launch mode of K1's device code). The CUDA source is
 built with nvcc at first use into `build/torch_kernels/` (keyed by a hash
 of the source and flags) and bound with ctypes. K1 and K3 come in two
-forms: a group of 32 lanes per env, whose working set lives in shared
-memory beside the staged model tables (`csrc/fused_step.cu`, which also
-holds K2), and one thread per env (`csrc/fused_step_thread.cu`), faster
-once a batch fills the card. `launch_config` picks the form and sizes the
-launch (envs per block, blocks, shared bytes), and the wrappers hand it to
-the C entry.
+forms: a group of 32 lanes per env (`csrc/fused_step.cu`, which also holds
+K2), and one thread per env (`csrc/fused_step_thread.cu`), faster once a
+batch fills the card. The group form takes a model of any size: its
+working set lives in shared memory beside the staged model tables, or, for
+a model whose one env and tables do not fit a block's shared memory, in a
+scratch buffer in device memory (the device-memory placement). The thread
+form sizes its stack arrays by compile-time maxima (`thread_scope_errors`).
+`launch_config` picks the form and the placement and sizes the launch
+(envs per block, blocks, shared bytes), and the wrappers hand it to the C
+entry.
 
 A wrapper given CPU tensors runs the plain version (`step_plain`,
 `fk_plain`, `substep_plain`); given CUDA tensors it launches the kernel or
@@ -25,9 +29,9 @@ contacts against sphere, capsule and box surfaces, gravity compensation,
 fixed tendons and per-env domain-randomization overlays (`overlay`, a dict
 of (N, size) tensors under `OVERLAY_KEYS`, packed here into the one
 (N, n_dr) input the kernel reads);
-`scope_errors` lists what a model has beyond the kernels' compile-time
-maxima or beyond the shared memory of a block, and the engine's
-`check_scope` refuses such a model on CUDA.
+`scope_errors` lists what a model has beyond the group form's scope (the
+int32 range of its schedule; nothing a model of the tasks comes near), and
+the engine's `check_scope` refuses such a model on CUDA.
 """
 
 from __future__ import annotations
@@ -61,11 +65,13 @@ _GC_STRIDE, _PAIR_STRIDE, _SURF_STRIDE, _TEND_STRIDE, _IB_STRIDE = 4, 4, 16, 8, 
 (_B_AXIS, _B_ET, _B_JPOS, _B_I6, _B_ARM, _B_DAMP, _B_FRIC, _B_KP, _B_KD,
  _B_EMAX, _B_VMAX, _B_LO, _B_HI, _B_DIMPL, _B_DIMPL0) = (
     0, 3, 12, 15, 51, 52, 53, 54, 55, 56, 57, 58, 59, 60, 61)
-# compile-time maxima of the kernel (csrc/fused_step.cu OIGE_*_MAX): bodies,
-# ground contact points, sensors, pairs, surfaces, tendons, FREE roots
+# compile-time maxima of the one-thread-per-env form, the sizes of its
+# stack arrays (csrc/fused_step_thread.cu OIGE_*_MAX, oige_limits): bodies,
+# ground contact points, sensors, pairs, surfaces, tendons, FREE roots. The
+# group form has none
 NB_MAX, NCP_MAX, NS_MAX = 32, 128, 8
 NPAIR_MAX, NSURF_MAX, NT_MAX, NFREE_MAX = 1024, 32, 8, 4
-LIMITS = (NB_MAX, NCP_MAX, NS_MAX, NPAIR_MAX, NSURF_MAX, NT_MAX, NFREE_MAX)
+THREAD_LIMITS = (NB_MAX, NCP_MAX, NS_MAX, NPAIR_MAX, NSURF_MAX, NT_MAX, NFREE_MAX)
 
 # the schedule table's header (csrc/fused_step.cu H_* and L_*): the model's
 # sizes, the sections of the float and the model int table, where the
@@ -82,7 +88,7 @@ SCHEDULE_HEADER = (
     "L_acc", "L_tmp", "L_planes",
 )
 _TM_STRIDE = 51  # inward-pass scratch per body of a level (Q, pa, T)
-_SLOT_UNDER_FIXED = 0x10000  # a slot's flag: the parent is a FIXED root
+_SLOT_UNDER_FIXED = 0x40000000  # a slot's flag: the parent is a FIXED root
 
 # the card's limits the launch configuration keeps to (H100 SXM): shared
 # memory a block can use and an SM holds (each block reserves 1 KB more);
@@ -131,10 +137,23 @@ def n_free_roots(model: Model) -> int:
 
 
 def scope_errors(model: Model) -> List[str]:
-    """What `model` has beyond the kernels' own scope (empty when in
-    scope): the sizes must lie within the kernels' compile-time maxima, and
-    one env's working set (the largest variant: terrain planes and an
-    overlay) with the tables must fit in the shared memory of a block."""
+    """What `model` has beyond the group form's scope (empty when in
+    scope). The group form of K1 / K3 and K2 reads every size from the
+    schedule's header at run time and places a working set too large for
+    shared memory in device memory, so its one limit is the header's int32:
+    every offset of the tables and of one env's working set (the largest
+    variant: terrain planes and an overlay) must lie below 2^31."""
+    top = max(table_offsets(model)["i_end"], staged_offsets(model)["f_end"],
+              env_layout(model, planes=True, overlay=True)["end"])
+    if top >= 2 ** 31:
+        return [f"the schedule's offsets reach {top} >= 2^31 (int32)"]
+    return []
+
+
+def thread_scope_errors(model: Model) -> List[str]:
+    """What `model` has beyond the one-thread-per-env form (empty when that
+    form takes it): its sizes must lie within the form's compile-time
+    maxima, THREAD_LIMITS."""
     errs = []
     for n, cap, what in (
         (model.nb, NB_MAX, "bodies"),
@@ -146,12 +165,7 @@ def scope_errors(model: Model) -> List[str]:
         (n_free_roots(model), NFREE_MAX, "FREE roots"),
     ):
         if n > cap:
-            errs.append(f"{n} {what} > kernel maximum {cap}")
-    need = 4 * (table_floats(model)
-                + env_floats(model, planes=True, overlay=True))
-    if need > SMEM_BLOCK_MAX:
-        errs.append(f"shared memory: one env's working set and the tables "
-                    f"take {need} B > the {SMEM_BLOCK_MAX} B of a block")
+            errs.append(f"{n} {what} > thread form maximum {cap}")
     return errs
 
 
@@ -456,6 +470,27 @@ def staged_offsets(model: Model) -> dict:
                 f_tend=f_tend, f_end=f_tend + (_TEND_STRIDE + 1) * nt)
 
 
+def staged_table(model: Model, ftab: np.ndarray) -> np.ndarray:
+    """The packed float table `ftab` in the layout a block stages it in
+    (csrc/fused_step.cu staged_index: every record one float longer, the
+    extra float 0): the device copy the device-memory placement reads when
+    the tables do not fit a block's shared memory."""
+    off, st = table_offsets(model), staged_offsets(model)
+    out = np.zeros(st["f_end"], np.float32)
+    out[:_F_BODY] = ftab[:_F_BODY]
+    sections = (("f_cp", _BODY_STRIDE, _F_BODY, _F_BODY),
+                ("f_gc", _CP_STRIDE, off["f_cp"], st["f_cp"]),
+                ("f_pair", _GC_STRIDE, off["f_gc"], st["f_gc"]),
+                ("f_surf", _PAIR_STRIDE, off["f_pair"], st["f_pair"]),
+                ("f_tend", _SURF_STRIDE, off["f_surf"], st["f_surf"]),
+                ("f_end", _TEND_STRIDE, off["f_tend"], st["f_tend"]))
+    for end, stride, p0, s0 in sections:
+        n = (off[end] - p0) // stride
+        out[s0:s0 + n * (stride + 1)].reshape(n, stride + 1)[:, :stride] = (
+            ftab[p0:off[end]].reshape(n, stride))
+    return out
+
+
 def table_floats(model: Model) -> int:
     """Words of the tables a block stages: the float table at its shared
     strides and the int table [schedule sections | model int table],
@@ -470,20 +505,28 @@ def launch_config(model: Model, n_env: int, planes: bool = False,
                   n_sm=None) -> dict:
     """How K1 / K3 (or K2, `fk`) launch for n_env envs. `design`: "group"
     (a group of GROUP lanes per env, csrc/fused_step.cu) or "thread" (one
-    thread per env, csrc/fused_step_thread.cu; not for K2); unless given,
-    K1 / K3 take "thread" once n_env gives every SM THREAD_ENVS_PER_SM
-    envs, and "group" below that. The group form's `envs_per_block`
-    groups per block, `blocks` (a persistent grid: at most what the SMs
-    hold at once, each group walking over envs with the stride of all
-    groups), shared bytes per block (`smem_bytes`: the staged tables,
-    `table_bytes`, and one working set per env, `env_bytes`) and
-    `resident` envs per SM; the envs per block maximise the envs an SM
-    holds, and a batch spreads evenly over every SM. The thread form's
-    blocks of THREAD_BLOCK envs, no shared memory. `n_sm`: the card's SMs
-    (an H100's 132 unless given)."""
+    thread per env, csrc/fused_step_thread.cu; not for K2, and not for a
+    model past its maxima, `thread_scope_errors`: ValueError); unless
+    given, K1 / K3 take "thread" once n_env gives every SM
+    THREAD_ENVS_PER_SM envs and the thread form takes the model, and
+    "group" otherwise. The group form's `envs_per_block` groups per block,
+    `blocks` (a persistent grid: at most what the SMs hold at once, each
+    group walking over envs with the stride of all groups), shared bytes
+    per block (`smem_bytes`: the staged tables, `table_bytes`, and in the
+    shared placement one working set per env, `env_bytes`) and `resident`
+    envs per SM; the envs per block maximise the envs an SM holds, and a
+    batch spreads evenly over every SM. `working_set`: "shared" where one
+    env's working set and the tables fit a block's shared memory, else
+    "global" (the device-memory placement: one working set per group in a
+    scratch buffer of `scratch_floats` floats, the tables staged in shared
+    memory where they fit, `tables` "shared", else read from device memory,
+    "global"). The thread form's blocks of THREAD_BLOCK envs, no shared
+    memory, its working set in the thread's stack frame ("local").
+    `n_sm`: the card's SMs (an H100's 132 unless given)."""
     n_sm = N_SM_H100 if n_sm is None else int(n_sm)
     if design is None:
-        design = ("thread" if not fk and n_env >= THREAD_ENVS_PER_SM * n_sm
+        wide = not fk and n_env >= THREAD_ENVS_PER_SM * n_sm
+        design = ("thread" if wide and not thread_scope_errors(model)
                   else "group")
     if design not in DESIGNS or (fk and design != "group"):
         raise ValueError(f"design {design!r}: K1 / K3 take one of {DESIGNS}, "
@@ -493,36 +536,46 @@ def launch_config(model: Model, n_env: int, planes: bool = False,
                   ni=len(pack_schedule(model)) - len(SCHEDULE_HEADER)
                   + off["i_end"])
     if design == "thread":
+        errs = thread_scope_errors(model)
+        if errs:
+            raise ValueError(f"{model.name}: the thread form does not take "
+                             f"the model: {'; '.join(errs)}")
         return dict(common, group=1, envs_per_block=THREAD_BLOCK,
                     blocks=-(-n_env // THREAD_BLOCK), threads=THREAD_BLOCK,
                     smem_bytes=0, table_bytes=0, env_bytes=0, env_floats=0,
-                    resident=None)
+                    resident=None, working_set="local")
     env = env_floats(model, planes, overlay, fk)
     tab = table_floats(model)
+    shared = 4 * (tab + env) <= SMEM_BLOCK_MAX
+    # the device-memory placement stages the tables alone, where they fit
+    tab_smem = 4 * tab if 4 * tab <= SMEM_BLOCK_MAX else 0
+
+    def smem(epb):
+        return 4 * (tab + epb * env) if shared else tab_smem
 
     def per_sm(epb):
-        smem = 4 * (tab + epb * env)
-        return min(SMEM_SM // (smem + SMEM_RESERVED),
+        return min(SMEM_SM // (smem(epb) + SMEM_RESERVED),
                    THREADS_SM // (epb * GROUP), REGS_SM // (REGS * epb * GROUP),
                    BLOCKS_SM)
 
     best = None
     for epb in range(1, MAX_THREADS // GROUP + 1):
-        if 4 * (tab + epb * env) > SMEM_BLOCK_MAX:
+        if smem(epb) > SMEM_BLOCK_MAX:
             break
         if best is None or per_sm(epb) * epb >= per_sm(best) * best:
             best = epb
-    if best is None:
-        raise ValueError(f"{model.name}: one env's working set and the "
-                         f"tables exceed the {SMEM_BLOCK_MAX} B of a block")
     # blocks per SM that the batch needs, spread evenly over the SMs
     k = -(-n_env // (n_sm * best))
     epb = min(best, max(1, -(-n_env // (n_sm * k))))
     blocks = min(-(-n_env // epb), n_sm * per_sm(epb))
-    return dict(common, group=GROUP, envs_per_block=epb, blocks=blocks,
-                threads=GROUP * epb, smem_bytes=4 * (tab + epb * env),
-                table_bytes=4 * tab, env_bytes=4 * env, env_floats=env,
-                resident=per_sm(epb) * epb)
+    lc = dict(common, group=GROUP, envs_per_block=epb, blocks=blocks,
+              threads=GROUP * epb, smem_bytes=smem(epb),
+              table_bytes=4 * tab if shared else tab_smem, env_bytes=4 * env,
+              env_floats=env, resident=per_sm(epb) * epb)
+    if shared:
+        return dict(lc, working_set="shared")
+    return dict(lc, working_set="global", tables="shared" if tab_smem else "global",
+                scratch_floats=blocks * epb * env)
 
 
 def describe_config(lc: dict) -> str:
@@ -530,11 +583,16 @@ def describe_config(lc: dict) -> str:
     if lc["design"] == "thread":
         return (f"one thread per env, {lc['blocks']} blocks of "
                 f"{lc['threads']} threads")
-    return (f"G={lc['group']}, {lc['envs_per_block']} envs per block, "
+    head = (f"G={lc['group']}, {lc['envs_per_block']} envs per block, "
             f"{lc['blocks']} blocks of {lc['threads']} threads, "
-            f"{lc['smem_bytes']} B shared per block ({lc['table_bytes']} B "
-            f"tables, {lc['env_bytes']} B per env), {lc['resident']} envs "
-            f"per SM")
+            f"{lc['smem_bytes']} B shared per block")
+    if lc["working_set"] == "shared":
+        return (f"{head} ({lc['table_bytes']} B tables, {lc['env_bytes']} B per "
+                f"env), {lc['resident']} envs per SM, working sets in shared memory")
+    where = "shared" if lc["tables"] == "shared" else "device"
+    return (f"{head} (the tables, in {where} memory), {lc['env_bytes']} B "
+            f"per env, {lc['resident']} envs per SM, working sets in device "
+            f"memory ({4 * lc['scratch_floats']} B of scratch)")
 
 
 class FusedKernels:
@@ -560,6 +618,10 @@ class FusedKernels:
                      .multi_processor_count
                      if model.device.type == "cuda" else N_SM_H100)
         self._configs = {}
+        # the float table in its staged layout, on the device: what the
+        # device-memory placement reads where the tables do not fit a
+        # block's shared memory (packed at the first such configuration)
+        self._ftab_staged = None
         self.launches = {"step": 0, "fk": 0, "substep": 0}
         # how many of those launches read an overlay, and how many took the
         # one-thread-per-env form
@@ -568,7 +630,9 @@ class FusedKernels:
 
     def config(self, n_env: int, planes=False, overlay=False, fk=False,
                design=None):
-        """(launch_config dict, the group form's C int array), cached."""
+        """(launch_config dict, the group form's C int array, the scratch
+        buffer of the device-memory placement or None), cached: a
+        configuration's scratch is allocated once, not per launch."""
         key = (n_env, planes, overlay, fk, design)
         if key not in self._configs:
             lc = launch_config(self.model, n_env, planes, overlay, fk, design,
@@ -578,8 +642,21 @@ class FusedKernels:
             arr = (ctypes.c_int * (6 + len(SCHEDULE_HEADER)))(
                 lc["envs_per_block"], lc["blocks"], lc["smem_bytes"],
                 lc["env_floats"], lc["nf"], lc["ni"], *self.header)
-            self._configs[key] = (lc, arr)
+            gws = None
+            if lc["working_set"] == "global":
+                gws = torch.empty(lc["scratch_floats"], device=self.ftab.device)
+                if lc["tables"] == "global" and self._ftab_staged is None:
+                    self._ftab_staged = torch.as_tensor(
+                        staged_table(self.model, self.ftab.cpu().numpy()),
+                        device=self.ftab.device)
+            self._configs[key] = (lc, arr, gws)
         return self._configs[key]
+
+    def group_ftab(self, lc: dict) -> torch.Tensor:
+        """The float table a group-form launch of `lc` reads: the packed
+        table, which the kernel stages, or its staged copy where the
+        tables stay in device memory."""
+        return self._ftab_staged if lc.get("tables") == "global" else self.ftab
 
     def reset_counts(self):
         for counts in (self.launches, self.overlay_launches,
@@ -706,18 +783,21 @@ def _launch_step(k, key, ins, planes, dr, outs, n_steps, design):
     seven `outs`) or K3 ("substep": one substep, three `outs`) in the form
     `launch_config` picks, and count it."""
     N, dev = ins[0].shape[0], ins[0].device
-    lc, cfg = k.config(N, planes is not None, dr is not None, design=design)
+    lc, cfg, gws = k.config(N, planes is not None, dr is not None, design=design)
     lib = library()
     lib.claim(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     thread = lc["design"] == "thread"
-    itab = (k.thread_itab if thread else k.itab).data_ptr()
-    args = [k.ftab.data_ptr(), itab, k.dims, *[x.data_ptr() for x in ins],
-            _ptr(planes), _ptr(dr), *[x.data_ptr() for x in outs], N]
-    args += [int(n_steps), stream] if key == "step" else [stream]
+    ins_ptrs = [x.data_ptr() for x in ins] + [_ptr(planes), _ptr(dr)]
+    outs_ptrs = [x.data_ptr() for x in outs] + [N]
+    outs_ptrs += [int(n_steps), stream] if key == "step" else [stream]
     name = f"oige_{key}" + ("_thread" if thread else "")
-    err = (getattr(lib.thread, name)(*args) if thread
-           else getattr(lib.lib, name)(*args, cfg))
+    if thread:
+        err = getattr(lib.thread, name)(k.ftab.data_ptr(), k.thread_itab.data_ptr(),
+                                        k.dims, *ins_ptrs, *outs_ptrs)
+    else:
+        err = getattr(lib.lib, name)(k.group_ftab(lc).data_ptr(), k.itab.data_ptr(),
+                                     k.dims, *ins_ptrs, _ptr(gws), *outs_ptrs, cfg)
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     k.launches[key] += 1
@@ -790,13 +870,13 @@ def fk(engine, q, qd):
     e = torch.empty
     outs = (e((N, m.nb, 3), device=dev), e((N, m.nb, 4), device=dev),
             e((N, m.nb, 3), device=dev), e((N, m.nb, 3), device=dev))
-    _, cfg = k.config(N, fk=True)
+    lc, cfg, gws = k.config(N, fk=True)
     lib = library()
     lib.claim(dev)
     err = lib.lib.oige_fk(
-        k.ftab.data_ptr(), k.itab.data_ptr(), k.dims,
-        q.data_ptr(), qd.data_ptr(), *[x.data_ptr() for x in outs], N,
-        torch.cuda.current_stream(dev).cuda_stream, cfg,
+        k.group_ftab(lc).data_ptr(), k.itab.data_ptr(), k.dims,
+        q.data_ptr(), qd.data_ptr(), _ptr(gws), *[x.data_ptr() for x in outs],
+        N, torch.cuda.current_stream(dev).cuda_stream, cfg,
     )
     if err:
         raise RuntimeError(f"oige_fk launch failed: cudaError {err}")
@@ -1040,23 +1120,25 @@ def build(flags=NVCC_FLAGS) -> _Library:
     build_s = time.time() - t0
     lib, thread = (ctypes.CDLL(str(so)) for so in built)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.oige_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.oige_limits.restype = ci
+    thread.oige_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    thread.oige_limits.restype = ci
     dims = ctypes.POINTER(ctypes.c_int)
-    for handle, tail, cfg in ((lib, "", [dims]), (thread, "_thread", [])):
+    # the group form takes one pointer more (gws) and the configuration
+    for handle, tail, more, cfg in ((lib, "", 1, [dims]),
+                                    (thread, "_thread", 0, [])):
         step_fn = getattr(handle, "oige_step" + tail)
-        step_fn.argtypes = [vp, vp, dims] + [vp] * 15 + [ci, ci, vp] + cfg
+        step_fn.argtypes = [vp, vp, dims] + [vp] * (15 + more) + [ci, ci, vp] + cfg
         step_fn.restype = ci
         sub_fn = getattr(handle, "oige_substep" + tail)
-        sub_fn.argtypes = [vp, vp, dims] + [vp] * 11 + [ci, vp] + cfg
+        sub_fn.argtypes = [vp, vp, dims] + [vp] * (11 + more) + [ci, vp] + cfg
         sub_fn.restype = ci
-    lib.oige_fk.argtypes = [vp, vp, dims] + [vp] * 6 + [ci, vp, dims]
+    lib.oige_fk.argtypes = [vp, vp, dims] + [vp] * 7 + [ci, vp, dims]
     lib.oige_fk.restype = ci
-    lim = (ctypes.c_int * len(LIMITS))()
-    lib.oige_limits(lim)
-    if tuple(lim) != LIMITS:
-        raise RuntimeError(f"kernel maxima {tuple(lim)} disagree with "
-                           f"{LIMITS}")
+    lim = (ctypes.c_int * len(THREAD_LIMITS))()
+    thread.oige_limits(lim)
+    if tuple(lim) != THREAD_LIMITS:
+        raise RuntimeError(f"thread form maxima {tuple(lim)} disagree with "
+                           f"{THREAD_LIMITS}")
     logs = [so.with_suffix(".log") for so in built]
     ptxas = "".join(x.read_text() for x in logs if x.exists())
     return _Library(lib, thread, ptxas, build_s, *built)

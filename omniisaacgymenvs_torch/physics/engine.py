@@ -9,10 +9,13 @@ one launch of the whole-control-step kernel K1 (with `plane_refresh`, one
 launch of a single substep per substep, each on planes sampled from the
 launch before) and `_report` (hence `init_state`) one launch of the
 report-FK kernel K2 (`ops/fused_step.py`, which also has the single-substep
-kernel K3 that no engine path launches); a model beyond the kernels' maxima
-or their shared memory raises `NotImplementedError` there (`check_scope`). On the CPU both run the
-plain versions, with the same plane semantics: terrain planes are sampled
-from the reported state and stay frozen over the substeps of one launch.
+kernel K3 that no engine path launches), for a model of any size: one past
+the one-thread-per-env form's maxima takes the group form, and one whose
+working set does not fit a block's shared memory the group form's
+device-memory placement (`fused_step.launch_config`). The card never runs
+the plain physics. On the CPU both run the plain versions, with the same
+plane semantics: terrain planes are sampled from the reported state and
+stay frozen over the substeps of one launch.
 
 An overlay is a dict of per-env tensors, (N, size) float32 on the engine's
 device, under the keys of `fused_step.OVERLAY_KEYS`: `*_scale` keys
@@ -73,8 +76,10 @@ def sim_params_from_cfg(sim_cfg, dt: float = 1.0 / 60.0, substeps: int = 1,
 
 def check_scope(model: Model, cuda: bool):
     """Raise NotImplementedError for a scene the port cannot step: on CUDA
-    what lies beyond the kernels' maxima or their shared memory (there is no
-    plain fallback on the card)."""
+    one beyond the group form's scope (`fused_step.scope_errors`: offsets
+    past int32, far beyond any model the JAX kernel steps in memory); the
+    kernels take every other model, and there is no plain fallback on the
+    card."""
     errs = fused_step.scope_errors(model) if cuda else []
     if errs:
         raise NotImplementedError(f"{model.name}: {'; '.join(errs)}")

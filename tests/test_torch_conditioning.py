@@ -86,7 +86,8 @@ def test_cap_of_one_percent_still_holds():
 
 def test_check_keep_by_model():
     """A model outside COND_MAX_EXCLUDED_BY_MODEL: every env is judged. The
-    AllegroHand's checks take its own 2% cap."""
+    AllegroHand's checks take its own 2% cap; FrankaCabinet with 16 props
+    (31 bodies) the overlay checks' 1%, with four (19 bodies) none."""
     from types import SimpleNamespace
 
     chattering = [3, 7, 120]           # 1.5% of the envs
@@ -99,6 +100,11 @@ def test_check_keep_by_model():
     keep = parity.check_keep(allegro, run, q, qd, ref, NAMES, TOL)
     assert (~keep).nonzero().flatten().tolist() == chattering
     assert parity.COND_MAX_EXCLUDED_BY_MODEL["AllegroHand"] == 0.02
+    franka4 = SimpleNamespace(name="FrankaCabinet", nb=19)
+    franka16 = SimpleNamespace(name="FrankaCabinet", nb=31)
+    assert parity.check_keep(franka4, run, q, qd, ref, NAMES, TOL) is None
+    with pytest.raises(AssertionError, match="ill conditioned"):
+        parity.check_keep(franka16, run, q, qd, ref, NAMES, TOL)
     more = list(range(0, 10))        # 5%: over the AllegroHand's cap too
     q, qd = _states(more)
     run = _chattering_plain(more)

@@ -3,14 +3,15 @@ report FK, K3 single substep) against its plain version on the card, on
 the Humanoid, BallBalance, ShadowHand, Anymal and the synthetic pair scene,
 K1 and K3 on AnymalTerrain's contact planes, K1 and K3 under a
 domain-randomization overlay (all four kernel variants), the engine's
-launches with and without the plane refresh, its refusal of scenes
-beyond the kernels' maxima, the learner's checkpoints across devices
-(saved on the card and loaded on the CPU, and back, FF and LSTM), and
-FrankaCabinet, AllegroHand, Ingenuity, Quadcopter and Crazyflie (K1 in
-both forms and K2 at their yamls' depths, a rollout's launches, a fifth
-Franka prop refused), and Custom on imported robots (the URDF example
-with a FIXED and a FREE base, chip_smoke.py's MJCF chain: K1 in both forms
-and K2, a rollout's launches, a chain beyond NB_MAX refused) and the
+launches with and without the plane refresh, a chain past the thread
+form's maxima stepped by the group form, the learner's checkpoints across
+devices (saved on the card and loaded on the CPU, and back, FF and LSTM),
+and FrankaCabinet, AllegroHand, Ingenuity, Quadcopter and Crazyflie (K1 in
+both forms and K2 at their yamls' depths, a rollout's launches, 16 Franka
+props stepped by the group form), and Custom on imported robots (the URDF
+example with a FIXED and a FREE base, chip_smoke.py's MJCF chain: K1 in
+both forms and K2, a rollout's launches, a URDF chain beyond NB_MAX
+stepped by the group form) and the
 refusal of a launch on a second device in one process, and the networks'
 "bf16_operands" matmul rule on the card against the same layer on the CPU.
 They skip without a CUDA device. This file imports no JAX, so it also runs
@@ -327,14 +328,43 @@ def test_kernels_match_plain_on_card_with_planes_and_overlay(cuda_device):
     assert eng.kernels.overlay_launches == {"step": 4, "substep": 0}
 
 
+def _k1_against_plain(eng, label, n=515, seed=7, n_steps=N_STEPS):
+    """One K1 launch (the form and placement `launch_config` picks) against
+    its plain version on the card, on check states; the group form for a
+    model past the thread form's maxima, and no plain physics in the
+    launch."""
+    m = eng.model
+    q, qd, eff = parity.check_inputs(m, n, seed=seed, device=eng.device)
+    ptg = parity.check_targets(m, q, seed)
+    z = torch.zeros((n, m.njd), device=eng.device)
+    fa = torch.zeros((n, m.nb, 6), device=eng.device)
+    eng.kernels.reset_counts()
+    out = fs.step(eng, q, qd, eff, ptg, z, fa, n_steps)
+    torch.cuda.synchronize()
+    assert eng.kernels.launches["step"] == 1
+    assert eng.kernels.config(n)[0]["design"] == "group"
+    tol = parity.step_tol(m)
+
+    def run_plain(q_, qd_):
+        return fs.step_plain(eng, q_, qd_, eff, ptg, z, fa, n_steps)
+
+    ref = run_plain(q, qd)
+    # FrankaCabinet's 16 props are judged where the step is well conditioned
+    keep = parity.check_keep(m, run_plain, q, qd, ref, parity.STEP_NAMES, tol)
+    parity.assert_within(label, parity.compare(out, ref, parity.STEP_NAMES, tol, keep), tol)
+
+
 @pytest.mark.cuda
-def test_engine_refuses_out_of_scope_scene_on_card(cuda_device):
+def test_engine_steps_a_chain_past_the_thread_maxima_on_card(cuda_device):
+    """A FIXED root and a chain of NB_MAX bodies (33 in all): the engine
+    builds on the card, and the group form's K1 matches the plain step."""
     b = ModelBuilder("long")
     p = b.add_body("base", parent=-1, joint_type=JointType.FIXED)
     for i in range(fs.NB_MAX):
         p = b.add_body(f"x{i}", parent=p)
-    with pytest.raises(NotImplementedError):
-        PhysicsEngine(b.finalize(cuda_device), SimParams())
+    eng = PhysicsEngine(b.finalize(cuda_device), SimParams())
+    assert fs.thread_scope_errors(eng.model)
+    _k1_against_plain(eng, "33-body chain K1")
 
 
 @pytest.mark.cuda
@@ -534,9 +564,15 @@ def test_arm_hand_flyer_rollout_launches_k1_once_per_step(name, cuda_device):
 
 
 @pytest.mark.cuda
-def test_fifth_franka_prop_is_refused_on_card(cuda_device):
-    with pytest.raises(NotImplementedError, match="FREE roots"):
-        get_task("FrankaCabinet", {"env": {"numProps": 5}}, device=cuda_device)
+@pytest.mark.parametrize("props", [5, 16])
+def test_franka_props_past_the_thread_maxima_step_on_card(props, cuda_device):
+    """FrankaCabinet with 5 and 16 FREE props builds on the card, and the
+    group form's K1 at the yaml's depth matches the plain step, the pads
+    on the handle bar and the props on the tray."""
+    task = get_task("FrankaCabinet", {"env": {"numProps": props}}, device=cuda_device)
+    assert fs.thread_scope_errors(task.model)
+    _k1_against_plain(task.engine, f"FrankaCabinet {props} props K1",
+                      n_steps=task.decimation * task.engine.params.substeps)
 
 
 # Custom on imported robots: the URDF example (FIXED and FREE base) and
@@ -616,8 +652,9 @@ def test_custom_rollout_launches_k1_once_per_step(case, tmp_path, cuda_device):
 
 
 @pytest.mark.cuda
-def test_custom_chain_beyond_the_kernel_maximum_is_refused_on_card(tmp_path,
-                                                                   cuda_device):
+def test_custom_chain_beyond_the_thread_maximum_steps_on_card(tmp_path, cuda_device):
+    """A URDF chain of NB_MAX + 1 links builds as Custom on the card, and
+    the group form's K1 matches the plain step."""
     n = fs.NB_MAX + 1
     links = "".join(f'<link name="l{i}"><inertial><mass value="1"/>'
                     f'<inertia ixx="0.01" iyy="0.01" izz="0.01"/></inertial></link>'
@@ -627,8 +664,9 @@ def test_custom_chain_beyond_the_kernel_maximum_is_refused_on_card(tmp_path,
                      for i in range(1, n))
     path = tmp_path / "long.urdf"
     path.write_text(f'<robot name="long">{links}{joints}</robot>')
-    with pytest.raises(NotImplementedError, match=f"{n} bodies > kernel maximum"):
-        get_task("Custom", {"env": {"robot": str(path)}}, device=cuda_device)
+    task = get_task("Custom", {"env": {"robot": str(path)}}, device=cuda_device)
+    assert task.model.nb == n and fs.thread_scope_errors(task.model)
+    _k1_against_plain(task.engine, f"Custom {n}-link chain K1")
 
 
 @pytest.mark.cuda

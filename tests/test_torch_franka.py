@@ -1,9 +1,9 @@
-"""Port parity of the FrankaCabinet task: the model with no props and with
-the yaml's four (four FREE roots, the kernels' maximum), `sample_reset` on
-JAX's own draws, `control`, `observe` and `reward_done` from a JAX state
-and carry (a JAX reset and one JAX step carried across as numpy), a 3-step
-VecEnv rollout against JAX's, and the refusal of a fifth prop on the
-card."""
+"""Port parity of the FrankaCabinet task: the model with no props, with
+the yaml's four (four FREE roots, the thread form's maximum) and with 16,
+`sample_reset` on JAX's own draws, `control`, `observe` and `reward_done`
+from a JAX state and carry (a JAX reset and one JAX step carried across as
+numpy), a 3-step VecEnv rollout against JAX's, and the kernels' scope past
+four props: the group form takes them, the thread form refuses them."""
 
 import dataclasses
 import functools
@@ -59,7 +59,7 @@ def case():
     return jtask, task, jenv, jes, es, actions
 
 
-@pytest.mark.parametrize("num_props", [0, 4])
+@pytest.mark.parametrize("num_props", [0, 4, 16])
 def test_model_fields_equal(num_props):
     m, drawer = build_franka_cabinet(num_props)
     jm, jdrawer = jbuild_franka_cabinet(num_props)
@@ -70,19 +70,30 @@ def test_model_fields_equal(num_props):
         # 19 bodies, 56 contact points, 114 pairs, a prismatic drawer under
         # the FIXED cabinet root, finger pads on prismatic fingers
         assert (m.nb, m.ncp, len(m.pair_surf)) == (19, 56, 114)
+        assert fs.scope_errors(m) == [] and fs.thread_scope_errors(m) == []
+    if num_props == 16:
+        # 16 props on a 4 x 4 grid: 31 bodies, 152 contact points, 402 pairs
+        assert (m.nb, m.ncp, len(m.pair_surf)) == (31, 152, 402)
         assert fs.scope_errors(m) == []
 
 
 def test_fifth_prop_is_refused_on_the_card():
-    """Five FREE roots are one more than the kernels hold: the engine
-    refuses the model on CUDA, naming the FREE roots, before any launch;
-    the CPU steps it."""
-    m, _ = build_franka_cabinet(5)
-    errs = fs.scope_errors(m)
-    assert len(errs) == 1 and "FREE roots" in errs[0], errs
-    with pytest.raises(NotImplementedError, match="FREE roots"):
+    """Five or 16 FREE roots are past the thread form's maximum of four:
+    that form refuses the model, naming the FREE roots, while the group
+    form takes it, so the engine accepts it on CUDA and `launch_config`
+    takes the group form at the yaml's 4096 envs and at any width; the CPU
+    steps it."""
+    for n in (5, 16):
+        m, _ = build_franka_cabinet(n)
+        errs = fs.thread_scope_errors(m)
+        assert any("FREE roots" in e for e in errs), errs
+        with pytest.raises(ValueError, match="FREE roots"):
+            fs.launch_config(m, 4096, design="thread")
+        assert fs.scope_errors(m) == []
         check_scope(m, cuda=True)
-    check_scope(m, cuda=False)
+        check_scope(m, cuda=False)
+        for width in (4096, 10 ** 6):
+            assert fs.launch_config(m, width)["design"] == "group"
     task = get_task("FrankaCabinet", {"env": {"numProps": 5}}, device="cpu")
     es = VecEnv(task, 2, seed=0).reset(seed=0)
     assert torch.isfinite(es.obs).all()

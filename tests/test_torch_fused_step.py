@@ -242,13 +242,22 @@ def dataclasses_replace_no_contacts(m):
                                   "gravity_comp", "forest", "pairs",
                                   "too_many_bodies"])
 def test_scope_rejects_out_of_slice_scene(kind):
-    """Only a scene beyond the kernels' maxima is refused; FIXED roots,
+    """No scene the JAX kernel steps is refused on the card; FIXED roots,
     prismatic joints, tendons, gravity compensation, forests and pairs are
-    in scope, and their plain step matches the JAX engine's on the same
-    scene."""
+    in both forms' scope, and their plain step matches the JAX engine's on
+    the same scene. A chain past the thread form's NB_MAX bodies is in the
+    group form's scope, which `launch_config` takes at every width; the
+    thread form refuses it by name."""
     if kind == "too_many_bodies":
-        with pytest.raises(NotImplementedError, match="bodies > kernel maximum"):
-            check_scope(one_feature_scene("plain", n_chain=fs.NB_MAX), cuda=True)
+        pm = one_feature_scene("plain", n_chain=fs.NB_MAX)
+        assert fs.scope_errors(pm) == []
+        check_scope(pm, cuda=True)
+        assert fs.thread_scope_errors(pm) == [
+            f"{pm.nb} bodies > thread form maximum {fs.NB_MAX}"]
+        with pytest.raises(ValueError, match="bodies > thread form maximum"):
+            fs.launch_config(pm, 64, design="thread")
+        assert fs.launch_config(pm, 10 ** 6)["design"] == "group"
+        # its plain step against the JAX engine: tests/test_torch_scenes.py
         return
     pm = one_feature_scene(kind)
     assert fs.scope_errors(pm) == []
@@ -278,10 +287,11 @@ def test_scope_accepts_slice_models():
               build_balance_bot(), build_shadow_hand(),
               build_shadow_hand(self_collisions=True),
               parity.build_pair_scene(), one_feature_scene("plain")):
-        assert fs.scope_errors(m) == []
+        assert fs.scope_errors(m) == [] and fs.thread_scope_errors(m) == []
         check_scope(m, cuda=True)
-    # the maxima bind only where the kernels would run
-    check_scope(one_feature_scene("plain", n_chain=fs.NB_MAX), cuda=False)
+    # a chain past the thread form's maxima is taken on every device
+    for cuda in (False, True):
+        check_scope(one_feature_scene("plain", n_chain=fs.NB_MAX), cuda=cuda)
 
 
 @pytest.mark.parametrize("kind", ["tendon", "gravity_comp", "pairs"])
@@ -355,12 +365,19 @@ def _oversized(what):
                                   "receiver surfaces", "contact pairs",
                                   "fixed tendons", "FREE roots"])
 def test_scope_rejects_beyond_kernel_maxima(what):
+    """Each compile-time maximum binds the thread form alone: its scope
+    names exactly that maximum and `launch_config` refuses the form, while
+    the group form takes the model, so the engine accepts it on the card
+    and `launch_config` never picks the thread form for it."""
     pm = _oversized(what)
-    errs = fs.scope_errors(pm)
-    assert len(errs) == 1 and f"{what} > kernel maximum" in errs[0], errs
-    with pytest.raises(NotImplementedError, match=what):
-        check_scope(pm, cuda=True)
+    errs = fs.thread_scope_errors(pm)
+    assert len(errs) == 1 and f"{what} > thread form maximum" in errs[0], errs
+    with pytest.raises(ValueError, match=what):
+        fs.launch_config(pm, 64, design="thread")
+    assert fs.scope_errors(pm) == []
+    check_scope(pm, cuda=True)
     check_scope(pm, cuda=False)
+    assert fs.launch_config(pm, 10 ** 6)["design"] == "group"
 
 
 def test_task_registry_refuses_randomization_and_unported_tasks():

@@ -11,8 +11,9 @@ builder's `dof_names` / `set_drive`, and the analytic pendulum models.
 - 8 plain substeps of the port's engine against the JAX engine on the URDF
   example and the MJCF chain, at the step_n tolerances of
   torch_parity.STEP_N_TOL.
-- `scope_errors` names a chain beyond the kernels' NB_MAX bodies, and the
-  engine refuses it on CUDA (`check_scope`).
+- `thread_scope_errors` names a chain beyond the thread form's NB_MAX
+  bodies, and the group form takes it: the engine accepts it on CUDA
+  (`check_scope`).
 - The pendulums' analytic checks (the JAX package's tests/test_dynamics.py).
 """
 
@@ -376,10 +377,12 @@ def test_scope_errors_name_a_chain_beyond_the_kernel_maximum():
                      f'<axis xyz="0 1 0"/></joint>' for i in range(1, n))
     m = from_urdf(f'<robot name="long">{links}{joints}</robot>').finalize()
     assert m.nb == n
-    errs = fs.scope_errors(m)
-    assert errs == [f"{n} bodies > kernel maximum {fs.NB_MAX}"], errs
-    with pytest.raises(NotImplementedError, match=f"{n} bodies"):
-        check_scope(m, cuda=True)
+    errs = fs.thread_scope_errors(m)
+    assert errs == [f"{n} bodies > thread form maximum {fs.NB_MAX}"], errs
+    with pytest.raises(ValueError, match=f"{n} bodies"):
+        fs.launch_config(m, 512, design="thread")
+    assert fs.scope_errors(m) == []
+    check_scope(m, cuda=True)
     check_scope(m, cuda=False)
 
 

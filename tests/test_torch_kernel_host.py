@@ -16,8 +16,15 @@ function per env as a thread does. The results go through `ops/parity.py`
 scene, AnymalTerrain on its terrain planes, the ShadowHand under a
 randomization overlay, FrankaCabinet (four FREE props, finger pads on the
 handle bar) and the Quadcopter (forces on its rotors, whose centres of
-mass are off their origins), each in both forms. Skips where there is no
-g++.
+mass are off their origins), each in both forms. Past the thread form's
+maxima the group form alone: FrankaCabinet with 16 props, chip_smoke.py's
+40-body MJCF robot of 160 contact points, and `parity.build_wide_tree`,
+whose working set does not fit a block's shared memory, in the
+device-memory placement (each env's working set a slot of a scratch
+buffer, the tables staged as a block stages them or, as the wrapper packs
+them, `fused_step.staged_table`); the thread form's build reports the
+maxima (`oige_limits`) that `fused_step.THREAD_LIMITS` mirrors. Skips where
+there is no g++.
 """
 
 import ctypes
@@ -119,6 +126,35 @@ extern "C" void host_fk(const float* ftab, const int* sched, int env_floats,
   const Ctx c = host_ctx(tab.data(), sched, sched + H_LEN, ws.data());
   for (long e = 0; e < n; ++e) fk_env<1>(c, e, q, qd, out[0], out[1], out[2], out[3]);
 }
+
+// the device-memory placement: env e's working set is slot e % slots of
+// the scratch buffer `gws` (as the groups of a persistent grid take their
+// envs), the float table `ftab` already in its staged layout (the wrapper's
+// copy where the tables stay in device memory, or the block's); flat
+// ground, no overlay
+extern "C" void host_step_global(const float* ftab, const int* sched, int env_floats,
+                                 float* gws, int slots, const float* const* in,
+                                 float* const* out, long n, int n_steps) {
+  for (long e = 0; e < n; ++e) {
+    const Ctx c = host_ctx(ftab, sched, sched + H_LEN, gws + (e % slots) * (long)env_floats);
+    step_env<false, false, 1>(c, e, in[0], in[1], in[2], in[3], in[4], in[5], nullptr, nullptr,
+                              out[0], out[1], out[2], out[3], out[4], out[5], out[6], n_steps);
+  }
+}
+
+extern "C" void host_fk_global(const float* ftab, const int* sched, int env_floats,
+                               float* gws, int slots, const float* q, const float* qd,
+                               float* const* out, long n) {
+  for (long e = 0; e < n; ++e) {
+    const Ctx c = host_ctx(ftab, sched, sched + H_LEN, gws + (e % slots) * (long)env_floats);
+    fk_env<1>(c, e, q, qd, out[0], out[1], out[2], out[3]);
+  }
+}
+
+extern "C" void host_staged(const float* ftab, const int* sched, float* out) {
+  const std::vector<float> tab = staged(ftab, sched);
+  for (int j = 0; j < sched[H_FEND]; ++j) out[j] = tab[j];
+}
 """
 
 
@@ -151,7 +187,11 @@ def host_lib(request, tmp_path_factory):
     lib.host_step.argtypes = [vp, vp, vp if thread else ctypes.c_int, pp, pp,
                               ctypes.c_long, ctypes.c_int]
     if not thread:
-        lib.host_fk.argtypes = [vp, vp, ctypes.c_int, vp, vp, pp, ctypes.c_long]
+        ci = ctypes.c_int
+        lib.host_fk.argtypes = [vp, vp, ci, vp, vp, pp, ctypes.c_long]
+        lib.host_step_global.argtypes = [vp, vp, ci, vp, ci, pp, pp, ctypes.c_long, ci]
+        lib.host_fk_global.argtypes = [vp, vp, ci, vp, ci, vp, vp, pp, ctypes.c_long]
+        lib.host_staged.argtypes = [vp, vp, vp]
     return HostLib(form, lib)
 
 
@@ -288,3 +328,111 @@ def test_host_kernel_quadcopter_rotor_forces(host_lib):
     fa = torch.zeros((n, m.nb, 6))
     fa[:, rotors, 3:6] = torch.from_numpy(f / np.linalg.norm(f, axis=-1, keepdims=True))
     _check(host_lib, eng, n, seed=5, n_steps=1, fa=fa)
+
+
+# past the thread form's maxima: the group form alone, the thread form's
+# scope refusing the model
+def _group_only(host, m):
+    """True for the group form's build; for the thread form's, the model
+    is past its maxima and `launch_config` refuses that form."""
+    assert fs.thread_scope_errors(m) and fs.scope_errors(m) == []
+    if host.form == "group":
+        return True
+    with pytest.raises(ValueError, match="thread form maximum"):
+        fs.launch_config(m, 64, design="thread")
+    return False
+
+
+def test_host_kernel_franka_cabinet_sixteen_props(host_lib):
+    """16 FREE props (152 contact points, 402 pairs), the pads on the handle
+    bar in every other env, the props dropped onto the drawer's tray."""
+    eng = get_task("FrankaCabinet", {"env": {"numProps": 16}}, device="cpu").engine
+    if not _group_only(host_lib, eng.model):
+        return
+    q, qd, eff = parity.check_inputs(eng.model, 24, seed=7, device="cpu")
+    active = parity.active_contacts(eng, q, qd)
+    assert active["capsule"] > 0 and active["box"] > 0, active
+    _check(host_lib, eng, 24, seed=7, n_steps=4, q=q, qd=qd, eff=eff)
+
+
+def test_host_kernel_many_legged_robot(host_lib, tmp_path):
+    """chip_smoke.py's MJCF robot: 40 bodies, 160 contact points, its feet
+    in the ground."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import mjcf_legs
+
+    (tmp_path / "legs.xml").write_text(mjcf_legs())
+    task = get_task("Custom", {"env": {"robot": str(tmp_path / "legs.xml")}},
+                    device="cpu")
+    eng = task.engine
+    assert (eng.model.nb, eng.model.ncp) == (40, 160)
+    if not _group_only(host_lib, eng.model):
+        return
+    q, qd, eff = parity.check_inputs(eng.model, 16, seed=8, device="cpu")
+    assert parity.active_contacts(eng, q, qd)["ground"] > 0
+    _check(host_lib, eng, 16, seed=8, n_steps=4, q=q, qd=qd, eff=eff)
+
+
+@pytest.mark.parametrize("tables", ["shared", "global"])
+def test_host_kernel_device_memory_placement(host_lib, tables):
+    """The wide tree's working set takes the device-memory placement: K1
+    and K2 with each env's working set in a slot of a scratch buffer (three
+    slots, taken in turn), the tables as a block stages them (`shared`) or
+    as the wrapper packs them for device memory (`global`,
+    `fused_step.staged_table`, which must equal the block's staging)."""
+    eng = PhysicsEngine(parity.build_wide_tree(), SimParams(dt=1.0 / 120.0, substeps=2))
+    m = eng.model
+    if not _group_only(host_lib, m):
+        return
+    lc = fs.launch_config(m, 4096)
+    assert lc["working_set"] == "global" and lc["tables"] == "shared", lc
+    ftab, itab = _tables(eng)
+    block = np.zeros(fs.staged_offsets(m)["f_end"], np.float32)
+    host_lib.lib.host_staged(ftab.ctypes.data, itab.ctypes.data, block.ctypes.data)
+    packed = fs.staged_table(m, ftab)
+    np.testing.assert_array_equal(packed, block)
+    staged = packed if tables == "global" else block
+    n, slots = 8, 3
+    env = fs.env_floats(m)
+    q, qd, eff = parity.check_inputs(m, n, seed=9, device="cpu")
+    assert parity.active_contacts(eng, q, qd)["ground"] > 0
+    ptg = parity.check_targets(m, q, 9)
+    z = torch.zeros((n, m.njd))
+    fa = 0.05 * torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (n, m.nb, 6)).astype(np.float32))
+    args = (q, qd, eff, ptg, z, fa)
+    ins = [np.ascontiguousarray(x.numpy(), np.float32) for x in args]
+    outs = [np.zeros(sh, np.float32) for sh in (
+        (n, m.nq), (n, m.nv), (n, m.num_sensors, 6), (n, m.nb, 3),
+        (n, m.nb, 4), (n, m.nb, 3), (n, m.nb, 3))]
+    gws = np.full(slots * env, np.nan, np.float32)
+    host_lib.lib.host_step_global(staged.ctypes.data, itab.ctypes.data, env,
+                                  gws.ctypes.data, slots, _ptrs(ins), _ptrs(outs), n, 4)
+    tol = parity.step_tol(m)
+    parity.assert_within("WideTree host K1 (device-memory placement)", parity.compare(
+        tuple(torch.from_numpy(o) for o in outs), fs.step_plain(eng, *args, 4),
+        parity.STEP_NAMES, tol), tol)
+    fk_env = fs.env_floats(m, fk=True)
+    fk_outs = [np.zeros((n, m.nb, k), np.float32) for k in (3, 4, 3, 3)]
+    host_lib.lib.host_fk_global(staged.ctypes.data, itab.ctypes.data, fk_env,
+                                gws.ctypes.data, slots, ins[0].ctypes.data,
+                                ins[1].ctypes.data, _ptrs(fk_outs), n)
+    parity.assert_within("WideTree host K2 (device-memory placement)", parity.compare(
+        tuple(torch.from_numpy(o) for o in fk_outs), fs.fk_plain(m, q, qd),
+        parity.FK_NAMES, parity.FK_TOL), parity.FK_TOL)
+
+
+def test_host_maxima_live_in_the_thread_form_alone(host_lib):
+    """The thread form's build reports its compile-time maxima, which
+    `fused_step.THREAD_LIMITS` mirrors; the group form's source has none."""
+    if host_lib.form == "group":
+        src = fs.SOURCE.read_text()
+        assert "_MAX " not in src.replace("OIGE_MAX_THREADS ", ""), "a maximum in the group form"
+        assert not hasattr(host_lib.lib, "oige_limits")
+        return
+    lim = (ctypes.c_int * len(fs.THREAD_LIMITS))()
+    host_lib.lib.oige_limits(lim)
+    assert tuple(lim) == fs.THREAD_LIMITS

@@ -2,7 +2,9 @@
 prismatic joints, pair contacts, gravity compensation and fixed tendons:
 `_substep`, `step_n` and the report FK on Cartpole, BallBalance, ShadowHand,
 the synthetic pair scene and six one-feature scenes, each against the JAX
-engine's XLA path on the same numpy-seeded inputs (float32)."""
+engine's XLA path on the same numpy-seeded inputs (float32); `step_n` also
+on two models past the thread form's maxima, which the group form steps
+on the card: FrankaCabinet with 16 props and a 35-body chain."""
 
 import functools
 
@@ -29,6 +31,9 @@ TASKS = ("Cartpole", "BallBalance", "ShadowHand", "FrankaCabinet",
 # maximum
 TASK_CFGS = {"FrankaCabinet": {"env": {"numProps": 4}}}
 KINDS = ("fixed_root", "prismatic", "tendon", "gravity_comp", "forest", "pairs")
+# past the thread form's maxima: FrankaCabinet with 16 FREE props (152
+# contact points, 402 pairs) and a chain of fs.NB_MAX + 3 bodies
+LARGE = ("FrankaCabinet16", "chain35")
 
 
 def one_feature_scene(kind, n_chain=0):
@@ -70,8 +75,15 @@ def engines(name):
         cfg = TASK_CFGS.get(name)
         return (get_task(name, cfg, device="cpu").engine,
                 jget_task(name, cfg).engine)
-    pm = (parity.build_pair_scene() if name == "PairScene"
-          else one_feature_scene(name))
+    if name == "FrankaCabinet16":
+        cfg = {"env": {"numProps": 16}}
+        return (get_task("FrankaCabinet", cfg, device="cpu").engine,
+                jget_task("FrankaCabinet", cfg).engine)
+    if name == "chain35":
+        pm = one_feature_scene("plain", n_chain=fs.NB_MAX)
+    else:
+        pm = (parity.build_pair_scene() if name == "PairScene"
+              else one_feature_scene(name))
     return (PhysicsEngine(pm, SimParams(dt=1.0 / 120.0, substeps=2)),
             JPhysicsEngine(jax_model_from_port(pm),
                            JSimParams(dt=1.0 / 120.0, substeps=2)))
@@ -86,7 +98,7 @@ def inputs(eng, seed=3):
     return tuple(np_(x) for x in (q, qd, eff, ptg)) + (fa,)
 
 
-@pytest.mark.parametrize("name", TASKS + ("PairScene",) + KINDS)
+@pytest.mark.parametrize("name", TASKS + ("PairScene",) + KINDS + LARGE)
 def test_step_n_matches_jax(name):
     eng, jeng = engines(name)
     q, qd, eff, ptg, fa = inputs(eng)
@@ -96,7 +108,7 @@ def test_step_n_matches_jax(name):
     # the Humanoid step_n tolerances (torch_parity.STEP_N_TOL), unchanged
     assert_step_close(out, jax_step(jeng, q, qd, eff, ptg, fa, N_STEPS))
     if name in ("BallBalance", "ShadowHand", "PairScene", "pairs",
-                "FrankaCabinet", "AllegroHand"):
+                "FrankaCabinet", "AllegroHand", "FrankaCabinet16"):
         active = parity.active_contacts(eng, t(q), t(qd))
         assert active["pairs"] > 0, "the check states must put pairs in contact"
 
