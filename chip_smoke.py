@@ -858,7 +858,8 @@ def main() -> int:
         """The profiler's device time per launch of run (every launch in the
         trace, `kernel_times`), which must be positive and no more than the
         events time per call of the same launches in the same trace (within
-        10%). The card's clocks may differ between the trace and the window
+        10%; `kernel_times` traces again, up to four times, while a trace
+        is past that). The card's clocks may differ between the trace and the window
         that timed `ms`, the events time per call outside the profiler: a
         trace more than 10% slower is logged beside it."""
         d, w = kernel_times(run, 20)

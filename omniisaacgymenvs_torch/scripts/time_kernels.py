@@ -73,6 +73,9 @@ TRACE_PAD_S = [0.1]
 # small kernels launched at each end of that trace: late in a long process
 # its traces held 16-18 of 20 launches whatever the wait (chip_smoke.py)
 TRACE_FILLER = 32
+# a trace's device time per launch over its events time, past which the
+# trace misread a clock and is taken again (`kernel_times`)
+TRACE_SLACK = 1.1
 
 
 def _filler() -> None:
@@ -90,47 +93,66 @@ def _warm() -> None:
         torch.mm(a, a, out=b)
 
 
-def kernel_times(fn, reps: int = 20, tries: int = 3) -> tuple[float, float]:
+def _ours(name: str) -> bool:
+    return "step_kernel" in name or "fk_kernel" in name
+
+
+def trace_once(fn, reps: int, durations: bool = False):
+    """One trace of `reps` calls of fn: (launches of the port's kernels
+    held, their device ms per call, the CUDA-event ms per call of the same
+    calls in the same trace, and with `durations` each launch's device us
+    in the order the trace lists them, else None)."""
+    from omniisaacgymenvs_torch.scripts.profile_rollout import _device_us, settle
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        settle(TRACE_PAD_S[0])
+        _filler()
+        _warm()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        _filler()
+        settle(TRACE_PAD_S[0])
+    ours = [e for e in prof.key_averages() if _ours(e.key)]
+    each = ([_device_us(e) for e in prof.events() if _ours(e.name)]
+            if durations else None)
+    return (sum(e.count for e in ours), sum(_device_us(e) for e in ours) / reps / 1e3,
+            start.elapsed_time(end) / reps, each)
+
+
+def kernel_times(fn, reps: int = 20, tries: int = 4) -> tuple[float, float]:
     """(device ms, events ms) per launch of the port's kernels
     (`step_kernel`, `fk_kernel`) over `reps` calls of fn, each of which
     launches one: the profiler's device time of the kernel alone, where the
     CUDA-event time of a small launch can be the host's time per call, and
     the CUDA-event time of the same calls in the same trace, so that the two
-    see the same clocks. Traces again with a longer wait at its ends while
-    the trace lacks a launch, and raises after `tries` or if it holds more
-    launches than fn made."""
-    from omniisaacgymenvs_torch.scripts.profile_rollout import _device_us, settle
-
+    see the same clocks. A trace counts when it holds every launch and its
+    device time is at most `TRACE_SLACK` times its events time (the launches
+    lie between the two events on one stream, so a trace past that misread
+    a clock). Traces again while one does not count, with a longer wait at
+    its ends after a lost launch, and raises after `tries` or if a trace
+    holds more launches than fn made."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
     held = []
     for _ in range(tries):
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            settle(TRACE_PAD_S[0])
-            _filler()
-            _warm()
-            start.record()
-            for _ in range(reps):
-                fn()
-            end.record()
-            _filler()
-            settle(TRACE_PAD_S[0])
-        ours = [e for e in prof.key_averages()
-                if "step_kernel" in e.key or "fk_kernel" in e.key]
-        held.append(sum(e.count for e in ours))
-        if held[-1] == reps:
-            return (sum(_device_us(e) for e in ours) / reps / 1e3,
-                    start.elapsed_time(end) / reps)
-        if held[-1] > reps:
+        n, d, w, _ = trace_once(fn, reps)
+        held.append((n, round(d, 4), round(w, 4)))
+        if n == reps and 0 < d <= TRACE_SLACK * w:
+            return d, w
+        if n > reps:
             break
-        TRACE_PAD_S[0] *= 4
-    raise RuntimeError(f"the profiler's traces held {held} of {reps} launches")
+        if n < reps:
+            TRACE_PAD_S[0] *= 4
+    raise RuntimeError(f"no trace of {reps} launches counted: (launches, device ms, "
+                       f"events ms) per trace {held}")
 
 
-def kernel_device_ms(fn, reps: int = 20, tries: int = 3) -> float:
+def kernel_device_ms(fn, reps: int = 20, tries: int = 4) -> float:
     """The device time per launch of `kernel_times`."""
     return kernel_times(fn, reps, tries)[0]
 

@@ -110,3 +110,35 @@ def test_allegrohand_f32_drops_the_cube_at_matched_reward():
     # and it reaches goals faster at that reward
     assert (out["f32"]["1400-1700"]["Episode/consecutive_successes"]
             > out["jax123"]["1400-1700"]["Episode/consecutive_successes"])
+
+
+def _sigma_hist(n, n_actions, log_sigma):
+    """A history whose every epoch's entropy is that of `n_actions` dims
+    at log sigma log_sigma(epoch) (epoch 0 at sigma 1)."""
+    c = learning_report.ENTROPY_C
+    rows = _hist(n, hand=False)
+    for r in rows:
+        r["entropy"] = n_actions * (c + (log_sigma(r["epoch"]) if r["epoch"] else 0.0))
+    return rows
+
+
+def test_log_sigma_reads_entropy_per_action_dim():
+    hist = _sigma_hist(300, 9, lambda e: -e / 300.0)
+    assert learning_report.n_actions(hist) == 9
+    assert learning_report.log_sigma(hist, 150, 75) == pytest.approx(-187.0 / 300.0)
+    assert learning_report.log_sigma(hist, 250, 75) is None
+    assert learning_report.n_actions(hist[1:]) is None
+    assert learning_report.log_sigma(hist[1:], 150, 75) is None
+
+
+def test_report_sigma_windows_and_gaps():
+    port = _sigma_hist(300, 4, lambda e: -e / 300.0)
+    ref = _sigma_hist(300, 4, lambda e: -2.0 * e / 300.0)
+    out = learning_report.report(port, dict(jax=ref), at=(), window=75, every=75,
+                                 start=150, keys=("sigma", "kl"))
+    assert [w["epochs"] for w in out["windows"]] == ["150-224", "225-299"]
+    w = out["windows"][0]
+    assert w["port.sigma"] == pytest.approx(-187.0 / 300.0, rel=1e-5)
+    assert w["jax.sigma"] == pytest.approx(-374.0 / 300.0, rel=1e-5)
+    assert w["gap_jax.sigma"] == pytest.approx(187.0 / 300.0, rel=1e-5)
+    assert w["port.kl"] == pytest.approx(sum(r["kl"] for r in port[150:225]) / 75)

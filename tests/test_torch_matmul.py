@@ -9,7 +9,7 @@ f32.
 The rounded layer, forward and backward, is held against an f64 reference
 on the same bf16-rounded operands, within the f32 summation bound
 n * 2^-24 * sum |a_i b_i| of each output element (n the length of the
-sum). The rule's wiring through the actor-critic and the central value,
+sum), and so is the other rule, exact "f32", on the unrounded operands. The rule's wiring through the actor-critic and the central value,
 which trainer takes it, the CLI key that sets it, and the defaults: the
 learner's (the rule, for f32 feed-forward networks) and the networks' own
 (exact f32).
@@ -24,6 +24,7 @@ import torch
 from omniisaacgymenvs_torch.learn.networks import (
     ActorCritic,
     CentralValue,
+    _linear,
     round_bf16,
     rounded_linear,
 )
@@ -74,6 +75,37 @@ def test_rounded_linear_against_f64_reference(lead):
     g64 = _f64(g).reshape(-1, n_out)
     _assert_within_sum_bound(layer.bias.grad, g64.sum(0), g64.abs().sum(0),
                              g64.shape[0])
+
+
+@pytest.mark.parametrize("lead", [(7,), (2, 5)])
+def test_exact_f32_layer_against_f64_reference(lead):
+    """The other rule, "f32": a layer's forward and both backward products
+    against the f64 products of the unrounded f32 operands, within the same
+    summation bound; the bf16 rule's rounding stands outside it in most
+    elements."""
+    rng = np.random.default_rng(1)
+    n_in, n_out = 211, 96
+    x = torch.tensor(rng.standard_normal((*lead, n_in)), dtype=torch.float32,
+                     requires_grad=True)
+    layer = torch.nn.Linear(n_in, n_out)
+    with torch.no_grad():
+        layer.weight.copy_(torch.tensor(0.1 * rng.standard_normal((n_out, n_in))))
+        layer.bias.copy_(torch.tensor(rng.standard_normal(n_out)))
+    g = torch.tensor(rng.standard_normal((*lead, n_out)), dtype=torch.float32)
+    y = _linear(layer, x, "f32")
+    y.backward(g)
+    x64, w64, g64 = (_f64(t).reshape(-1, t.shape[-1]) for t in (x, layer.weight, g))
+    b64 = _f64(layer.bias)
+    ref = x64 @ w64.T + b64
+    terms = x64.abs() @ w64.abs().T + b64.abs()
+    _assert_within_sum_bound(y.reshape(-1, n_out), ref, terms, n_in + 1)
+    _assert_within_sum_bound(x.grad.reshape(-1, n_in), g64 @ w64, g64.abs() @ w64.abs(),
+                             n_out)
+    _assert_within_sum_bound(layer.weight.grad, g64.T @ x64, g64.abs().T @ x64.abs(),
+                             x64.shape[0])
+    _assert_within_sum_bound(layer.bias.grad, g64.sum(0), g64.abs().sum(0), g64.shape[0])
+    err = (_f64(rounded_linear(layer, x)).reshape(-1, n_out) - ref).abs()
+    assert (err > (n_in + 1) * U * terms).float().mean() > 0.5
 
 
 def _manual_forward(net, x):

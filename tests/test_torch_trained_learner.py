@@ -49,7 +49,8 @@ their counts equal; the epoch, the tracked episode count equal.
 One more epoch starts from the TPU's rule's state
 (`results_torch/AllegroHand_T_seed1/model.pt`, trained under
 `net_matmul=bf16_operands`) under exact f32, B's way: the carrier reads
-both files (the JAX package on the CPU cannot compute the rule).
+both files (the JAX package on the CPU computes an f32 dot exactly; its
+learner under the rule is emulated in tests/test_torch_rule_emulation.py).
 
     PYTHONPATH=.:tests python tests/test_torch_trained_learner.py   # the gaps as JSON
 """

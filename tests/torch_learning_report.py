@@ -11,11 +11,20 @@ say where two curves part.
         [row=LEARNING.json:AllegroHand] [at=999,1999,4999,9999] [window=100] [every=500] \
         [start=0] [keys=mean_ep_reward,lr,kl] [bins=800,1000,1200,1400,1700]
 
+    python tests/torch_learning_report.py results_torch/FrankaCabinet/history.json \
+        jax=results/FrankaCabinet/history.json \
+        start=150 every=75 window=75 keys=sigma,kl,lr,mean_ep_reward
+
 A reference is name=path to a history.json (a list of per-epoch rows with
 `epoch`, `mean_ep_reward`, `lr`, `kl`). Rows are found by their `epoch`,
 so a history that starts late (a run resumed from another's checkpoint)
 lines up with the references. The windows start at `start` and every
-`every` epochs after it, and hold the means of `keys`. `row=FILE:KEY` names a record row
+`every` epochs after it, and hold the means of `keys`. The key `sigma` is
+the policy's log sigma per action dim (`log_sigma`): the log-std is a
+state-independent parameter, so an epoch's `entropy` is
+sum(log sigma_i) + n ENTROPY_C, a readout of the learner's sigma updates
+far less noisy than the reward; beside it each reference's `gap_<name>`,
+the port's less the reference's. `row=FILE:KEY` names a record row
 (`LEARNING.json`) held against the port's summary. The summary is named
 after the history's directory.
 
@@ -30,6 +39,7 @@ episode early by a fall only). Prints one JSON object.
 """
 
 import json
+import math
 import os
 import sys
 
@@ -51,6 +61,25 @@ def window_mean(hist: list, start: int, width: int, key: str):
     unless the history holds every one of them."""
     rows = [r for r in hist if start <= r["epoch"] < start + width]
     return sum(r[key] for r in rows) / len(rows) if len(rows) == width else None
+
+
+ENTROPY_C = 0.5 * math.log(2.0 * math.pi * math.e)
+
+
+def n_actions(hist: list) -> int:
+    """The action count: epoch 0's entropy over ENTROPY_C, rounded (sigma
+    starts at 1); None where the history has no epoch 0."""
+    e0 = at_epoch(hist, 0, "entropy")
+    return None if e0 is None else round(e0 / ENTROPY_C)
+
+
+def log_sigma(hist: list, start: int, width: int):
+    """The policy's log sigma per action dim over epochs start ..
+    start + width - 1, from the window's mean `entropy`, or None unless
+    the history holds every one of them and epoch 0."""
+    n = n_actions(hist)
+    m = window_mean(hist, start, width, "entropy")
+    return None if m is None or n is None else (m - n * ENTROPY_C) / n
 
 
 MATCH_START = 200
@@ -103,8 +132,15 @@ def report(port: list, refs: dict, row=None, at=(999, 1999, 4999, 9999), window=
         w = dict(epochs=f"{first}-{first + window - 1}")
         for name, h in [("port", port), *refs.items()]:
             for key in keys:
-                v = window_mean(h, first, window, key)
+                v = (log_sigma(h, first, window) if key == "sigma"
+                     else window_mean(h, first, window, key))
                 w[f"{name}.{key}"] = None if v is None else float(f"{v:.6g}")
+        if "sigma" in keys:
+            p = log_sigma(port, first, window)
+            for name, h in refs.items():
+                r = log_sigma(h, first, window)
+                w[f"gap_{name}.sigma"] = (None if p is None or r is None
+                                          else float(f"{p - r:.6g}"))
         out["windows"].append(w)
     if bins:
         out["matched"] = matched(dict(port=port, **refs), bins)

@@ -40,19 +40,12 @@ set -u
 MODE=${1:-arms}
 DUR=${DUR:-3150}
 UNTIL=${UNTIL:-$((DUR - 400))}
-C="python -m omniisaacgymenvs_torch.scripts.campaign"
 F32=train.params.config.net_matmul=f32
 TPU=train.params.config.net_matmul=bf16_operands
-OUT=chiprun_out/campaign
-mkdir -p "$OUT" chiprun_out/logs
-nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
-python -c 'import sys, torch; print(sys.version.split()[0], torch.__version__, torch.version.cuda)'
+. "$(dirname "$0")/campaign_runs.sh"
 
-run() {   # run NAME ARGS...: one runner in the background, its log kept
-    local name=$1
-    shift
-    timeout -s TERM "$DUR" $C "$name" "$@" out="$OUT" until_s="$UNTIL" \
-        > "chiprun_out/logs/$name.log" 2>&1 &
+run() {   # run NAME ARGS...: one runner for DUR seconds, its chunks by UNTIL
+    runner "$DUR" "$@" until_s="$UNTIL"
 }
 
 case "$MODE" in
@@ -90,8 +83,5 @@ allegro0)
     ;;
 esac
 wait
-for f in chiprun_out/logs/*.log; do
-    echo "== $f"
-    grep -a "^===\|trained \|kernel launches\|Error\|error" "$f" | tail -n 40
-done
+summary 40 "^===\|trained \|kernel launches\|Error\|error"
 $C carry "$OUT"

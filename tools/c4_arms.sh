@@ -29,22 +29,15 @@ set -u
 MODE=${1:-panel}
 DUR=${DUR:-2950}
 UNTIL=${UNTIL:-$((DUR - 250))}
-C="python -m omniisaacgymenvs_torch.scripts.campaign"
 F32=train.params.config.net_matmul=f32
 TPU=train.params.config.net_matmul=bf16_operands
-BACK=chiprun_out   # what the call brings back
-OUT=$BACK/campaign
-C4=$BACK/c4
 POLICIES=${POLICIES:-"results_torch/AllegroHand_seed1 results_torch/AllegroHand_T_seed1"}
-mkdir -p "$OUT" "$C4" "$BACK/logs"
-nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
-python -c 'import sys, torch; print(sys.version.split()[0], torch.__version__, torch.version.cuda)'
+. "$(dirname "$0")/campaign_runs.sh"
+C4=$BACK/c4
+mkdir -p "$C4"
 
-run() {   # run NAME ARGS...: one runner in the background, its log kept
-    local name=$1
-    shift
-    timeout -s TERM "$DUR" $C "$name" "$@" out="$OUT" until_s="$UNTIL" \
-        > "$BACK/logs/$name.log" 2>&1 &
+run() {   # run NAME ARGS...: one runner for DUR seconds, its chunks by UNTIL
+    runner "$DUR" "$@" until_s="$UNTIL"
 }
 
 case "$MODE" in
@@ -55,7 +48,7 @@ panel)
     done
     python tests/torch_fall_rates.py policy=hold:4 runs=k1,thread,plain \
         num_envs=8192 steps=150 seed=0 out="$C4/hold4_card.json" \
-        > "$BACK/logs/fall_rates_hold4.log" 2>&1
+        > "$LOGS/fall_rates_hold4.log" 2>&1
     wait
     for e in AllegroHand_seed1 AllegroHand_T_seed1; do
         mkdir -p "$C4/policies/$e"
@@ -69,8 +62,8 @@ policies)
         for m in sample mean; do
             python tests/torch_fall_rates.py checkpoint="$p" mode=$m runs=k1,plain \
                 num_envs=8192 steps=601 seed=0 out="$C4/$(basename "$p")_$m.json" \
-                > "$BACK/logs/fall_rates_$(basename "$p")_$m.log" 2>&1
-            tail -n 3 "$BACK/logs/fall_rates_$(basename "$p")_$m.log" | cut -c1-400
+                > "$LOGS/fall_rates_$(basename "$p")_$m.log" 2>&1
+            tail -n 3 "$LOGS/fall_rates_$(basename "$p")_$m.log" | cut -c1-400
         done
     done
     ;;
@@ -84,9 +77,6 @@ row)
     exit 2
     ;;
 esac
-for f in "$BACK"/logs/*.log; do
-    echo "== $f"
-    grep -a "^===\|trained \|kernel launches\|Error\|error\|^k1\|^thread\|^plain\|^group" "$f" | tail -n 20
-done
+summary 20 "^===\|trained \|kernel launches\|Error\|error\|^k1\|^thread\|^plain\|^group"
 [ "$MODE" = policies ] || $C carry "$OUT"
 exit 0

@@ -29,14 +29,9 @@ END=${END:-3400}
 MARGIN=${MARGIN:-120}
 CHUNK=${CHUNK:-500}
 SEED0=${SEED0:-}
-C="python -m omniisaacgymenvs_torch.scripts.campaign"
-BACK=chiprun_out   # what the call brings back
-OUT=$BACK/campaign
-LOGS=$BACK/logs
 DR="task.env.numEnvs=16384 task.domain_randomization.randomize=True"
-mkdir -p "$OUT" "$LOGS" "$BACK/profile"
-nvidia-smi --query-gpu=name,power.limit --format=csv,noheader | tee "$BACK/card.txt"
-python -c 'import sys, torch; print(sys.version.split()[0], torch.__version__, torch.version.cuda)'
+. "$(dirname "$0")/campaign_runs.sh"
+mkdir -p "$BACK/profile"
 
 budget() {   # the overrides that set a short task's LEARNING.json budget
     case $1 in
@@ -45,11 +40,10 @@ budget() {   # the overrides that set a short task's LEARNING.json budget
     esac
 }
 
-run() {   # run NAME UNTIL ARGS...: one runner in the background, its log kept
+run() {   # run NAME UNTIL ARGS...: one runner until END, its chunks by UNTIL
     local name=$1 until=$2
     shift 2
-    timeout -s TERM $((END - SECONDS)) $C "$name" "$@" out="$OUT" until_s="$until" \
-        > "$LOGS/$name.log" 2>&1 &
+    runner $((END - SECONDS)) "$name" "$@" until_s="$until"
 }
 
 dr_until() {   # until_s for a DR runner started now
@@ -94,10 +88,7 @@ dr)
     ;;
 esac
 echo "=== runners done at t=${SECONDS}s"
-for f in "$LOGS"/*.log; do
-    echo "== $f"
-    grep -a "^===\|^trained \|kernel launches\|Error\|error" "$f" | tail -n 8 | cut -c1-300
-done
+summary 8 "^===\|^trained \|kernel launches\|Error\|error"
 gzip -f "$LOGS"/*.log
 $C carry "$OUT"
 exit 0
