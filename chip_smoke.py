@@ -1494,6 +1494,8 @@ def learner_card_vs_cpu(trainer, card, matmul="f32", atol=LEARNER_ATOL,
     tests/test_torch_ppo.py holds them; every parameter within `atol`; and
     each parameter tensor moved as the CPU's moved (the norm of the
     difference at most `rel_max` of the norm of the CPU's change)."""
+    from omniisaacgymenvs_torch.learn.networks import set_matmul
+
     ppo = trainer.cfg
     ts = trainer.state
     traj, last_value, stats = trainer._rollout(ts)
@@ -1510,8 +1512,7 @@ def learner_card_vs_cpu(trainer, card, matmul="f32", atol=LEARNER_ATOL,
         for net in nets:
             module = getattr(st, net)
             module.dtype = None
-            if hasattr(module, "matmul"):   # the feed-forward networks
-                module.matmul = module.trunk.matmul = matmul
+            set_matmul(module, matmul)
         m = tr._learn(st, state_to(traj, device), last_value.to(device),
                       state_to(stats, device), perms=perms.to(device),
                       cv_perms=None if cv_perms is None else cv_perms.to(device))
@@ -1971,6 +1972,8 @@ def learner_steps_card_vs_cpu(trainer, card, rollout, matmul="f32", atol=LEARNER
     apart on each side cannot be held so from a trained state: it grows the
     arithmetic's rounding, and the CPU's own f32 epoch parts from its f64
     epoch by more than these bounds (tools/learner_card_cpu.py)."""
+    from omniisaacgymenvs_torch.learn.networks import set_matmul
+
     cfg = trainer.cfg
     dev, cpu = trainer.device, torch.device("cpu")
     traj, last_value, stats = rollout
@@ -1980,7 +1983,7 @@ def learner_steps_card_vs_cpu(trainer, card, rollout, matmul="f32", atol=LEARNER
     tr.device = cpu
     st = state_to(trainer.state, cpu)
     st.ac.dtype = None
-    st.ac.matmul = st.ac.trunk.matmul = matmul
+    set_matmul(st.ac, matmul)
     card_net = copy.deepcopy(st.ac).to(dev)
     names = [k for k, _ in card_net.named_parameters()]
     c_traj, c_last = state_to(traj, cpu), last_value.cpu()

@@ -13,13 +13,15 @@ forward runs under autocast, so the matrix products and activations
 compute in bf16 over f32 parameters; `mu`, `value` and the LSTM carry
 come back in f32.
 
-The feed-forward networks take a second rule for their matrix products,
-`matmul`: "f32" computes them in f32 (TF32 stays off), "bf16_operands" as
-an XLA dot of f32 arrays at the TPU's default precision, which the JAX
-package's networks ran at on its chip: each operand rounded to bf16, the
-products (exact in f32) summed in f32, the result f32. The backward pass
-follows the same rule (`rounded_linear`); biases, activations and every
-elementwise step stay f32.
+The f32 networks, feed-forward and recurrent, take a second rule for
+their matrix products, `matmul`: "f32" computes them in f32 (TF32 stays
+off), "bf16_operands" as an XLA dot of f32 arrays at the TPU's default
+precision, which the JAX package's networks ran at on its chip: each
+operand rounded to bf16, the products (exact in f32) summed in f32, the
+result f32. The backward pass follows the same rule (`rounded_linear`);
+biases, activations and every elementwise step stay f32. In the LSTM the
+rule takes the input and recurrent products of the gates, the MLP's
+layers and the heads; the cell's gate arithmetic stays f32.
 """
 
 from __future__ import annotations
@@ -79,7 +81,8 @@ class _RoundedLinear(torch.autograd.Function):
         gx = gr @ wr if ctx.needs_input_grad[0] else None
         g2 = gr.reshape(-1, gr.shape[-1])
         gw = g2.T @ xr.reshape(-1, xr.shape[-1])
-        gb = g.reshape(-1, g.shape[-1]).sum(0)
+        gb = (g.reshape(-1, g.shape[-1]).sum(0) if ctx.needs_input_grad[2]
+              else None)
         return gx, gw, gb
 
 
@@ -99,6 +102,15 @@ def _check_matmul(matmul: str, dtype: Optional[torch.dtype]) -> str:
         raise ValueError(f"matmul={matmul!r} is a rule for f32 networks; these "
                          f"compute in {dtype} under autocast")
     return matmul
+
+
+def set_matmul(net: nn.Module, matmul: str) -> None:
+    """Every product of `net`, a network of this file, under the rule
+    `matmul` from here on (its dtype must allow it)."""
+    _check_matmul(matmul, getattr(net, "dtype", None))
+    for m in net.modules():
+        if hasattr(m, "matmul"):
+            m.matmul = matmul
 
 
 def variance_scaling_(weight: torch.Tensor, scale: float,
@@ -202,19 +214,22 @@ class LSTMCore(nn.Module):
     rollout), and `seq(x_seq, (h, c), done_seq)`, the BPTT replay of a
     (B, T, in) sequence: one input projection over all T steps, then T
     recurrent steps. It runs inside its caller's autocast; the carry comes
-    in f32 and stays f32 (a bf16 gate times the f32 cell promotes)."""
+    in f32 and stays f32 (a bf16 gate times the f32 cell promotes). `wx` and
+    `wh` take the products' rule `matmul`."""
 
-    def __init__(self, n_in: int, features: int, generator: torch.Generator):
+    def __init__(self, n_in: int, features: int, generator: torch.Generator,
+                 matmul: str = "f32"):
         super().__init__()
         self.wx = nn.Linear(n_in, 4 * features, bias=False)
         self.wh = nn.Linear(features, 4 * features)
+        self.matmul = matmul
         with torch.no_grad():
             variance_scaling_(self.wx.weight, 1.0, generator)
             nn.init.orthogonal_(self.wh.weight, generator=generator)
             self.wh.bias.zero_()
 
     def _step(self, h, c, x_gates):
-        gates = x_gates + self.wh(h)
+        gates = x_gates + _linear(self.wh, h, self.matmul)
         # the cell's elementwise math in the gates' dtype, on every device
         # (CUDA's autocast would take exp to f32)
         with torch.autocast(gates.device.type, enabled=False):
@@ -223,7 +238,7 @@ class LSTMCore(nn.Module):
             return _sigmoid(o) * torch.tanh(c2), c2
 
     def forward(self, x: torch.Tensor, hidden: Hidden):
-        h2, c2 = self._step(*hidden, self.wx(x))
+        h2, c2 = self._step(*hidden, _linear(self.wx, x, self.matmul))
         return h2, (h2.float(), c2.float())
 
     def seq(self, x_seq: torch.Tensor, hidden: Hidden,
@@ -232,7 +247,7 @@ class LSTMCore(nn.Module):
         output at step t is the h before the reset (the action at t came
         from it); the carry into t + 1 is zeroed where done_seq[:, t] is
         set, as the rollout zeroes it."""
-        x_gates = self.wx(x_seq)
+        x_gates = _linear(self.wx, x_seq, self.matmul)
         h, c = hidden
         outs = []
         for t in range(x_seq.shape[1]):
@@ -246,15 +261,18 @@ class LSTMCore(nn.Module):
 
 class _LSTMNet(nn.Module):
     """The recurrent trunk: the LSTM, LayerNorm (flax's epsilon) and the
-    MLP `mlp_0`..; `_trunk` runs once on stacked (B, T, H) outputs."""
+    MLP `mlp_0`..; `_trunk` runs once on stacked (B, T, H) outputs. Every
+    product of the network takes the rule `matmul`."""
 
     def __init__(self, n_in: int, lstm_units: int, units: Sequence[int],
                  activation: str, layer_norm: bool,
-                 dtype: Optional[torch.dtype], generator: torch.Generator):
+                 dtype: Optional[torch.dtype], generator: torch.Generator,
+                 matmul: str = "f32"):
         super().__init__()
         self.dtype = dtype
+        self.matmul = _check_matmul(matmul, dtype)
         self.act = _ACTS[activation]
-        self.lstm = LSTMCore(n_in, lstm_units, generator)
+        self.lstm = LSTMCore(n_in, lstm_units, generator, matmul)
         self.ln = nn.LayerNorm(lstm_units, eps=LN_EPS) if layer_norm else None
         sizes = [lstm_units, *units]
         for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:])):
@@ -265,7 +283,7 @@ class _LSTMNet(nn.Module):
     def _trunk(self, out: torch.Tensor) -> torch.Tensor:
         x = self.ln(out) if self.ln is not None else out
         for i in range(self.n_mlp):
-            x = self.act(getattr(self, f"mlp_{i}")(x))
+            x = self.act(_linear(getattr(self, f"mlp_{i}"), x, self.matmul))
         return x
 
 
@@ -278,17 +296,19 @@ class LSTMActorCritic(_LSTMNet):
                  units: Sequence[int] = (512, 512, 256, 128),
                  activation: str = "elu", sigma_init: float = 0.0,
                  layer_norm: bool = True, dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 matmul: str = "f32"):
         g = generator if generator is not None else torch.Generator()
         super().__init__(num_obs, lstm_units, units, activation, layer_norm,
-                         dtype, g)
+                         dtype, g, matmul)
         self.mu = _dense(self.width, num_actions, 0.01, g)
         self.log_std = nn.Parameter(torch.full((num_actions,), float(sigma_init)))
         self.value = _dense(self.width, 1, 1.0, g)
 
     def _heads(self, out):
         x = self._trunk(out)
-        return self.mu(x).float(), self.log_std, self.value(x)[..., 0].float()
+        return (_linear(self.mu, x, self.matmul).float(), self.log_std,
+                _linear(self.value, x, self.matmul)[..., 0].float())
 
     def forward(self, obs: torch.Tensor, hidden: Hidden):
         """(mu, log_std, value, hidden after the step)."""
@@ -311,25 +331,28 @@ class LSTMCentralValue(_LSTMNet):
     def __init__(self, num_states: int, lstm_units: int = 1024,
                  units: Sequence[int] = (512,), activation: str = "relu",
                  layer_norm: bool = True, dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 matmul: str = "f32"):
         g = generator if generator is not None else torch.Generator()
         super().__init__(num_states, lstm_units, units, activation, layer_norm,
-                         dtype, g)
+                         dtype, g, matmul)
         self.value = _dense(self.width, 1, 1.0, g)
+
+    def _head(self, out):
+        return _linear(self.value, self._trunk(out), self.matmul)[..., 0].float()
 
     def forward(self, states: torch.Tensor, hidden: Hidden):
         """(value, hidden after the step)."""
         with _autocast(states, self.dtype):
             out, hidden = self.lstm(states, hidden)
-            value = self.value(self._trunk(out))[..., 0].float()
+            value = self._head(out)
         return value, hidden
 
     def seq(self, states_seq: torch.Tensor, hidden: Hidden,
             done_seq: torch.Tensor) -> torch.Tensor:
         """BPTT replay: (B, T, states) -> values (B, T)."""
         with _autocast(states_seq, self.dtype):
-            outs = self.lstm.seq(states_seq, hidden, done_seq)
-            return self.value(self._trunk(outs))[..., 0].float()
+            return self._head(self.lstm.seq(states_seq, hidden, done_seq))
 
 
 def gaussian_logprob(mu, log_std, action):

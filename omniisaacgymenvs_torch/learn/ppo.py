@@ -260,11 +260,11 @@ class PPOConfig:
     seq_len: int = 4
     # bf16 network compute over f32 parameters; losses and norms stay f32
     mixed_precision: bool = False
-    # the matrix products of f32 feed-forward networks (networks.MATMULS):
-    # "bf16_operands", the TPU's default precision, which the JAX package's
-    # networks trained at on its chip (ROADMAP §C3, §C4), or exact "f32".
-    # LSTM and autocast (mixed_precision) networks compute as their dtype
-    # says, whatever this reads
+    # the matrix products of f32 networks, feed-forward and LSTM
+    # (networks.MATMULS): "bf16_operands", the TPU's default precision,
+    # which the JAX package's networks trained at on its chip (ROADMAP §C3,
+    # §C4, §C7), or exact "f32". Autocast (mixed_precision) networks
+    # compute in bf16, whatever this reads
     net_matmul: str = "bf16_operands"
     # asymmetric mode only: also train the actor's own value head on returns
     actor_aux_value_loss: bool = False
@@ -367,7 +367,8 @@ class PPOTrainer:
         if self.is_rnn:
             ac = LSTMActorCritic(env.num_obs, env.num_actions, cfg.rnn_units,
                                  tuple(cfg.units), cfg.activation, cfg.sigma_init,
-                                 dtype=net_dtype, generator=init_gen)
+                                 dtype=net_dtype, generator=init_gen,
+                                 matmul=self.net_matmul)
         else:
             ac = ActorCritic(env.num_obs, env.num_actions, tuple(cfg.units),
                              cfg.activation, cfg.sigma_init, net_dtype, init_gen,
@@ -375,7 +376,8 @@ class PPOTrainer:
         if self.is_cv_rnn:
             cv = LSTMCentralValue(env.num_states, cfg.cv_rnn_units,
                                   tuple(cfg.cv_units), cfg.cv_activation,
-                                  dtype=net_dtype, generator=init_gen)
+                                  dtype=net_dtype, generator=init_gen,
+                                  matmul=self.net_matmul)
         elif self.use_cv:
             cv = CentralValue(env.num_states, tuple(cfg.cv_units),
                               cfg.cv_activation, net_dtype, init_gen,
@@ -413,16 +415,11 @@ class PPOTrainer:
         )
 
     def _net_matmul(self) -> str:
-        """The networks' matmul rule: `net_matmul` for f32 feed-forward
-        networks (the networks check its value); "f32" for the LSTM
-        networks, which compute in f32 or, with `mixed_precision`, under
-        autocast, and for autocast feed-forward networks, whose products
-        are bf16."""
-        rule = self.cfg.net_matmul
-        if self.is_rnn or self.cfg.mixed_precision:
-            _check_matmul(rule, None)   # an unknown name still raises
-            return "f32"
-        return rule
+        """The networks' matmul rule: `net_matmul` for f32 networks,
+        feed-forward and LSTM (an unknown name raises); "f32" for
+        autocast networks (`mixed_precision`), whose products are bf16."""
+        rule = _check_matmul(self.cfg.net_matmul, None)   # an unknown name raises
+        return "f32" if self.cfg.mixed_precision else rule
 
     # ------------------------------------------------------------------
     def _policy(self, ts: TrainState, obs, states, hidden=(), cv_hidden=()):

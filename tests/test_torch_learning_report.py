@@ -142,3 +142,24 @@ def test_report_sigma_windows_and_gaps():
     assert w["jax.sigma"] == pytest.approx(-374.0 / 300.0, rel=1e-5)
     assert w["gap_jax.sigma"] == pytest.approx(187.0 / 300.0, rel=1e-5)
     assert w["port.kl"] == pytest.approx(sum(r["kl"] for r in port[150:225]) / 75)
+
+
+def test_report_critic_loss_windows_and_ratios():
+    """`keys=critic_loss`: each window's mean critic loss and each
+    reference's ratio, the port's over the reference's; None where a
+    history lacks the window."""
+    port, ref, short = _hist(300), _hist(300), _hist(230)
+    for e, (p, r) in enumerate(zip(port, ref)):
+        p["critic_loss"], r["critic_loss"] = 0.03 + 1e-4 * e, 0.001 + 1e-6 * e
+    for r in short:
+        r["critic_loss"] = 0.02
+    out = learning_report.report(port, dict(jax=ref, short=short), at=(), window=75,
+                                 every=75, start=150, keys=("critic_loss",))
+    w0, w1 = out["windows"]
+    assert w0["port.critic_loss"] == pytest.approx(0.03 + 1e-4 * 187.0, rel=1e-5)
+    assert w0["jax.critic_loss"] == pytest.approx(0.001 + 1e-6 * 187.0, rel=1e-5)
+    assert w0["ratio_jax.critic_loss"] == pytest.approx(
+        (0.03 + 1e-4 * 187.0) / (0.001 + 1e-6 * 187.0), rel=1e-5)
+    assert w0["ratio_short.critic_loss"] == pytest.approx((0.03 + 1e-4 * 187.0) / 0.02,
+                                                          rel=1e-5)
+    assert w1["short.critic_loss"] is None and w1["ratio_short.critic_loss"] is None

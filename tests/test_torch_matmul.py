@@ -148,8 +148,9 @@ def test_which_trainer_takes_the_rule():
     assert _rule("f32") == "f32"
     assert _rule("f32", rnn=True) == "f32"
     assert _rule("bf16_operands") == "bf16_operands"
-    # the LSTM networks and the autocast ones compute as their dtype says
-    assert _rule("bf16_operands", rnn=True) == "f32"
+    # f32 LSTM networks take the rule as the feed-forward ones do; the
+    # autocast ones compute as their dtype says
+    assert _rule("bf16_operands", rnn=True) == "bf16_operands"
     stub = types.SimpleNamespace(
         cfg=PPOConfig(net_matmul="bf16_operands", mixed_precision=True), is_rnn=False)
     assert PPOTrainer._net_matmul(stub) == "f32"
@@ -174,12 +175,12 @@ def test_cli_key_sets_the_rule():
 
 def test_the_default_is_exact_f32():
     """Exact f32 (TF32 off) is the networks' own default, and the rule of
-    every trainer whose networks are LSTM or autocast; a trainer of f32
-    feed-forward networks takes the TPU's rule unless f32 is asked for
+    every trainer whose networks are autocast; a trainer of f32 networks,
+    feed-forward or LSTM, takes the TPU's rule unless f32 is asked for
     (`net_matmul=f32`; test_the_learners_default_is_the_tpus_rule)."""
     for rnn, mixed in ((True, False), (True, True), (False, True)):
         stub = types.SimpleNamespace(cfg=PPOConfig(mixed_precision=mixed), is_rnn=rnn)
-        assert PPOTrainer._net_matmul(stub) == "f32"
+        assert PPOTrainer._net_matmul(stub) == ("f32" if mixed else "bf16_operands")
     net = ActorCritic(8, 2, units=(16,), generator=torch.Generator().manual_seed(0))
     assert net.matmul == "f32" and net.trunk.matmul == "f32"
     x = torch.randn(4, 8, generator=torch.Generator().manual_seed(1))

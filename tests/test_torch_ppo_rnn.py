@@ -7,7 +7,9 @@ permutations; one whole Cartpole `_epoch` with `rnn="lstm"` (and with an
 LSTM central value on states equal to the observations); and the PPO ratio
 starting at 1 when episodes end inside the sequences. The networks' weights
 cross from the JAX trainer through convert.py; the data is made from a
-numpy seed.
+numpy seed. The JAX learner on the CPU computes its networks in exact f32,
+so the port's trainers here ask for f32 (`net_matmul`, whose default rule
+the LSTM networks take as the feed-forward ones do).
 
 Tolerances (float32), those of tests/test_torch_ppo.py:
 - forward values, losses and gradients: rtol 1e-4, atol 1e-6 (gradients:
@@ -40,7 +42,7 @@ from omniisaacgymenvs_tpu.learn import PPOConfig as JPPOConfig
 from omniisaacgymenvs_tpu.learn import PPOTrainer as JPPOTrainer
 from omniisaacgymenvs_tpu.learn.networks import gaussian_logprob as jlogprob
 from omniisaacgymenvs_tpu.tasks import get_task as jget_task
-from test_torch_ppo import StubEnv, _assert_update_rule, _jax_perms, _params_np
+from test_torch_ppo import F32, StubEnv, _assert_update_rule, _jax_perms, _params_np
 from torch_parity import lstm_named_arrays, np_, to_numpy_tree
 
 FWD = dict(rtol=1e-4, atol=1e-6)
@@ -91,7 +93,7 @@ def _kw(cv, **kw):
 def _stub_pair(kw, n_obs=10, n_states=14, n_act=4, seed=0):
     n_states = n_states if kw.get("central_value") else 0
     jtr = JPPOTrainer(StubEnv(16, n_obs, n_states, n_act), JPPOConfig(**kw), seed)
-    tr = PPOTrainer(StubEnv(16, n_obs, n_states, n_act), PPOConfig(**kw), seed)
+    tr = PPOTrainer(StubEnv(16, n_obs, n_states, n_act), PPOConfig(**kw, **F32), seed)
     _sync(jtr, tr, norm_seed=1)
     return jtr, tr
 
@@ -234,7 +236,7 @@ def _task_pair(kw, seed=0):
     if kw.get("central_value"):
         jtask, task = _with_states(jtask), _with_states(task)
     jtr = JPPOTrainer(JVecEnv(jtask, N), JPPOConfig(**kw), seed)
-    tr = PPOTrainer(VecEnv(task, N, seed=seed), PPOConfig(**kw), seed)
+    tr = PPOTrainer(VecEnv(task, N, seed=seed), PPOConfig(**kw, **F32), seed)
     f = {k: to_numpy_tree(getattr(jtr.state.es, k))
          for k in ("phys", "carry", "obs", "states", "reward", "done",
                    "timeout", "progress", "metrics")}

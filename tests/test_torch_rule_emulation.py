@@ -55,6 +55,21 @@ mu 2.2e5 times as far; its learner epoch, in units of each bound,
 parameters 67, Adam's moments 145 and 126, KL 18, metrics 3.8. The port's
 rule is JAX's under the emulated rule: no fault in its wiring.
 
+The LSTM networks (fault C7): the same emulation reaches `LSTMCore`'s
+`wx` and `wh`, the MLP and the heads (all `nn.Dense`). A JAX Cartpole
+trainer with an LSTM actor-critic of 16 units before a [16] MLP (`LSTM_KW`,
+LSTM_N envs, exact-f32 networks otherwise) is built inside the patch and
+runs one epoch; the port's LSTM trainer under the rule, its networks and
+norms set to JAX's, replays JAX's observations through `seq` from the
+rollout's start states with its resets (the forward, `FWD`), and learns on
+JAX's trajectory with JAX's permutations (the learner, the same
+tolerances); the port's exact-f32 networks and epoch are the control that
+must fail them. Measured on the CPU, in units of each bound: the forward's
+mu 1.0e-3, value 1.2e-3; the learner's parameters 1.3e-2, Adam's moments
+8.7e-3 and 1.8e-3, KL 3.8e-2, metrics 7.7e-4. Exact f32 parts from JAX's mu
+6.0e4 times as far, and its epoch breaks the bounds 6.6 (parameters), 7.0
+and 4.8 (moments) and 3.9 (KL) times.
+
     PYTHONPATH=.:tests python tests/test_torch_rule_emulation.py   # the gaps as JSON
 """
 
@@ -71,12 +86,20 @@ import torch
 from jax import lax
 
 from omniisaacgymenvs_torch import convert
-from omniisaacgymenvs_torch.learn.networks import _linear
+from omniisaacgymenvs_torch.envs import VecEnv
+from omniisaacgymenvs_torch.learn import PPOConfig, PPOTrainer
+from omniisaacgymenvs_torch.learn.networks import _linear, set_matmul
+from omniisaacgymenvs_torch.learn.running_norm import RunningNorm
 from omniisaacgymenvs_torch.scripts import train as ttrain
+from omniisaacgymenvs_torch.tasks import get_task
+from omniisaacgymenvs_tpu.envs import VecEnv as JVecEnv
+from omniisaacgymenvs_tpu.learn import PPOConfig as JPPOConfig
+from omniisaacgymenvs_tpu.learn import PPOTrainer as JPPOTrainer
+from omniisaacgymenvs_tpu.tasks import get_task as jget_task
 from test_torch_late_learner import KL, METRICS, NORM, _moments, _record_lr_steps
 from test_torch_ppo import _assert_update_rule, _jax_perms, _params_np
 from torch_jax_checkpoint import carry_state, jax_trainer
-from torch_parity import np_, to_numpy_tree
+from torch_parity import lstm_named_arrays, np_, to_numpy_tree
 
 RULE = "bf16_operands"
 N = 64
@@ -86,6 +109,11 @@ FLIP_SHARE = 1e-4
 MOMENT_ATOL = 1e-3   # of each tensor's largest element
 PARAM_REL = 1e-3   # of each tensor's movement (_assert_update_rule)
 CONTROL_MIN = 10.0
+# the LSTM case: 16 sequences of 4 steps a minibatch, 4 a mini-epoch
+LSTM_N = 16
+LSTM_KW = dict(units=(16,), rnn="lstm", rnn_units=16, seq_len=4, horizon_length=16,
+               minibatch_size=64, mini_epochs=4, reward_shaper_scale=0.1)
+LSTM_UPDATES = 16
 
 
 def _round(x):
@@ -228,7 +256,7 @@ def _epoch_pair(jtr):
     n_flips = flips(jtr, tr, np.asarray(jtraj["obs"]))
     with torch.no_grad():
         mu, _, value, _, _ = tr._policy(start, obs, None)
-        start.ac.matmul = start.ac.trunk.matmul = "f32"
+        set_matmul(start.ac, "f32")
         mu32 = tr._policy(start, obs, None)[0]
     rollout = (jts, jtraj, jlast, jstats, perms)
     port = _port_learn(tr, rec, *rollout)
@@ -294,9 +322,9 @@ def test_learner_comparison_parts_exact_f32(run):
         assert_epoch_matches(run["port32"], run["jax"], run["init"])
 
 
-def assert_epoch_matches(p, j, init):
+def assert_epoch_matches(p, j, init, updates=32):
     n = len(j["rec"])
-    assert n == len(p["rec"]) == 32 and p["count"] == j["count"] == n
+    assert n == len(p["rec"]) == updates and p["count"] == j["count"] == n
     for i, ((kl, lr0, lr1), (jkl, jlr0, jlr1)) in enumerate(zip(p["rec"], j["rec"])):
         assert abs(kl - jkl) <= KL["atol"] + KL["rtol"] * abs(jkl), (i, kl, jkl)
         np.testing.assert_allclose([lr0, lr1], [jlr0, jlr1], rtol=1e-6, err_msg=str(i))
@@ -334,6 +362,120 @@ def learner_gaps(p, j, init):
     return g
 
 
+def emulated_lstm_epoch():
+    """One JAX epoch of the LSTM actor-critic under the emulated rule, and
+    the port's LSTM trainer under the rule (and in exact f32, the control)
+    on its observations and trajectory from the same state."""
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(flax_linear, "lax", _Lax())
+        jtr = JPPOTrainer(JVecEnv(jget_task("Cartpole"), LSTM_N), JPPOConfig(**LSTM_KW),
+                          seed=0)
+        try:
+            return _lstm_epoch_pair(jtr)
+        finally:
+            del jtr
+
+
+def _lstm_port_trainer(jtr, rule):
+    tr = PPOTrainer(VecEnv(get_task("Cartpole", device="cpu"), LSTM_N, seed=0),
+                    PPOConfig(**LSTM_KW, net_matmul=rule), seed=0)
+    assert tr.net_matmul == rule and tr.state.ac.lstm.matmul == rule
+    convert.lstm_actor_critic_from_arrays(to_numpy_tree(jtr.state.params["ac"]),
+                                          tr.state.ac)
+    for name in ("obs_norm", "value_norm", "states_norm"):
+        jn = getattr(jtr.state, name)
+        setattr(tr.state, name, RunningNorm(*(torch.as_tensor(np.array(getattr(jn, f)))
+                                              for f in ("mean", "var", "count"))))
+    return tr
+
+
+def _lstm_forward(tr, ts, jtraj, hidden0):
+    """(mu, value) of the port's networks on JAX's observations: `seq` over
+    the horizon from the rollout's start states, resetting where JAX's
+    episodes ended, as its rollout stepped them."""
+    obs = torch.as_tensor(np.array(jtraj["obs"])).transpose(0, 1)
+    done = torch.as_tensor(np.array(jtraj["done"])).transpose(0, 1)
+    with torch.no_grad():
+        mu, _, v = ts.ac.seq(ts.obs_norm.normalize(obs), hidden0, done)
+    return np_(mu.transpose(0, 1)), np_(ts.value_norm.denormalize(v).transpose(0, 1))
+
+
+def _lstm_epoch_pair(jtr):
+    tr = _lstm_port_trainer(jtr, RULE)
+    jrec, rec = _record_lr_steps(jtr, tr)
+    cfg = tr.cfg
+    slices = LSTM_N * cfg.horizon_length // cfg.seq_len
+    perms = torch.as_tensor(np.array(_jax_perms(
+        jax.random.split(jtr.state.rng)[0], cfg.mini_epochs, slices)))
+    init = _params_np(tr.state.ac)
+    hidden0 = tuple(torch.as_tensor(np.array(h)) for h in jtr.state.hidden)
+    start = copy.deepcopy(tr.state)
+    jts_r, jtraj, jlast, jstats = jax.jit(jtr._rollout)(jtr.state)
+
+    def learn(ts, traj, last, stats):
+        jtr._rollout = lambda _: (ts, traj, last, stats)
+        try:
+            return jtr._epoch(ts)
+        finally:
+            del jtr._rollout
+
+    jts, jm = jax.jit(learn)(jts_r, jtraj, jlast, jstats)
+    jax.effects_barrier()
+    mu, value = _lstm_forward(tr, start, jtraj, hidden0)
+    set_matmul(start.ac, "f32")
+    mu32 = _lstm_forward(tr, start, jtraj, hidden0)[0]
+    rollout = (jts, jtraj, jlast, jstats, perms)
+    port = _port_learn(tr, rec, *rollout)
+    tr32 = _lstm_port_trainer(jtr, "f32")
+    port32 = _port_learn(tr32, _record_lr_steps(jtr, tr32)[1], *rollout)
+    adam = jts.opt_state[1]
+    arrays = lambda t: lstm_named_arrays(to_numpy_tree(t["ac"]), 1)  # noqa: E731
+    moments = {k: v for k, v in arrays(adam.mu).items()}
+    return dict(
+        init=init, mu32=mu32,
+        fwd=dict(mu=(mu, np.asarray(jtraj["mu"])), value=(value, np.asarray(jtraj["value"]))),
+        port=port, port32=port32,
+        jax=dict(params=arrays(jts.params), mu=moments, nu=arrays(adam.nu),
+                 count=float(adam.count), lr=float(jts.lr),
+                 norms={(n, f): np.asarray(getattr(getattr(jts, n), f)) for n, f in NORMS},
+                 metrics={k: float(v) for k, v in jm.items()}, rec=list(jrec)))
+
+
+@pytest.fixture(scope="module")
+def lstm_run():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(2, threads))
+    try:
+        yield emulated_lstm_epoch()
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_lstm_forward_matches_jax(lstm_run):
+    """C7: the port's LSTM networks under the rule on JAX's observations
+    against the mu and value JAX's rollout took under the emulated rule;
+    the exact-f32 forward parts from JAX's mu by over ten times as far."""
+    for k, (a, b) in lstm_run["fwd"].items():
+        assert _fwd_close(a, b).all(), (k, float(np.abs(a - b).max()))
+    port, jmu = lstm_run["fwd"]["mu"]
+    assert np.abs(lstm_run["mu32"] - jmu).max() > 10.0 * np.abs(port - jmu).max()
+
+
+def test_lstm_learner_epoch_matches_jax(lstm_run):
+    """C7: the port's LSTM learner epoch under the rule on JAX's trajectory
+    from the same state, at the feed-forward case's tolerances."""
+    assert_epoch_matches(lstm_run["port"], lstm_run["jax"], lstm_run["init"],
+                         LSTM_UPDATES)
+
+
+def test_lstm_learner_comparison_parts_exact_f32(lstm_run):
+    """The LSTM control: the port's exact-f32 epoch on the same trajectory
+    from the same state fails the comparison."""
+    with pytest.raises(AssertionError):
+        assert_epoch_matches(lstm_run["port32"], lstm_run["jax"], lstm_run["init"],
+                             LSTM_UPDATES)
+
+
 def gaps(r):
     """The comparisons' worst gaps, each in units of its bound; the exact
     f32 forward's and learner epoch's beside the rule's."""
@@ -342,11 +484,11 @@ def gaps(r):
          for k, (a, b) in r["fwd"].items()}
     g["f32_mu_over_rule_mu"] = float(np.abs(r["mu32"] - r["fwd"]["mu"][1]).max()
                                      / np.abs(r["fwd"]["mu"][0] - r["fwd"]["mu"][1]).max())
-    return dict(flips=r["flips"], **g,
+    return dict(**({"flips": r["flips"]} if "flips" in r else {}), **g,
                 learner=learner_gaps(r["port"], r["jax"], r["init"]),
                 learner_f32=learner_gaps(r["port32"], r["jax"], r["init"]))
 
 
 if __name__ == "__main__":
-    print(json.dumps(gaps(emulated_epoch())))
+    print(json.dumps(dict(ff=gaps(emulated_epoch()), lstm=gaps(emulated_lstm_epoch()))))
     sys.exit(0)

@@ -1,5 +1,6 @@
-"""The policy's sigma record of the port's learning rows against the JAX
-package's histories (fault C6, ROADMAP §C6). Reads JSON only.
+"""The policy's sigma record and the critic record of the port's learning
+rows against the JAX package's histories (fault C6, ROADMAP §C6). Reads
+JSON only.
 
 The policy's log-std is a state-independent parameter in both packages, so
 an epoch's logged `entropy` is sum(log sigma_i) + 1.419 n: a readout of
@@ -22,6 +23,14 @@ window 225), measured after the band was stated; the rows of OUTSIDE within
 it are named in WITHIN_SEED_SPREAD, and stay in OUTSIDE. The lists are the
 record: a change to the learner's arithmetic reads them first, and a row
 leaves OUTSIDE only when a rerun brings it within BAND.
+
+The critic record: the same rows' mean `critic_loss` (the value loss in
+normalized-value space) over the same windows against JAX's. CRITIC_FACTOR,
+3, was stated before the record was computed: a row whose window mean stands
+more than 3 times above or below JAX's in any window is named in
+CRITIC_OUTSIDE with its fault and its largest factor (max of port / JAX and
+JAX / port over the windows, as measured). A row leaves CRITIC_OUTSIDE only
+when a rerun brings it inside.
 """
 
 import json
@@ -31,7 +40,7 @@ import pytest
 
 from omniisaacgymenvs_torch.learn import PPOConfig
 from test_torch_learning_record import LEARNING, named_rules, record
-from torch_learning_report import log_sigma, n_actions
+from torch_learning_report import log_sigma, n_actions, window_mean
 
 ROOT = Path(__file__).resolve().parents[1]
 START, END, WIDTH = 150, 750, 75
@@ -49,6 +58,14 @@ OUTSIDE = {
     "ShadowHand_DR": ("C6", 0.064),
 }
 WITHIN_SEED_SPREAD = {"Ingenuity", "ShadowHand_DR"}
+CRITIC_FACTOR = 3.0
+# row: (fault, the largest factor between the port's and JAX's window means,
+# to 3 decimals)
+CRITIC_OUTSIDE = {
+    "BallBalance": ("C6", 86.952),
+    "Crazyflie": ("C6", 13.045),
+    "FrankaCabinet": ("C6", 25.833),
+}
 RULE_ROWS = sorted(r for r in LEARNING if named_rules(record(r)) == {PPOConfig().net_matmul})
 WINDOWED = [r for r in RULE_ROWS if min(END, LEARNING[r]["epochs"]) >= START + WIDTH]
 
@@ -86,6 +103,7 @@ def test_band_is_twice_the_rule_seeds_spread(seeds, width):
 
 def test_outside_rows_are_rule_rows_with_a_window():
     assert set(OUTSIDE) <= set(WINDOWED)
+    assert set(CRITIC_OUTSIDE) <= set(WINDOWED)
     assert "FrankaCabinet" in WINDOWED
     assert WITHIN_SEED_SPREAD <= set(OUTSIDE)
 
@@ -105,3 +123,25 @@ def test_sigma_within_band_of_jax_or_named(row):
         assert (worst <= SEED_SPREAD) == (row in WITHIN_SEED_SPREAD), (row, worst)
     else:
         assert worst <= BAND, (row, worst)
+
+
+def critic_factors(row: str) -> list:
+    """The port's mean critic loss over JAX's, window by window."""
+    port = history(ROOT / "results_torch" / row / "history.json")
+    ref = history(ROOT / "results" / row / "history.json")
+    end = min(END, LEARNING[row]["epochs"])
+    starts = range(START, end - WIDTH + 1, WIDTH)
+    got = [window_mean(port, s, WIDTH, "critic_loss") for s in starts]
+    want = [window_mean(ref, s, WIDTH, "critic_loss") for s in starts]
+    assert got and None not in got and None not in want, row
+    return [a / b for a, b in zip(got, want)]
+
+
+@pytest.mark.parametrize("row", WINDOWED)
+def test_critic_within_factor_of_jax_or_named(row):
+    worst = max(max(f, 1.0 / f) for f in critic_factors(row))
+    if row in CRITIC_OUTSIDE:
+        fault, factor = CRITIC_OUTSIDE[row]
+        assert worst > CRITIC_FACTOR and round(worst, 3) == factor, (row, fault, worst)
+    else:
+        assert worst <= CRITIC_FACTOR, (row, worst)

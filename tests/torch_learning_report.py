@@ -13,7 +13,7 @@ say where two curves part.
 
     python tests/torch_learning_report.py results_torch/FrankaCabinet/history.json \
         jax=results/FrankaCabinet/history.json \
-        start=150 every=75 window=75 keys=sigma,kl,lr,mean_ep_reward
+        start=150 every=75 window=75 keys=sigma,critic_loss,kl,lr,mean_ep_reward
 
 A reference is name=path to a history.json (a list of per-epoch rows with
 `epoch`, `mean_ep_reward`, `lr`, `kl`). Rows are found by their `epoch`,
@@ -24,7 +24,10 @@ the policy's log sigma per action dim (`log_sigma`): the log-std is a
 state-independent parameter, so an epoch's `entropy` is
 sum(log sigma_i) + n ENTROPY_C, a readout of the learner's sigma updates
 far less noisy than the reward; beside it each reference's `gap_<name>`,
-the port's less the reference's. `row=FILE:KEY` names a record row
+the port's less the reference's. The key `critic_loss` (the epoch's mean
+value loss, in normalized-value space) adds beside each window's means
+each reference's `ratio_<name>.critic_loss`, the port's over the
+reference's. `row=FILE:KEY` names a record row
 (`LEARNING.json`) held against the port's summary. The summary is named
 after the history's directory.
 
@@ -141,6 +144,12 @@ def report(port: list, refs: dict, row=None, at=(999, 1999, 4999, 9999), window=
                 r = log_sigma(h, first, window)
                 w[f"gap_{name}.sigma"] = (None if p is None or r is None
                                           else float(f"{p - r:.6g}"))
+        if "critic_loss" in keys:
+            p = window_mean(port, first, window, "critic_loss")
+            for name, h in refs.items():
+                r = window_mean(h, first, window, "critic_loss")
+                w[f"ratio_{name}.critic_loss"] = (None if p is None or not r
+                                                  else float(f"{p / r:.6g}"))
         out["windows"].append(w)
     if bins:
         out["matched"] = matched(dict(port=port, **refs), bins)

@@ -7,6 +7,7 @@
 #
 #   bash tools/c6_arms.sh arms     # f32 on FrankaCabinet and BallBalance, seed 42
 #   bash tools/c6_arms.sh seeds    # f32 on FrankaCabinet at seed 0, the rule at seed 1
+#   bash tools/c6_arms.sh states   # the trained states of tests/test_torch_c6_value.py
 #
 # arms, seed 42:
 #   FrankaCabinet_c6_f32    4096 envs, 750 epochs
@@ -22,6 +23,12 @@
 # The records results_torch/*_c6_{f32value,fwd,3x}* ran under three more
 # rules, since taken out of the tree; PERF.md (Findings, fault C6) says
 # what each computed.
+#
+# states: BallBalance and FrankaCabinet under the default learner, seed 42,
+# 150 epochs each through scripts/train.py, side by side; each run's
+# model.pt (epoch 150), history.json and the card's line go to
+# chiprun_out/c6_state/<task>/, to be committed as
+# results_torch/<task>_c6_state/ (no campaign, no carry).
 #
 # DUR (seconds, default 2400) stops every runner. The runs' output goes to
 # chiprun_out/logs/ (gzipped at the end); the command ends with `campaign
@@ -46,8 +53,23 @@ seeds)
     runner "$DUR" FrankaCabinet_c6_rule_seed1 FrankaCabinet seed=1 $RULE $FRANKA
     runner "$DUR" Crazyflie_seed1 Crazyflie seed=1 $RULE
     ;;
+states)
+    for t in BallBalance FrankaCabinet; do
+        timeout -s TERM "$DUR" python -m omniisaacgymenvs_torch.scripts.train \
+            task=$t seed=42 max_iterations=150 experiment=${t}_c6_state \
+            train.params.config.save_frequency=50 > "$LOGS/${t}_c6_state.log" 2>&1 &
+    done
+    wait
+    for t in BallBalance FrankaCabinet; do
+        mkdir -p "$BACK/c6_state/$t"
+        cp runs/${t}_c6_state/nn/last/model.pt runs/${t}_c6_state/history.json \
+            "$BACK/card.txt" "$BACK/c6_state/$t/"
+    done
+    summary 4 "^trained \|kernel launches\|Error\|error"
+    exit 0
+    ;;
 *)
-    echo "usage: bash tools/c6_arms.sh arms|seeds" >&2
+    echo "usage: bash tools/c6_arms.sh arms|seeds|states" >&2
     exit 2
     ;;
 esac
