@@ -80,6 +80,7 @@ import torch
 
 from omniisaacgymenvs_torch import convert
 from omniisaacgymenvs_torch.learn.networks import gaussian_logprob
+from omniisaacgymenvs_torch.ops.parity import COND_DIRECTIONS, cond_nudge
 from omniisaacgymenvs_torch.scripts import train as ttrain
 from omniisaacgymenvs_torch.scripts.common import build_env_from_cli
 from omniisaacgymenvs_tpu.scripts.common import build_env_from_cli as jbuild_env
@@ -104,6 +105,7 @@ NOISE_SEED = 7
 SD = 4.0
 SENSOR_DIMS = {"BallBalance": tuple(range(12, 18)), "FrankaCabinet": ()}
 ROLLOUT_KEYS = ("obs", "action", "mu", "value", "logp", "reward", "done")
+STATE = "c6_state"
 
 # Step 1's failures as found (fault C6, ROADMAP §C6). The port's own
 # rollout: the first step with a quantity past TRAJ, and each such quantity
@@ -133,14 +135,21 @@ def _use(a, b):
 
 
 @functools.lru_cache(maxsize=None)
-def pair(task):
-    """(JAX trainer, port trainer) at N envs from the committed state."""
+def pair(task, state):
+    """(JAX trainer, port trainer) at N envs from the committed state
+    results_torch/<task>_<state>/model.pt."""
     _, _, tr = ttrain.build_trainer([f"task={task}", f"num_envs={N}", "device=cpu",
-                                     f"checkpoint=results_torch/{task}_c6_state",
+                                     f"checkpoint=results_torch/{task}_{state}",
                                      *MB, F32])
     jtr = jax_trainer(task, N, None, MB)
     carry_state_to_jax(tr, jtr)
     return jtr, tr
+
+
+@functools.lru_cache(maxsize=None)
+def jax_roll(task, state):
+    """JAX's rollout of one horizon, jitted once per trainer."""
+    return jax.jit(pair(task, state)[0]._rollout)
 
 
 def _port_state(jes):
@@ -177,43 +186,67 @@ def _reset_draws(jtask, states):
     return out
 
 
-@functools.lru_cache(maxsize=None)
-@_threads
-def epoch(task):
-    jtr, tr = pair(task)
-    jtask, ptask = jtr.env.task, tr.env.task
-    roll = jax.jit(jtr._rollout)
+def epoch_start(task, state):
+    """JAX's trainer state at the epoch's start: WARMUP horizons from a JAX
+    reset under the held policy, then every env's progress SHORT steps
+    short of the time limit; with the epoch's action noise (T, N, A) and
+    the key left for the learner's permutations."""
+    jtr, tr = pair(task, state)
+    roll = jax_roll(task, state)
     js = jtr.state
     for _ in range(WARMUP):
         js = roll(js)[0]
-    prog = jnp.full(N, ptask.timeout_progress - SHORT, jnp.int32)
+    prog = jnp.full(N, tr.env.task.timeout_progress - SHORT, jnp.int32)
     js = js.replace(es=js.es.replace(progress=prog))
-    cfg, T, A = tr.cfg, tr.cfg.horizon_length, tr.env.num_actions
     rng_after, k = jax.random.split(js.rng)
     noise = []
-    for _ in range(T):
+    for _ in range(tr.cfg.horizon_length):
         k, kt = jax.random.split(k)
-        noise.append(_np(jax.random.normal(kt, (N, A))))
-    noise = np.stack(noise)
-    perms = torch.as_tensor(_np(_jax_perms(rng_after, cfg.mini_epochs, T * N)))
-    jts_r, jtraj, jlast, jstats = roll(js)
-    states = [js.es]
-    for t in range(T):
-        states.append(jtr.env.step(states[-1], jtraj["action"][t]))
-    draws = _reset_draws(jtask, states[:T])
-    start = copy.deepcopy(tr.state)
+        noise.append(_np(jax.random.normal(kt, (N, tr.env.num_actions))))
+    return js, np.stack(noise), rng_after
 
-    # the port's own rollout from JAX's state
+
+@functools.lru_cache(maxsize=None)
+@_threads
+def rollouts(task, state):
+    """The epoch's rollout in both packages from `state`: JAX's (its
+    `_rollout` outputs), JAX's states replayed step by step, JAX's reset
+    draws for each step, and the port's own rollout (ROLLOUT_KEYS) from
+    JAX's start with JAX's noise and reset draws."""
+    jtr, tr = pair(task, state)
+    js, noise, rng_after = epoch_start(task, state)
+    jts_r, jtraj, jlast, jstats = jax_roll(task, state)(js)
+    states = [js.es]
+    for t in range(tr.cfg.horizon_length):
+        states.append(jtr.env.step(states[-1], jtraj["action"][t]))
+    draws = _reset_draws(jtr.env.task, states[:-1])
+    ptask = tr.env.task
     it = iter(draws)
     ptask.sample_reset = lambda n, g: next(it)
     try:
-        ts = copy.deepcopy(start)
+        ts = copy.deepcopy(tr.state)
         ts.es = _port_state(js.es)
         with torch.no_grad():
             own = tr._rollout(ts, torch.as_tensor(noise))[0]
     finally:
         del ptask.sample_reset
-    rollout = {key: np_(own[key]) for key in ROLLOUT_KEYS}
+    return dict(js=js, noise=noise, rng_after=rng_after,
+                jax=(jts_r, jtraj, jlast, jstats), states=states, draws=draws,
+                rollout={key: np_(own[key]) for key in ROLLOUT_KEYS})
+
+
+@functools.lru_cache(maxsize=None)
+@_threads
+def epoch(task):
+    jtr, tr = pair(task, STATE)
+    ptask = tr.env.task
+    ro = rollouts(task, STATE)
+    noise, rng_after = ro["noise"], ro["rng_after"]
+    jts_r, jtraj, jlast, jstats = ro["jax"]
+    states, draws, rollout = ro["states"], ro["draws"], ro["rollout"]
+    cfg, T = tr.cfg, tr.cfg.horizon_length
+    perms = torch.as_tensor(_np(_jax_perms(rng_after, cfg.mini_epochs, T * N)))
+    start = copy.deepcopy(tr.state)
 
     # the env, step by step from JAX's states
     steps = []
@@ -333,7 +366,7 @@ def _jax_tray_contact(task):
     from omniisaacgymenvs_tpu.physics import dynamics as jdyn
     from omniisaacgymenvs_tpu.physics import rotations as jrot
 
-    je = pair(task)[0].env.task.engine
+    je = pair(task, STATE)[0].env.task.engine
     m, g = je.model, je.pair_groups.box
     pi, sb = jnp.asarray(g["pt"]), jnp.asarray(g["sbody"])
     prm = jnp.asarray(g["params"], jnp.float32)
@@ -365,7 +398,7 @@ def tray_contact_parts(task, cell):
     from omniisaacgymenvs_torch.physics import contacts, dynamics
 
     t, env, _ = cell
-    jtr, tr = pair(task)
+    jtr, tr = pair(task, STATE)
     jtask, eng = jtr.env.task, tr.env.task.engine
     contact, substep = _jax_tray_contact(task)
     es = jax.tree_util.tree_map(lambda x: x[env], epoch(task)["states"][t])
@@ -467,7 +500,7 @@ def _port_run(tr, env, es, eps):
 @functools.lru_cache(maxsize=None)
 @_threads
 def episodes(task, steps):
-    jtr, tr = pair(task)
+    jtr, tr = pair(task, STATE)
     n = EPISODE_ENVS[task]
     _, _, jenv = jbuild_env([f"task={task}", f"num_envs={n}", "pipeline=cpu"])
     _, _, env = build_env_from_cli([f"task={task}", f"num_envs={n}", "device=cpu"])
@@ -521,7 +554,7 @@ def test_episode_ends_match_jax(task, steps):
     p, j = r["port"], r["jax"]
     for key in ("limit", "early"):
         assert _poisson_sd(p[key], j[key]) <= SD, (key, p[key], j[key])
-    first = pair(task)[1].env.task.timeout_progress - 1
+    first = pair(task, STATE)[1].env.task.timeout_progress - 1
     assert p["limit_steps"][0] == j["limit_steps"][0] == first
 
 
@@ -551,6 +584,15 @@ def test_episode_observations_match_jax(task, part, steps):
         assert (gap <= SD).all(), (stat, {d: float(g) for d, g in zip(dims, gap)})
 
 
+def nudged(es, d):
+    """A JAX env state with q and qd nudged by `parity.cond_nudge` in
+    direction d."""
+    phys = es.phys.replace(
+        q=jnp.asarray(cond_nudge(torch.as_tensor(_np(es.phys.q)), d).numpy()),
+        qd=jnp.asarray(cond_nudge(torch.as_tensor(_np(es.phys.qd)), d).numpy()))
+    return es.replace(phys=phys)
+
+
 def jax_controls(task) -> dict:
     """JAX against itself, measured after step 1's run (it judges nothing):
     JAX's own step from each of its states with q and qd nudged by the
@@ -559,32 +601,19 @@ def jax_controls(task) -> dict:
     of each recorded env-step part in units of TRAJ; and JAX's own rollout
     from its start state so nudged, the first step at which it parts from
     the rollout unnudged past TRAJ (None if it does not), per direction."""
-    from omniisaacgymenvs_torch.ops.parity import COND_DIRECTIONS, cond_nudge
-
-    jtr, _ = pair(task)
+    jtr, _ = pair(task, STATE)
     r = epoch(task)
     states, actions = r["states"], r["jtraj"]["action"]
-
-    def nudged(es, d):
-        phys = es.phys.replace(
-            q=jnp.asarray(cond_nudge(torch.as_tensor(_np(es.phys.q)), d).numpy()),
-            qd=jnp.asarray(cond_nudge(torch.as_tensor(_np(es.phys.qd)), d).numpy()))
-        return es.replace(phys=phys)
-
     step_change = {}
     for t, env, dim in ENV_STEP_PARTS[task]:
         ref = r["replay"]["obs"][t, env, dim]
         step_change[(t, env, dim)] = max(
             float(_use(_np(jtr.env.step(nudged(states[t], d), actions[t]).obs)[env, dim], ref))
             for d in COND_DIRECTIONS)
-    roll = jax.jit(jtr._rollout)
-    js = jtr.state
-    for _ in range(WARMUP):
-        js = roll(js)[0]
-    js = js.replace(es=js.es.replace(progress=states[0].progress))
+    js = rollouts(task, STATE)["js"]
     first = {}
     for d in COND_DIRECTIONS:
-        traj = roll(js.replace(es=nudged(js.es, d)))[1]
+        traj = jax_roll(task, STATE)(js.replace(es=nudged(js.es, d)))[1]
         past = [t for t in range(len(traj["obs"]))
                 if any(_use(_np(traj[k][t]), r["jtraj"][k][t]).max() > 1
                        for k in ROLLOUT_KEYS)]

@@ -12,6 +12,9 @@ say where two curves part.
         [start=0] [keys=mean_ep_reward,lr,kl] [bins=800,1000,1200,1400,1700]
 
     python tests/torch_learning_report.py results_torch/FrankaCabinet/history.json \
+        jax=results/FrankaCabinet/history.json keys=wave [rest=32-259]
+
+    python tests/torch_learning_report.py results_torch/FrankaCabinet/history.json \
         jax=results/FrankaCabinet/history.json \
         start=150 every=75 window=75 keys=sigma,critic_loss,kl,lr,mean_ep_reward
 
@@ -27,7 +30,14 @@ far less noisy than the reward; beside it each reference's `gap_<name>`,
 the port's less the reference's. The key `critic_loss` (the epoch's mean
 value loss, in normalized-value space) adds beside each window's means
 each reference's `ratio_<name>.critic_loss`, the port's over the
-reference's. `row=FILE:KEY` names a record row
+reference's. The key `wave` adds the wave readout (`waves`, fault C6):
+a wave epoch is one whose `episodes` exceed half of WAVE_ENVS, the 4096
+envs of every tracked history (every env reaching the time limit in one
+epoch, as FrankaCabinet's envs do together at epochs 31, 62, 93, ...);
+for the port and each reference, each wave epoch's critic loss and the
+mean critic loss of the other epochs (of epochs `rest=FIRST-LAST` where
+given, both included).
+`row=FILE:KEY` names a record row
 (`LEARNING.json`) held against the port's summary. The summary is named
 after the history's directory.
 
@@ -85,6 +95,24 @@ def log_sigma(hist: list, start: int, width: int):
     return None if m is None or n is None else (m - n * ENTROPY_C) / n
 
 
+WAVE_SHARE = 0.5
+WAVE_ENVS = 4096
+
+
+def waves(hist: list, rest=None) -> dict:
+    """The wave readout of one history: {"waves": {epoch: critic_loss},
+    "rest": mean} over the wave epochs (`episodes` over WAVE_SHARE of
+    WAVE_ENVS) and the mean critic loss over the other epochs, those of
+    rest=(first, last) where given, both included; None where there are
+    none."""
+    wave = {r["epoch"]: r["critic_loss"] for r in hist
+            if r["episodes"] > WAVE_SHARE * WAVE_ENVS}
+    lo, hi = rest if rest else (-math.inf, math.inf)
+    others = [r["critic_loss"] for r in hist
+              if r["epoch"] not in wave and lo <= r["epoch"] <= hi]
+    return dict(waves=wave, rest=sum(others) / len(others) if others else None)
+
+
 MATCH_START = 200
 MATCH_MIN_EPOCHS = 20
 MATCH_KEYS = ("mean_ep_length", "Episode/consecutive_successes", "episodes")
@@ -113,7 +141,7 @@ def matched(hists: dict, bins=(800, 1000, 1200, 1400, 1700), start=MATCH_START,
 
 def report(port: list, refs: dict, row=None, at=(999, 1999, 4999, 9999), window=100,
            every=500, task="port", start=0,
-           keys=("mean_ep_reward", "lr", "kl"), bins=None) -> dict:
+           keys=("mean_ep_reward", "lr", "kl"), bins=None, rest=None) -> dict:
     out = dict(port=summarize(task, port))
     if row is not None:
         out["row"] = row
@@ -130,6 +158,14 @@ def report(port: list, refs: dict, row=None, at=(999, 1999, 4999, 9999), window=
             entry[name] = r
             entry[f"ratio_{name}"] = round(p / r, 3) if p is not None and r else None
         out["at"][str(e)] = entry
+    if "wave" in keys:
+        out["waves"] = {}
+        for name, h in [("port", port), *refs.items()]:
+            w = waves(h, rest=rest)
+            out["waves"][name] = dict(
+                waves={e: float(f"{v:.6g}") for e, v in w["waves"].items()},
+                rest=None if w["rest"] is None else float(f"{w['rest']:.6g}"))
+        keys = tuple(k for k in keys if k != "wave")
     out["windows"] = []
     for first in range(start, port[-1]["epoch"] + 1, every):
         w = dict(epochs=f"{first}-{first + window - 1}")
@@ -177,6 +213,8 @@ def main(argv=None) -> int:
             kw["at"] = tuple(int(x) for x in v.split(","))
         elif k in ("window", "every", "start"):
             kw[k] = int(v)
+        elif k == "rest":
+            kw["rest"] = tuple(int(x) for x in v.split("-"))
         elif k == "keys":
             kw["keys"] = tuple(v.split(","))
         elif k == "bins":

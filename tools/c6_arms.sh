@@ -8,6 +8,7 @@
 #   bash tools/c6_arms.sh arms     # f32 on FrankaCabinet and BallBalance, seed 42
 #   bash tools/c6_arms.sh seeds    # f32 on FrankaCabinet at seed 0, the rule at seed 1
 #   bash tools/c6_arms.sh states   # the trained states of tests/test_torch_c6_value.py
+#   bash tools/c6_arms.sh bootstrap  # the default learner with value_bootstrap=True
 #
 # arms, seed 42:
 #   FrankaCabinet_c6_f32    4096 envs, 750 epochs
@@ -29,6 +30,12 @@
 # model.pt (epoch 150), history.json and the card's line go to
 # chiprun_out/c6_state/<task>/, to be committed as
 # results_torch/<task>_c6_state/ (no campaign, no carry).
+#
+# bootstrap: the setting the JAX TPU records of both tasks were trained
+# under (`value_bootstrap: True`, removed from both train yamls after the
+# records were written): FrankaCabinet_c6_vb (seed 42) and
+# FrankaCabinet_c6_vb_seed0, 750 epochs each, and BallBalance_c6_vb (seed
+# 42, 1500 epochs), under the default rule.
 #
 # DUR (seconds, default 2400) stops every runner. The runs' output goes to
 # chiprun_out/logs/ (gzipped at the end); the command ends with `campaign
@@ -53,6 +60,12 @@ seeds)
     runner "$DUR" FrankaCabinet_c6_rule_seed1 FrankaCabinet seed=1 $RULE $FRANKA
     runner "$DUR" Crazyflie_seed1 Crazyflie seed=1 $RULE
     ;;
+bootstrap)
+    VB=train.params.config.value_bootstrap=True
+    runner "$DUR" FrankaCabinet_c6_vb FrankaCabinet seed=42 $VB $FRANKA
+    runner "$DUR" FrankaCabinet_c6_vb_seed0 FrankaCabinet seed=0 $VB $FRANKA
+    runner "$DUR" BallBalance_c6_vb BallBalance seed=42 $VB max_iterations=1500
+    ;;
 states)
     for t in BallBalance FrankaCabinet; do
         timeout -s TERM "$DUR" python -m omniisaacgymenvs_torch.scripts.train \
@@ -69,7 +82,7 @@ states)
     exit 0
     ;;
 *)
-    echo "usage: bash tools/c6_arms.sh arms|seeds|states" >&2
+    echo "usage: bash tools/c6_arms.sh arms|seeds|states|bootstrap" >&2
     exit 2
     ;;
 esac

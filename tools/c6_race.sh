@@ -1,6 +1,8 @@
 #!/usr/bin/env bash
-# Fault C6's race on the CPU (ROADMAP §C6): BallBalance at its yaml's 4096
-# envs for 120 epochs, runs side by side, each pinned to cores of its own.
+# Fault C6's race on the CPU (ROADMAP §C6): TASK (default BallBalance) at
+# 4096 envs for EPOCHS epochs (default 120), runs side by side, each pinned
+# to cores of its own. Every run saves its state at its last epoch
+# (save_frequency=EPOCHS), under OUT/<run>/runs/<TASK>/nn/last.
 # A run is KIND:SEED:
 #   jax:S   the JAX package's trainer (scripts/train.py, unchanged,
 #           pipeline=cpu) at seed S, run from a directory of its own under
@@ -9,15 +11,27 @@
 # The race is the default, RUNS="jax:42 jax:0 port:42"; two more seeds are
 # RUNS="jax:1 port:0" CORES="0-1 2-3". Each run's history.json and the
 # CPU's model name (cpu.txt, in place of a card's card.txt) go to
-# results_torch/BallBalance_c6_race_<kind><seed>/; logs to OUT/logs. Read
-# the runs with
+# results_torch/<TASK>_c6_race_<kind><seed>/; logs to OUT/logs. A JAX run's
+# last state is carried into a port model.pt by
+#   python tests/torch_jax_checkpoint.py task=<TASK> \
+#       checkpoint=<OUT>/jax42/runs/<TASK>/nn/last out=results_torch/<TASK>_c6_jaxstate
+# Read the runs with
 #   python tests/torch_learning_report.py results_torch/BallBalance_c6_race_port42/history.json \
 #       jax=results/BallBalance/history.json start=40 every=40 window=80 keys=critic_loss
+#   python tests/torch_learning_report.py results_torch/FrankaCabinet_c6_race_port42/history.json \
+#       jax=results/FrankaCabinet/history.json keys=wave
 #
-#   bash tools/c6_race.sh [OUT=build/c6_race] [RUNS=...] [CORES="0-1 2-3 4-5"]
+#   bash tools/c6_race.sh [TASK=BallBalance] [EPOCHS=120] [OUT=build/c6_race] \
+#       [RUNS=...] [CORES="0-1 2-3 4-5"] [EXTRA="key=value ..."] [TAG=_suffix]
 #
-# Some 22 minutes on two cores of an Intel Xeon a run. The records of the
-# runs are overwritten.
+# EXTRA goes to every run's command line (e.g.
+# EXTRA=train.params.config.value_bootstrap=True, the setting the JAX TPU
+# records of BallBalance and FrankaCabinet were trained under); TAG ends
+# the records' directory names.
+#
+# BallBalance's 120 epochs take some 22 minutes on two cores of an Intel
+# Xeon a run; FrankaCabinet's 63 some 70 (JAX) and 95 (the port). The
+# records of the runs are overwritten.
 set -u
 for a in "$@"; do export "$a"; done
 OUT=${OUT:-$(cd "$(dirname "$0")/.." && pwd)/build/c6_race}
@@ -27,7 +41,9 @@ ROOT=$(cd "$(dirname "$0")/.." && pwd)
 mkdir -p "$OUT/logs"
 OUT=$(cd "$OUT" && pwd)
 CPU=$(grep -m1 "model name" /proc/cpuinfo | sed 's/.*: //')
-ARGS="task=BallBalance num_envs=4096 max_iterations=120"
+TASK=${TASK:-BallBalance}
+EPOCHS=${EPOCHS:-120}
+ARGS="task=$TASK num_envs=4096 max_iterations=$EPOCHS train.params.config.save_frequency=$EPOCHS ${EXTRA:-}"
 
 t0=$SECONDS
 names=()
@@ -49,9 +65,9 @@ done
 wait
 echo "race done in $((SECONDS - t0)) s"
 for r in "${names[@]}"; do
-    dst="$ROOT/results_torch/BallBalance_c6_race_$r"
+    dst="$ROOT/results_torch/${TASK}_c6_race_$r${TAG:-}"
     mkdir -p "$dst"
-    cp "$OUT/$r/runs/BallBalance/history.json" "$dst/"
+    cp "$OUT/$r/runs/$TASK/history.json" "$dst/"
     echo "$CPU" > "$dst/cpu.txt"
     echo "== $r"; tail -n 3 "$OUT/logs/$r.log" | cut -c1-200
 done
